@@ -38,12 +38,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def drop_path(x: torch.Tensor, rate: float, generator=None,
               train: bool = False) -> torch.Tensor:
-    """Stochastic depth per sample (batch axis 0); the identity in eval."""
+    """Stochastic depth per sample (batch axis 0); the identity in eval.
+    The keep draws come from ``generator`` (on its own device) when given,
+    as the train step's explicit generator, else from torch's default."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    dev = x.device if generator is None else generator.device
+    mask = (torch.rand(shape, generator=generator, device=dev) < keep
+            ).to(x.device)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -1,4 +1,4 @@
-"""The SLaK model family in PyTorch (NCHW), eval forward.
+"""The SLaK model family in PyTorch (NCHW), eval and train forward.
 
 Port of ``slak_tpu/models/slak.py`` with the reference's module names
 (models/SLaK.py:60-235), so a released ``.pth`` loads with
@@ -18,9 +18,20 @@ taps and packed MLP weights are cached per block and compute dtype, and
 rebuilt when a parameter changes. ``plain=True`` runs the same route
 through the plain PyTorch versions of the kernels.
 
+Train block (``model.train()``, the route of ``slak_tpu``
+``forward_features(train=True)`` with its TPU layout gates dropped): LoRA1
+and LoRA2 each run the stats-fused conv (K4, with the K1 dgrad and the
+wgrad kernel in its backward) and their own BN from the kernel's sums;
+the small branch runs ``F.conv2d`` + train BN; the three outputs are
+summed. The tail runs :class:`~slak_tpu_torch.ops.mlp.FusedMlp` (K2
+forward, K8 backward) where C <= 256 (stages 1-2 of SLaK-T), and the plain
+composition under torch autograd above that, as the JAX route does
+(``TRAIN_WIDE_MLP_BWD = False``). BN running stats update the module
+buffers in place.
+
 The compute dtype is the input's: parameters stay float32 and are rounded
-to it where they are used, as in ``slak_tpu``. Training comes with a later
-slice; the forward raises in train mode.
+to it where they are used, as in ``slak_tpu``, so autograd returns float32
+gradients.
 """
 
 from __future__ import annotations
@@ -33,10 +44,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from slak_tpu_torch.models.layers import LN_EPS, layer_norm, trunc_normal_
-from slak_tpu_torch.ops.batchnorm import fold_bn
-from slak_tpu_torch.ops.depthwise import _pad_center, fold_branches, run_taps
-from slak_tpu_torch.ops.mlp import fused_mlp, fused_mlp_plain, pack_mlp
+from slak_tpu_torch.models.layers import (LN_EPS, drop_path, gelu,
+                                          layer_norm, trunc_normal_)
+from slak_tpu_torch.ops.batchnorm import batch_norm_train, fold_bn
+from slak_tpu_torch.ops.depthwise import (_pad_center, bn_branch_train,
+                                          depthwise_conv2d, fold_branches,
+                                          run_taps)
+from slak_tpu_torch.ops.mlp import (BWD_C_MAX, FusedMlp, fused_mlp,
+                                    fused_mlp_plain, pack_mlp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +142,28 @@ class ReparamLargeKernelConv(nn.Module):
         return [getattr(self, n) for n in ("LoRA1", "LoRA2", "lkb_origin",
                                            "small_conv") if hasattr(self, n)]
 
+    def train_forward(self, x, plain: bool = False):
+        """Sum of the branches in train mode, each rounded to x's dtype
+        (``_lk_forward(train=True)``): the large BN branches through the
+        stats-fused conv, the small one (and BN-less ones) through
+        ``F.conv2d``."""
+        out = None
+        for name in ("LoRA1", "LoRA2", "lkb_origin", "small_conv"):
+            br = getattr(self, name, None)
+            if br is None:
+                continue
+            if hasattr(br, "bn") and name != "small_conv":
+                y = bn_branch_train(x, br.conv.weight, br.bn, plain)
+            else:
+                y = depthwise_conv2d(x, br.conv.weight)
+                if hasattr(br, "bn"):
+                    bn = br.bn
+                    y = batch_norm_train(y, bn.weight, bn.bias,
+                                         bn.running_mean, bn.running_var,
+                                         bn.momentum, bn.eps)
+            out = y if out is None else out + y
+        return out
+
     def eval_taps(self):
         """(taps list, bias_total or None) of the eval fold."""
         if hasattr(self, "lkb_reparam"):
@@ -163,6 +200,7 @@ class Block(nn.Module):
         self.pwconv2 = nn.Linear(4 * c, c)
         if ls_init > 0:
             self.gamma = nn.Parameter(ls_init * torch.ones(c))
+        self.drop_path_rate = 0.0            # set by SLaK from the config
         self._cache: Dict = {}
 
     def _version(self):
@@ -187,14 +225,44 @@ class Block(nn.Module):
         self._cache[key] = (ver, (taps, pk))
         return taps, pk
 
-    def forward(self, x, plain: bool = False):
+    def forward(self, x, plain: bool = False, generator=None):
         if self.training:
-            raise NotImplementedError(
-                "the port runs the eval forward only; call model.eval()")
+            return self._train_forward(x, plain, generator)
         taps, pk = self.prepared(x.dtype, x.device)
         y = run_taps(x, taps, plain)
         mlp = fused_mlp_plain if plain else fused_mlp
         return mlp(y, x, pk, channel_dim=1)
+
+    def _train_forward(self, x, plain, generator):
+        """``_block_forward(train=True)``: the branches, then the fused tail
+        (C <= 256) or the plain composition in the same rounding order
+        (slak_tpu/models/slak.py:702-715); drop-path multiplies the branch
+        outside the fused tail."""
+        y = self.large_kernel.train_forward(x, plain)
+        rate = self.drop_path_rate
+        gamma = getattr(self, "gamma", None)
+        if x.shape[1] <= BWD_C_MAX:
+            if gamma is None:
+                gamma = torch.ones_like(self.norm.weight)
+            args = (y, x, self.norm.weight, self.norm.bias,
+                    self.pwconv1.weight, self.pwconv1.bias,
+                    self.pwconv2.weight, self.pwconv2.bias, gamma)
+            if rate > 0.0:
+                branch = FusedMlp.apply(*args, False, plain)
+                return x + drop_path(branch, rate, generator, train=True)
+            return FusedMlp.apply(*args, True, plain)
+        cdt = y.dtype
+        h = layer_norm(y, self.norm.weight, self.norm.bias, dim=1)
+        h = h.permute(0, 2, 3, 1)
+        h = F.linear(h, self.pwconv1.weight.to(cdt)) + \
+            self.pwconv1.bias.to(cdt)
+        h = gelu(h)
+        h = F.linear(h, self.pwconv2.weight.to(cdt)) + \
+            self.pwconv2.bias.to(cdt)
+        if gamma is not None:
+            h = h * gamma.to(cdt)
+        h = drop_path(h.permute(0, 3, 1, 2), rate, generator, train=True)
+        return (x + h).contiguous()
 
 
 class SLaK(nn.Module):
@@ -219,6 +287,11 @@ class SLaK(nn.Module):
                 Block(dims[i], cfg.stage_kernel(i), cfg.small_kernel,
                       cfg.decom, cfg.branch_bn, cfg.layer_scale_init_value)
                 for _ in range(cfg.depths[i])]))
+        # stochastic depth rises linearly over the blocks (_dp_rates)
+        blocks = [b for st in self.stages for b in st]
+        for j, b in enumerate(blocks):
+            b.drop_path_rate = (cfg.drop_path_rate * j / (len(blocks) - 1)
+                                if len(blocks) > 1 else 0.0)
         self.norm = nn.LayerNorm(dims[-1], eps=LN_EPS)
         self.head = nn.Linear(dims[-1], cfg.num_classes)
 
@@ -243,7 +316,7 @@ class SLaK(nn.Module):
             self.head.bias.mul_(cfg.head_init_scale)
         return self
 
-    def forward_features(self, x, plain: bool = False):
+    def forward_features(self, x, plain: bool = False, generator=None):
         """NCHW images in the compute dtype -> pooled, normed features."""
         for i in range(4):
             ds = self.downsample_layers[i]
@@ -252,24 +325,31 @@ class SLaK(nn.Module):
             else:
                 x = _conv(ds[0](x), ds[1])
             for blk in self.stages[i]:
-                x = blk(x, plain)
+                x = blk(x, plain, generator)
         pooled = x.mean((2, 3))
         return layer_norm(pooled, self.norm.weight, self.norm.bias)
 
-    @torch.no_grad()
-    def forward(self, x, plain: bool = False):
-        """NCHW images -> (N, num_classes) float32 logits (eval: the kernels
-        have no backward yet, so no graph is recorded)."""
-        feats = self.forward_features(x, plain)
+    def forward(self, x, plain: bool = False, generator=None):
+        """NCHW images -> (N, num_classes) float32 logits. In eval no graph
+        is recorded; in train mode ``generator`` draws the drop-path
+        masks."""
+        if not self.training:
+            with torch.no_grad():
+                return self._logits(x, plain, None)
+        return self._logits(x, plain, generator)
+
+    def _logits(self, x, plain, generator):
+        feats = self.forward_features(x, plain, generator)
         return (feats.float() @ self.head.weight.to(feats.dtype).float().t()
                 + self.head.bias.float())
 
 
-def apply(model: SLaK, x_nhwc: torch.Tensor, plain: bool = False
-          ) -> torch.Tensor:
+def apply(model: SLaK, x_nhwc: torch.Tensor, plain: bool = False,
+          generator=None) -> torch.Tensor:
     """(N, H, W, C) images -> (N, num_classes) float32 logits, like
-    ``slak_tpu.models.slak.apply``; the compute dtype is the images'."""
-    return model(x_nhwc.permute(0, 3, 1, 2).contiguous(), plain)
+    ``slak_tpu.models.slak.apply``; the compute dtype is the images'. The
+    model's mode (``train()``/``eval()``) picks the route."""
+    return model(x_nhwc.permute(0, 3, 1, 2).contiguous(), plain, generator)
 
 
 def merge_model(model: SLaK) -> SLaK:

@@ -25,7 +25,7 @@ CSRC = os.path.join(_PKG, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("dwconv", "mlp")
+KERNELS = ("dwconv", "mlp", "dwconv_wgrad", "mlp_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

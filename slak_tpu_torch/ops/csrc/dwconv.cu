@@ -31,6 +31,20 @@
 // What bounds it on an H100: the FMAs, up to kh*kw per output on the CUDA
 // cores (67 TFLOP/s fp32), and the shared-memory loads that feed them; the
 // bytes (x read once, out written once) take far less at SLaK kernel sizes.
+//
+// Stats variant (slak_dwconv_stats) replaces pallas_banded.py:
+// dwconv_banded_stats_cmajor (_fwd_stats_kernel), the train-mode forward
+// that also emits each channel's BN batch sums, sum(y) and sum(y^2) in fp32,
+// taken on the stored (rounded) output. The TPU kernel adds each batch
+// block's sums into a resident output as its grid walks the batch in order;
+// blocks here run in parallel, so the reduction is deterministic in two
+// steps instead: after its stores each block reads back its G planes' tile
+// (just written, so from L1/L2), reduces each plane's part of it (one block
+// reduction, or a warp a plane when G > 1) and writes one (sum, sum of
+// squares) pair per (plane, row tile) to a scratch buffer; a second launch
+// (dwconv_stats_reduce) sums those partials per channel in a fixed order.
+// No atomics: the sums are the same bits on every run. Outputs on tap rows
+// that only read padding are real outputs and count like any other.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -54,6 +68,7 @@ constexpr int kThreads = 256;
 constexpr int kShort = 5;         // the short side of the tiled path's taps
 constexpr int RB = 8;             // outputs per thread on the tiled path
 constexpr size_t kSmemMax = 96 * 1024;
+constexpr int kWarps = kThreads / 32;
 
 struct Geom {
   long long planes;
@@ -69,12 +84,113 @@ __device__ __forceinline__ void store(T* out, long long o, float acc,
   out[o] = from_f<T>(acc);
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The stats epilogue: the (sum, sum of squares) of the rows [h0, h1) of
+// each of the block's planes, as stored, into part[(plane * n_row_tiles +
+// row tile) * 2 + {0, 1}]. Called by every thread of the block.
+template <typename T>
+__device__ void stats_epilogue(const T* __restrict__ out, float* part,
+                               const Geom& g, long long p0, int h0, int h1) {
+  __shared__ float red[2][kWarps];
+  __syncthreads();                       // the block's stores are visible
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = (h1 - h0) * g.W;
+  const long long plane = (long long)g.H * g.W;
+  const int row_tile = h0 / g.TH;
+  if (g.G == 1) {
+    if (p0 >= g.planes) return;
+    const T* o = out + p0 * plane + (long long)h0 * g.W;
+    float s = 0.f, q = 0.f;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const float v = to_f<T>(o[i]);
+      s += v;
+      q += v * v;
+    }
+    s = warp_sum(s);
+    q = warp_sum(q);
+    if (lane == 0) {
+      red[0][warp] = s;
+      red[1][warp] = q;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float a = 0.f, b = 0.f;
+      for (int w = 0; w < kWarps; ++w) {
+        a += red[0][w];
+        b += red[1][w];
+      }
+      float* dst = part + (p0 * g.n_row_tiles + row_tile) * 2;
+      dst[0] = a;
+      dst[1] = b;
+    }
+    return;
+  }
+  for (int pg = warp; pg < g.G; pg += kWarps) {       // a warp a plane
+    const long long p = p0 + pg;
+    if (p >= g.planes) break;
+    const T* o = out + p * plane + (long long)h0 * g.W;
+    float s = 0.f, q = 0.f;
+    for (int i = lane; i < n; i += 32) {
+      const float v = to_f<T>(o[i]);
+      s += v;
+      q += v * v;
+    }
+    s = warp_sum(s);
+    q = warp_sum(q);
+    if (lane == 0) {
+      float* dst = part + (p * g.n_row_tiles + row_tile) * 2;
+      dst[0] = s;
+      dst[1] = q;
+    }
+  }
+}
+
+// s1[c], s2[c] = the sums of the partials of channel c over the batch and
+// the row tiles, in a fixed order: one block a channel.
+__global__ void __launch_bounds__(kThreads)
+dwconv_stats_reduce(const float* __restrict__ part, float* __restrict__ s1,
+                    float* __restrict__ s2, long long N, int C,
+                    int n_row_tiles) {
+  __shared__ float red[2][kWarps];
+  const int c = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long n_items = N * n_row_tiles;
+  float s = 0.f, q = 0.f;
+  for (long long i = threadIdx.x; i < n_items; i += kThreads) {
+    const long long n = i / n_row_tiles;
+    const int t = (int)(i - n * n_row_tiles);
+    const float* src = part + ((n * C + c) * n_row_tiles + t) * 2;
+    s += src[0];
+    q += src[1];
+  }
+  s = warp_sum(s);
+  q = warp_sum(q);
+  if (lane == 0) {
+    red[0][warp] = s;
+    red[1][warp] = q;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float a = 0.f, b = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      a += red[0][w];
+      b += red[1][w];
+    }
+    s1[c] = a;
+    s2[c] = b;
+  }
+}
+
 // Any odd taps: one output per thread. The tile holds the input rows
 // [h0 - kh/2, h1 + kh/2) clipped to the map, padded by kw/2 columns.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dwconv_kernel(const T* __restrict__ x, const float* __restrict__ w,
-              T* __restrict__ out, Geom g, int accumulate) {
+              T* __restrict__ out, Geom g, int accumulate, float* part) {
   extern __shared__ float smem[];
   const int kh = g.kh, kw = g.kw, H = g.H, W = g.W, Wp = g.Wp;
   const int ph = kh / 2, pw = kw / 2;
@@ -120,6 +236,7 @@ dwconv_kernel(const T* __restrict__ x, const float* __restrict__ w,
         acc = fmaf(tg[ti * kw + tj], xg[ti * Wp + tj], acc);
     store<T>(out, p * plane + (long long)hh * W + ww, acc, accumulate);
   }
+  if (part != nullptr) stats_epilogue<T>(out, part, g, p0, h0, h1);
 }
 
 // Taps (K, 5) (LONG_H) or (5, K). A thread owns RB outputs across the short
@@ -134,7 +251,8 @@ dwconv_kernel(const T* __restrict__ x, const float* __restrict__ w,
 template <typename T, bool LONG_H>
 __global__ void __launch_bounds__(kThreads)
 dwconv_tiled_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                    T* __restrict__ out, Geom g, int accumulate) {
+                    T* __restrict__ out, Geom g, int accumulate,
+                    float* part) {
   extern __shared__ float smem[];
   constexpr int S = kShort, HALO = S / 2;
   const int H = g.H, W = g.W, Wp = g.Wp;
@@ -231,6 +349,7 @@ dwconv_tiled_kernel(const T* __restrict__ x, const float* __restrict__ w,
                    accumulate);
     }
   }
+  if (part != nullptr) stats_epilogue<T>(out, part, g, p0, h0, h1);
 }
 
 // Shared tile of one plane for a row tile of TH, and the work items (one
@@ -252,12 +371,16 @@ void tile_shape(int variant, int H, int W, int kh, int kw, int TH,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const float* w, void* out, long long N,
-                   int C, int H, int W, int kh, int kw, int accumulate,
-                   cudaStream_t stream) {
-  const int variant = (kw == kShort && kh != kShort) ? 1
-                      : (kh == kShort && kw != kShort) ? 2 : 0;
+int variant_of(int kh, int kw) {
+  return (kw == kShort && kh != kShort) ? 1
+         : (kh == kShort && kw != kShort) ? 2 : 0;
+}
+
+// The launch geometry: planes a block (G), output rows a block (TH) and
+// the shared memory it takes. Returns false when no tile fits.
+bool make_geom(long long N, int C, int H, int W, int kh, int kw, Geom* gp,
+               size_t* smem_out) {
+  const int variant = variant_of(kh, kw);
   Geom g{};
   g.planes = N * C;
   g.C = C; g.H = H; g.W = W; g.kh = kh; g.kw = kw;
@@ -274,11 +397,25 @@ cudaError_t launch(const void* x, const float* w, void* out, long long N,
     if (smem <= kSmemMax) break;
     if (g.G > 1) g.G = (g.G + 1) / 2;
     else if (g.TH > 1) g.TH = (g.TH + 1) / 2;
-    else return cudaErrorInvalidConfiguration;
+    else return false;
   }
   g.n_row_tiles = (H + g.TH - 1) / g.TH;
+  *gp = g;
+  *smem_out = smem;
+  return true;
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const float* w, void* out, long long N,
+                   int C, int H, int W, int kh, int kw, int accumulate,
+                   float* part, cudaStream_t stream) {
+  const int variant = variant_of(kh, kw);
+  Geom g;
+  size_t smem;
+  if (!make_geom(N, C, H, W, kh, kw, &g, &smem))
+    return cudaErrorInvalidConfiguration;
   const long long blocks = (g.planes + g.G - 1) / g.G * g.n_row_tiles;
-  void (*kernel)(const T*, const float*, T*, Geom, int) =
+  void (*kernel)(const T*, const float*, T*, Geom, int, float*) =
       variant == 1 ? dwconv_tiled_kernel<T, true>
       : variant == 2 ? dwconv_tiled_kernel<T, false> : dwconv_kernel<T>;
   static bool raised[3] = {false, false, false};     // once a kernel
@@ -289,7 +426,8 @@ cudaError_t launch(const void* x, const float* w, void* out, long long N,
     raised[variant] = true;
   }
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), w, static_cast<T*>(out), g, accumulate);
+      static_cast<const T*>(x), w, static_cast<T*>(out), g, accumulate,
+      part);
   return cudaGetLastError();
 }
 
@@ -303,9 +441,45 @@ extern "C" int slak_dwconv(int dtype, const void* x, const float* w,
                            int kh, int kw, int accumulate, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(x, w, out, N, C, H, W, kh, kw, accumulate, s);
+    return (int)launch<float>(x, w, out, N, C, H, W, kh, kw, accumulate,
+                              nullptr, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(x, w, out, N, C, H, W, kh, kw,
-                                      accumulate, s);
+                                      accumulate, nullptr, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The float32 scratch the stats variant needs: 2 * N * C * row tiles
+// (-1 when no tile fits).
+extern "C" long long slak_dwconv_stats_scratch(long long N, int C, int H,
+                                               int W, int kh, int kw) {
+  Geom g;
+  size_t smem;
+  if (!make_geom(N, C, H, W, kh, kw, &g, &smem)) return -1;
+  return 2 * N * C * (long long)g.n_row_tiles;
+}
+
+// out = conv(x, w) as slak_dwconv (no accumulate), and s1[c], s2[c] = the
+// fp32 sum and sum of squares of channel c of the stored out. part:
+// slak_dwconv_stats_scratch floats. Two launches.
+extern "C" int slak_dwconv_stats(int dtype, const void* x, const float* w,
+                                 void* out, float* part, float* s1, float* s2,
+                                 long long N, int C, int H, int W, int kh,
+                                 int kw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Geom g;
+  size_t smem;
+  if (!make_geom(N, C, H, W, kh, kw, &g, &smem))
+    return (int)cudaErrorInvalidConfiguration;
+  cudaError_t e;
+  if (dtype == 0)
+    e = launch<float>(x, w, out, N, C, H, W, kh, kw, 0, part, s);
+  else if (dtype == 1)
+    e = launch<__nv_bfloat16>(x, w, out, N, C, H, W, kh, kw, 0, part, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
+  dwconv_stats_reduce<<<C, kThreads, 0, s>>>(part, s1, s2, N, C,
+                                             g.n_row_tiles);
+  return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
-"""Large-kernel depthwise convolution, eval route (NCHW).
+"""Large-kernel depthwise convolution, eval and train routes (NCHW).
 
-Port of ``slak_tpu/ops/depthwise.py``: the plain reference conv and the
+Port of ``slak_tpu/ops/depthwise.py``: the plain reference conv, the
 eval fold of ``large_kernel_conv`` (:func:`fold_branches`, then
-:func:`run_taps`). The reference extension always pads
+:func:`run_taps`) and the train route of one BN branch
+(:func:`bn_branch_train`). The reference extension always pads
 ``(kh//2, kw//2)`` (forward_fp32.cu:140-144), so odd kernels give "same"
 outputs.
 
@@ -25,7 +26,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from slak_tpu_torch.ops.dwconv import dwconv, dwconv_plain
+from slak_tpu_torch.ops.batchnorm import batch_norm_from_sums
+from slak_tpu_torch.ops.dwconv import DwconvBnStats, dwconv, dwconv_plain
 
 
 def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
@@ -81,3 +83,16 @@ def run_taps(x: torch.Tensor, taps: Sequence[torch.Tensor],
     for t in taps[1:]:
         y = conv(x, t, out=y)
     return y
+
+
+def bn_branch_train(x: torch.Tensor, w: torch.Tensor, bn: torch.nn.Module,
+                    plain: bool = False) -> torch.Tensor:
+    """Train route of one large conv(+BN) branch (``_branch_forward`` with
+    the stats-fused banded kernel): the K4 conv emits y and its BN batch
+    sums, and BN normalizes from the sums, updating ``bn``'s running
+    stats. x: (N, C, H, W) compute dtype; w: (C, 1, kh, kw) float32."""
+    y, s1, s2 = DwconvBnStats.apply(x, w, plain)
+    n, _, h, wd = x.shape
+    return batch_norm_from_sums(y, s1, s2, n * h * wd, bn.weight, bn.bias,
+                                bn.running_mean, bn.running_var,
+                                momentum=bn.momentum, eps=bn.eps)

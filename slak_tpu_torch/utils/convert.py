@@ -14,11 +14,13 @@ numpy arrays (or anything ``np.asarray`` takes):
   stages.i.j.norm / pwconv1/2 / gamma, norm, head
 
 Layouts: depthwise (kh, kw, C) -> (C, 1, kh, kw); HWIO -> OIHW;
-(in, out) -> (out, in).
+(in, out) -> (out, in). :func:`masks_from_jax` maps a ``slak_tpu`` mask
+dict (keyed by dotted param paths) the same way.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -73,3 +75,42 @@ def from_jax_params(params: Dict[str, Any], state: Dict[str, Any]
     sd["head.weight"] = _t(params["head"]["w"]).t()
     sd["head.bias"] = _t(params["head"]["b"])
     return {k: v.contiguous() for k, v in sd.items()}
+
+
+def port_name(jax_path: str) -> str:
+    """The port's parameter name of a ``slak_tpu`` dotted param path of a
+    weight (``downsample.i.conv.w``, ``stages.i.j.lk.<branch>.w``,
+    ``stages.i.j.pwconv1.w``, ``head.w``, ...)."""
+    m = re.fullmatch(r"downsample\.(\d+)\.conv\.(w|b)", jax_path)
+    if m:
+        i = int(m.group(1))
+        return (f"downsample_layers.{i}.{0 if i == 0 else 1}."
+                + ("weight" if m.group(2) == "w" else "bias"))
+    m = re.fullmatch(r"(stages\.\d+\.\d+)\.lk\.(\w+)\.w", jax_path)
+    if m:
+        if m.group(2) == "reparam":
+            return f"{m.group(1)}.large_kernel.lkb_reparam.weight"
+        return f"{m.group(1)}.large_kernel.{_BRANCH[m.group(2)]}.conv.weight"
+    m = re.fullmatch(r"(stages\.\d+\.\d+\.pwconv\d|head)\.(w|b)", jax_path)
+    if m:
+        return m.group(1) + (".weight" if m.group(2) == "w" else ".bias")
+    raise KeyError(f"no port name for {jax_path!r}")
+
+
+def to_port_layout(v) -> torch.Tensor:
+    """A ``slak_tpu`` weight in the port's layout: (kh, kw, C) depthwise ->
+    (C, 1, kh, kw), HWIO -> OIHW, (in, out) -> (out, in)."""
+    t = _t(v)
+    if t.ndim == 3:
+        return t.permute(2, 0, 1)[:, None].contiguous()
+    if t.ndim == 4:
+        return t.permute(3, 2, 0, 1).contiguous()
+    if t.ndim == 2:
+        return t.t().contiguous()
+    return t
+
+
+def masks_from_jax(masks: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``slak_tpu`` DST masks ({dotted path: array}) -> the port's
+    ({parameter name: float32 tensor in the port's layout})."""
+    return {port_name(n): to_port_layout(m) for n, m in masks.items()}
