@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases, needs one CUDA card
     python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,erf_kernels,erf
 
 Phases (any failure exits non-zero):
   build    nvcc-build every kernel under slak_tpu_torch/ops/csrc/.
@@ -33,6 +34,25 @@ Phases (any failure exits non-zero):
            route (bf16 at 128, fp32 at 32): loss, every gradient, BN stats.
   train_timing
            the bf16 batch-128 train step, kernel route and plain route.
+  erf_kernels
+           the ERF path's kernels against their plain versions: K9 (the
+           wide-channel fused MLP backward) at the ERF shapes in fp32 (batch
+           1 at 1024^2: stage 3 T = 4096, C = 499; stage 4 T = 1024, C = 998)
+           and in bf16 at batch 128, 224^2 (T = 25088 and 6272), all eight
+           outputs; K1 (forward and flipped-tap dgrad), K2/K3 and K8 in fp32
+           at the four 1024^2 stage shapes; times, bound, plain and unfused
+           (or library) times.
+  erf      the ERF analysis through its CLI (analysis/visualize_erf.main):
+           the flagship (random weights from a seed, given as --weights),
+           fp32, 1024^2, 4 images, parameters frozen, launch counters set to
+           0 just before and read just after (per image 36 K1 forward + 36
+           dgrad, 18 K2/K3, 6 K8, 12 K9, no weight-gradient or K4 launch);
+           every image's map finite (all 4 averaged), the map nonzero and
+           largest at the centre; one image on
+           each route, maps within 1e-3; then one eval-mode backward (bf16,
+           batch 8, 224^2) with every parameter requiring a gradient, each
+           gradient held against the plain route's; ms an image on both
+           routes.
   profile  (not in the default run) one eval forward and one train step
            under torch.profiler: device time by kernel, idle share, traces
            in chiprun_out/.
@@ -82,6 +102,16 @@ TOL_MLP_BWD = {"float32": 1e-3, "bfloat16": 2e-2}
 # (max |diff| / max |plain|)
 TOL_STEP = {"float32": dict(loss=1e-4, grad=1e-3, bn=1e-4),
             "bfloat16": dict(loss=2e-2, grad=1e-1, bn=2e-2)}
+ERF_SIZE = 1024                             # the reference's ERF protocol
+ERF_IMAGES = 4
+ERF_GRAD_BATCH = 8                          # eval-mode parameter gradients
+K9_BF16_BATCH = 128
+# the fp32 ERF map, kernel route vs plain route: max |diff| / max |plain|;
+# the same fp32 math with sums in another order through 18 blocks' forward
+# and backward (each kernel within 1e-5 - 1e-4 of its plain version)
+TOL_ERF_MAP = 1e-3
+MLP_BWD_NAMES = ("dy", "dW1", "dW2", "db1", "db2", "dgamma", "dln_scale",
+                 "dln_bias")
 
 
 class PhaseError(RuntimeError):
@@ -146,12 +176,89 @@ def dwconv_macs(N, C, H, W, kh, kw) -> int:
     return N * C * span(H, kh) * span(W, kw)
 
 
-def stage_shapes(cfg):
+def stage_shapes(cfg, size: int = 224):
     dims = cfg.widened_dims
     for i in range(4):
-        H = 56 >> i
+        H = (size // 4) >> i
         yield i, dims[i], H, cfg.stage_kernel(i), cfg.small_kernel, \
             cfg.depths[i]
+
+
+def random_pack(C, g, dtype, gamma=(0.1, 0.5)):
+    """Random tail weights at width C, packed for dtype (pre_bias random
+    too)."""
+    import torch
+    from slak_tpu_torch.ops import mlp as K2
+    dev, F4 = g.device, 4 * C
+
+    def vec(scale, shift, n=C):
+        return torch.randn(n, generator=g, device=dev) * scale + shift
+    return K2.pack_mlp(vec(0.1, 1.0), vec(0.1, 0.0),
+                       torch.randn(C, F4, generator=g, device=dev) * C ** -0.5,
+                       vec(0.1, 0.0, F4),
+                       torch.randn(F4, C, generator=g, device=dev)
+                       * F4 ** -0.5,
+                       vec(0.1, 0.0), vec(*gamma), vec(0.1, 0.0), dtype)
+
+
+def unfused_bwd_ms(y, dout, pk, dtype):
+    """The autograd backward of the unfused torch composition (LN, two
+    nn.Linear products, GELU, gamma) on NCHW y: the yardstick of the fused
+    backward kernels (one call of it does not exist)."""
+    import torch
+    import torch.nn.functional as F
+    C, F4 = pk.c, pk.f
+    ln_s, ln_b, b2, gam, _ = pk.vec
+    leaves = [t.to(dtype).detach().requires_grad_() for t in (
+        ln_s, ln_b, pk.w1[:F4, :C], pk.b1[:F4], pk.w2[:C, :F4], b2, gam)]
+    yl = y.detach().requires_grad_()
+    z = yl.permute(0, 2, 3, 1)
+    z = F.layer_norm(z, (C,), leaves[0], leaves[1], eps=1e-6)
+    z = F.linear(F.gelu(F.linear(z, leaves[2], leaves[3])), leaves[4],
+                 leaves[5])
+    out = (leaves[6] * z).permute(0, 3, 1, 2)
+    return time_ms(lambda: torch.autograd.grad(
+        out, [yl] + leaves, dout, retain_graph=True), 3, warmup=1)
+
+
+def check_mlp_bwd(bwd, plain, y, dout, pk, tol, tag):
+    """Every output of a fused backward kernel against its plain version:
+    ({name: rel err}, max abs err)."""
+    import torch
+    got, want = bwd(y, dout, pk, 1), plain(y, dout, pk, 1)
+    torch.cuda.synchronize()
+    errs, d_max = {}, 0.0
+    for nm, a, b in zip(MLP_BWD_NAMES, got, want):
+        d, r = rel_err(a, b)
+        errs[nm], d_max = r, max(d_max, d)
+        _check(r <= tol, f"{tag}: {nm} rel err {r:.3g} > {tol}")
+    return errs, d_max
+
+
+def mlp_bwd_row(tag, name, bwd, plain, y, dout, pk, dtype, **extra):
+    """Check a fused backward kernel (``check_mlp_bwd``), time it, its plain
+    version and the unfused autograd backward, and print its row: (row,
+    bytes ms, operations ms) of its bound."""
+    import torch
+    dn = str(dtype).split(".")[1]
+    item = torch.tensor([], dtype=dtype).element_size()
+    tol = TOL_MLP_BWD[dn]
+    errs, d_max = check_mlp_bwd(bwd, plain, y, dout, pk, tol,
+                                f"{name} {extra} {dn}")
+    C, F4 = pk.c, pk.f
+    T = y.numel() // C
+    dy_item = 4 if name == "mlp_bwd_wide" else item      # K9's dy is fp32
+    b_ms, o_ms = bounds(2 * T * C * item + T * C * dy_item
+                        + 2 * C * F4 * item + 4 * (2 * C * F4 + F4 + 4 * C),
+                        12 * T * C * F4, dtype)
+    row = dict(kernel=name, dtype=dn, C=C, T=T, **extra, max_abs_err=d_max,
+               rel_err=errs, tol=tol, ms=time_ms(lambda: bwd(y, dout, pk, 1)),
+               plain_ms=time_ms(lambda: plain(y, dout, pk, 1), 3, warmup=1),
+               library_ms=None,
+               unfused_torch_ms=unfused_bwd_ms(y, dout, pk, dtype),
+               bound_ms=max(b_ms, o_ms))
+    print(f"[{tag}] " + json.dumps(row), flush=True)
+    return row, b_ms, o_ms
 
 
 # ---------------------------------------------------------------------------
@@ -247,15 +354,7 @@ def phase_kernels(cfg, batch):
                             ).to(dtype)
             res = torch.randn(batch, C, H, H, generator=g, device=dev
                               ).to(dtype)
-
-            def vec(scale, shift, n=C):
-                return torch.randn(n, generator=g, device=dev) * scale + shift
-            pk = K2.pack_mlp(vec(0.1, 1.0), vec(0.1, 0.0),
-                             torch.randn(C, F4, generator=g, device=dev)
-                             * C ** -0.5, vec(0.1, 0.0, F4),
-                             torch.randn(F4, C, generator=g, device=dev)
-                             * F4 ** -0.5, vec(0.1, 0.0),
-                             vec(0.1, 0.5), vec(0.1, 0.0), dtype)
+            pk = random_pack(C, g, dtype)
             for layout, yy, rr, cd in (
                     ("NCHW", y, res, 1),
                     ("NHWC", y.permute(0, 2, 3, 1).contiguous(),
@@ -563,69 +662,147 @@ def phase_train_kernels(cfg, batch):
             if C > K2.BWD_C_MAX:
                 continue
             # K8 at this stage's width, NCHW
-            F4 = 4 * C
             y = torch.randn(batch, C, H, H, generator=g, device=dev).to(dtype)
             dout = (torch.randn(batch, C, H, H, generator=g, device=dev)
                     * 0.1).to(dtype)
-
-            def vec(scale, shift, n=C):
-                return torch.randn(n, generator=g, device=dev) * scale + shift
-            pk = K2.pack_mlp(vec(0.1, 1.0), vec(0.1, 0.0),
-                             torch.randn(C, F4, generator=g, device=dev)
-                             * C ** -0.5, vec(0.1, 0.0, F4),
-                             torch.randn(F4, C, generator=g, device=dev)
-                             * F4 ** -0.5, vec(0.1, 0.0), vec(0.1, 0.5),
-                             None, dtype)
-            got = K2.fused_mlp_bwd(y, dout, pk, 1)
-            want = K2.fused_mlp_bwd_plain(y, dout, pk, 1)
-            torch.cuda.synchronize()
-            names = ("dy", "dW1", "dW2", "db1", "db2", "dgamma", "dln_scale",
-                     "dln_bias")
-            errs = {}
-            for nm, a, b in zip(names, got, want):
-                d, r = rel_err(a, b)
-                errs[nm] = r
-                _check(r <= TOL_MLP_BWD[dn], f"mlp_bwd stage {i + 1} {dn}: "
-                       f"{nm} rel err {r:.3g} > {TOL_MLP_BWD[dn]}")
-            d_max = max(rel_err(a, b)[0] for a, b in zip(got, want))
-            ms = time_ms(lambda: K2.fused_mlp_bwd(y, dout, pk, 1))
-            plain_ms = time_ms(lambda: K2.fused_mlp_bwd_plain(y, dout, pk, 1),
-                               3, warmup=1)
-            # the unfused autograd composition's backward (no single call)
-            ln_s, ln_b, b2, gam, _ = pk.vec
-            leaves = [t.to(dtype).detach().requires_grad_() for t in (
-                ln_s, ln_b, pk.w1[:F4, :C], pk.b1[:F4], pk.w2[:C, :F4], b2,
-                gam)]
-            yl = y.detach().requires_grad_()
-            z = yl.permute(0, 2, 3, 1)
-            z = F.layer_norm(z, (C,), leaves[0], leaves[1], eps=1e-6)
-            z = F.linear(F.gelu(F.linear(z, leaves[2], leaves[3])),
-                         leaves[4], leaves[5])
-            out = (leaves[6] * z).permute(0, 3, 1, 2)
-            dperm = dout
-            unf_ms = time_ms(lambda: torch.autograd.grad(
-                out, [yl] + leaves, dperm, retain_graph=True), 3, warmup=1)
-            del out, z
-            T = batch * H * H
-            b_ms, o_ms = bounds(3 * T * C * item + 2 * C * F4 * item
-                                + 4 * (2 * C * F4 + F4 + 4 * C),
-                                12 * T * C * F4, dtype)
-            row = dict(kernel="mlp_bwd", dtype=dn, stage=i + 1, C=C,
-                       layout="NCHW", batch=batch, max_abs_err=d_max,
-                       rel_err=errs, tol=TOL_MLP_BWD[dn], ms=ms,
-                       plain_ms=plain_ms, library_ms=None,
-                       unfused_torch_ms=unf_ms, bound_ms=max(b_ms, o_ms),
-                       launches_per_step=depth)
-            print("[train_kernels] " + json.dumps(row), flush=True)
+            pk = random_pack(C, g, dtype)
+            row, b_ms, o_ms = mlp_bwd_row(
+                "train_kernels", "mlp_bwd", K2.fused_mlp_bwd,
+                K2.fused_mlp_bwd_plain, y, dout, pk, dtype, stage=i + 1,
+                layout="NCHW", batch=batch, launches_per_step=depth)
             if dtype == torch.bfloat16:
-                row = dict(row, library_ms=unf_ms)
+                row = dict(row, library_ms=row["unfused_torch_ms"])
                 add("mlp_bwd", row, depth, b_ms, o_ms)
-            del y, dout, pk, leaves, yl
+            del y, dout, pk
             torch.cuda.empty_cache()
     print("[train_kernels] per bf16 step, of which on the 7x7 maps: "
           + json.dumps({n: {k: round(v, 4) for k, v in t.items()}
                         for n, t in on_7x7.items() if t["ms"]}), flush=True)
     return totals
+
+
+def phase_erf_kernels(cfg):
+    """The ERF path's kernels against their plain versions: K9 at the ERF
+    shapes (fp32, batch 1 at 1024^2: stages 3-4) and at batch 128, 224^2
+    (bf16); K1 (forward and flipped-tap dgrad), K2/K3 and K8 in fp32 at
+    the four 1024^2 stage shapes. Returns per-image totals (fp32, batch 1,
+    1024^2) for the JSON line, and K9's bf16 rows."""
+    import torch
+    import torch.nn.functional as F
+    from slak_tpu_torch.ops import dwconv as K1
+    from slak_tpu_torch.ops import mlp as K2
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+            "ops_ms")
+    totals = {n: dict({k: 0.0 for k in keys}, err=0.0)
+              for n in ("dwconv", "dwconv_dgrad", "fused_mlp", "mlp_bwd",
+                        "mlp_bwd_wide")}
+
+    def add(name, row, n, b_ms, o_ms):
+        t = totals[name]
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            t[k] += n * (row[k] or 0.0)
+        t["bytes_ms"] += n * b_ms
+        t["ops_ms"] += n * o_ms
+        t["err"] = max(t["err"], row["max_abs_err"])
+
+    # K9 in bf16 at batch 128, 224^2 (stage 3 is the JAX docstring's shape)
+    k9_bf16 = []
+    for i, C, H, K, s, depth in stage_shapes(cfg):
+        if C <= K2.BWD_C_MAX:
+            continue
+        dt = torch.bfloat16
+        y = torch.randn(K9_BF16_BATCH, C, H, H, generator=g, device=dev
+                        ).to(dt)
+        dout = (torch.randn(K9_BF16_BATCH, C, H, H, generator=g, device=dev)
+                * 0.1).to(dt)
+        row, _, _ = mlp_bwd_row("erf_kernels", "mlp_bwd_wide",
+                                K2.fused_mlp_bwd_wide,
+                                K2.fused_mlp_bwd_wide_plain, y, dout,
+                                random_pack(C, g, dt), dt, stage=i + 1,
+                                batch=K9_BF16_BATCH, size=224)
+        k9_bf16.append(row)
+        del y, dout
+        torch.cuda.empty_cache()
+
+    # fp32, batch 1, 1024^2: every kernel of the ERF path
+    dt = torch.float32
+    for i, C, H, K, s, depth in stage_shapes(cfg, ERF_SIZE):
+        x = torch.randn(1, C, H, H, generator=g, device=dev)
+        dy = torch.randn(1, C, H, H, generator=g, device=dev)
+        taps = [(K, s), (s, K)]
+        ws = [torch.randn(C, kh, kw, generator=g, device=dev) * 0.05
+              for kh, kw in taps]
+        flipped = [w.flip(1, 2).contiguous() for w in ws]
+        for name, inp, tt in (("dwconv", x, ws), ("dwconv_dgrad", dy,
+                                                 flipped)):
+            got = K1.conv_taps(inp, tt)
+            want = K1.conv_taps(inp, tt, plain=True)
+            torch.cuda.synchronize()
+            d, r = rel_err(got, want)
+            _check(r <= TOL_KERNEL["float32"], f"{name} 1024^2 stage "
+                   f"{i + 1}: rel err {r:.3g}")
+            lib_w = [w[:, None] for w in tt]
+            b_ms = o_ms = bound = 0.0
+            for (kh, kw), n_t in zip(taps, (2, 3)):
+                bb, oo = bounds(n_t * inp.numel() * 4 + 4 * C * kh * kw,
+                                2 * dwconv_macs(1, C, H, H, kh, kw), dt)
+                b_ms, o_ms, bound = b_ms + bb, o_ms + oo, bound + max(bb, oo)
+            row = dict(kernel=name, dtype="float32", stage=i + 1, C=C, H=H,
+                       taps=[K, s], batch=1, max_abs_err=d, rel_err=r,
+                       tol=TOL_KERNEL["float32"],
+                       ms=time_ms(lambda: K1.conv_taps(inp, tt)),
+                       plain_ms=time_ms(lambda: K1.conv_taps(inp, tt,
+                                                             plain=True)),
+                       library_ms=time_ms(lambda: [F.conv2d(
+                           inp, w, padding=(kh // 2, kw // 2), groups=C)
+                           for w, (kh, kw) in zip(lib_w, taps)]),
+                       bound_ms=bound)
+            print("[erf_kernels] " + json.dumps(row), flush=True)
+            add(name, row, depth, b_ms, o_ms)
+        del x, dy
+
+        y = torch.randn(1, C, H, H, generator=g, device=dev)
+        res = torch.randn(1, C, H, H, generator=g, device=dev)
+        dout = torch.randn(1, C, H, H, generator=g, device=dev) * 0.1
+        pk = random_pack(C, g, dt)
+        got = K2.fused_mlp(y, res, pk, 1)
+        want = K2.fused_mlp_plain(y, res, pk, 1)
+        torch.cuda.synchronize()
+        d, r = rel_err(got, want)
+        _check(r <= TOL_MLP["float32"], f"fused_mlp 1024^2 stage {i + 1}: "
+               f"rel err {r:.3g}")
+        T, F4 = H * H, 4 * C
+        b_ms, o_ms = bounds(3 * T * C * 4 + 2 * C * F4 * 4, 4 * T * C * F4,
+                            dt)
+        row = dict(kernel="fused_mlp", dtype="float32", stage=i + 1, C=C,
+                   T=T, batch=1, max_abs_err=d, rel_err=r,
+                   tol=TOL_MLP["float32"],
+                   ms=time_ms(lambda: K2.fused_mlp(y, res, pk, 1)),
+                   plain_ms=time_ms(lambda: K2.fused_mlp_plain(y, res, pk,
+                                                               1)),
+                   library_ms=None, bound_ms=max(b_ms, o_ms))
+        print("[erf_kernels] " + json.dumps(row), flush=True)
+        add("fused_mlp", row, depth, b_ms, o_ms)
+
+        if C <= K2.BWD_C_MAX:
+            name, bwd, plain = ("mlp_bwd", K2.fused_mlp_bwd,
+                                K2.fused_mlp_bwd_plain)
+        else:
+            name, bwd, plain = ("mlp_bwd_wide", K2.fused_mlp_bwd_wide,
+                                K2.fused_mlp_bwd_wide_plain)
+        row, b_ms, o_ms = mlp_bwd_row("erf_kernels", name, bwd, plain, y,
+                                      dout, pk, dt, stage=i + 1, batch=1,
+                                      size=ERF_SIZE)
+        add(name, dict(row, library_ms=row["unfused_torch_ms"]), depth,
+            b_ms, o_ms)
+        del y, res, dout, pk
+        torch.cuda.empty_cache()
+    print("[erf_kernels] per fp32 1024^2 image: " + json.dumps(
+        {n: {k: round(v, 4) for k, v in t.items()}
+         for n, t in totals.items()}), flush=True)
+    return totals, k9_bf16
 
 
 def _counters():
@@ -638,14 +815,15 @@ def _counters():
 def reset_counts():
     K1, KW, K2 = _counters()
     K1.launch_count = K1.stats_launch_count = KW.launch_count = 0
-    K2.launch_count = K2.bwd_launch_count = 0
+    K2.launch_count = K2.bwd_launch_count = K2.wide_bwd_launch_count = 0
 
 
 def read_counts():
     K1, KW, K2 = _counters()
     return {"dwconv": K1.launch_count, "dwconv_stats": K1.stats_launch_count,
             "dwconv_wgrad": KW.launch_count, "fused_mlp": K2.launch_count,
-            "mlp_bwd": K2.bwd_launch_count}
+            "mlp_bwd": K2.bwd_launch_count,
+            "mlp_bwd_wide": K2.wide_bwd_launch_count}
 
 
 def train_setup(batch, dtype, mask_kw, seed=0, snip=True, masks=None,
@@ -738,7 +916,7 @@ def phase_train(batch):
             "dwconv_stats": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_wgrad": 2 * n_blocks * TRAIN_STEPS,
             "fused_mlp": fused * TRAIN_STEPS,
-            "mlp_bwd": fused * TRAIN_STEPS}
+            "mlp_bwd": fused * TRAIN_STEPS, "mlp_bwd_wide": 0}
     print(f"[train] {TRAIN_STEPS} bf16 steps at batch {batch} in {sec:.2f} s;"
           f" launches {counts}; refreshes {n_refresh}", flush=True)
     _check(counts == want, f"launch counts {counts}, want {want}")
@@ -816,6 +994,127 @@ def phase_train_timing(batch):
           f"versions {p_ms:.3f} ms ({batch / p_ms * 1e3:.1f} img/s, peak "
           f"{p_gb:.2f} GiB)", flush=True)
     return k_ms
+
+
+def erf_args(weights, size=ERF_SIZE):
+    """The ERF CLI's flags for the flagship with the given weights."""
+    return ["--model", "SLaK_tiny", "--kernel_size",
+            *map(str, MODEL_KW["kernel_size"]), "--width_factor",
+            str(MODEL_KW["width_factor"]), "--weights", weights,
+            "--input_size", str(size)]
+
+
+def phase_erf():
+    """The ERF analysis through its CLI (``visualize_erf.main``): the
+    flagship with random weights from a seed (a checkpoint written here,
+    read through ``--weights``), fp32, 1024^2, ERF_IMAGES images with the
+    launch counters set to 0 just before and read just after; then one
+    image on each route, maps compared. Then one eval-mode backward with
+    every parameter requiring a gradient (bf16, 224^2), kernel route vs
+    plain route. Returns (the ERF run's counts, ms an image on the kernel
+    route and on the plain route)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from slak_tpu_torch.analysis import visualize_erf as V
+    from slak_tpu_torch.models import create_model
+    os.makedirs(OUT_DIR, exist_ok=True)
+    model = create_model("SLaK_tiny", device="cpu", seed=0, **MODEL_KW)
+    randomize(model, 1)
+    tmp = tempfile.TemporaryDirectory()
+    wpath = os.path.join(tmp.name, "erf_weights.pth")
+    torch.save({"model": model.state_dict()}, wpath)
+    cfg = model.cfg
+    n_blocks = sum(cfg.depths)
+    narrow = sum(d for d, c in zip(cfg.depths, cfg.widened_dims) if c <= 256)
+    torch.cuda.synchronize()
+    reset_counts()
+    run = V.main(erf_args(wpath) + ["--num_images", str(ERF_IMAGES),
+                                    "--save", os.path.join(OUT_DIR,
+                                                           "erf.npy")])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {"dwconv": 4 * n_blocks * ERF_IMAGES, "dwconv_stats": 0,
+            "dwconv_wgrad": 0, "fused_mlp": n_blocks * ERF_IMAGES,
+            "mlp_bwd": narrow * ERF_IMAGES,
+            "mlp_bwd_wide": (n_blocks - narrow) * ERF_IMAGES}
+    print(f"[erf] {ERF_IMAGES} fp32 images at {ERF_SIZE}^2: launches "
+          f"{counts} (per image: K1 {2 * n_blocks} forward + {2 * n_blocks} "
+          f"dgrad, K2/K3 {n_blocks}, K8 {narrow}, K9 {n_blocks - narrow})",
+          flush=True)
+    _check(counts == want, f"ERF launch counts {counts}, want {want}")
+    data = run["data"]
+    c = ERF_SIZE // 2
+    # erf_contribution drops a map that is not finite: every image's must
+    # have gone into the average
+    _check(run["used"] == ERF_IMAGES,
+           f"only {run['used']} of {ERF_IMAGES} ERF maps were finite")
+    _check(data.shape == (ERF_SIZE, ERF_SIZE) and bool(np.isfinite(data).all())
+           and data.max() > 0 and data[c, c] > data[0, 0],
+           f"ERF map bad: shape {data.shape}, max {data.max()}, centre "
+           f"{data[c, c]}, corner {data[0, 0]}")
+    one = {}
+    for plain in (False, True):
+        one[plain] = V.main(erf_args(wpath) + [
+            "--num_images", "1", *(["--plain"] if plain else []),
+            "--save", os.path.join(tmp.name, f"erf_one_{int(plain)}.npy")])
+        _check(one[plain]["used"] == 1,
+               f"the {'plain' if plain else 'kernel'} route's ERF map is "
+               f"not finite")
+    tmp.cleanup()
+    d, r = rel_err(torch.from_numpy(one[False]["data"]),
+                   torch.from_numpy(one[True]["data"]))
+    sides = {route: {t: v and v["side"] for t, v in one[pl]["ratios"].items()}
+             for route, pl in (("kernels", False), ("plain", True))}
+    ms_k = float(np.median(run["seconds"])) * 1e3
+    ms_p = one[True]["seconds"][0] * 1e3
+    print(f"[erf] one image, kernel route vs plain route: max abs "
+          f"{d:.4g}, rel {r:.4g} (tol {TOL_ERF_MAP}); analyze_erf sides "
+          f"{json.dumps(sides)}; ms an image: kernels {ms_k:.3f} (median of "
+          f"{ERF_IMAGES}), plain {ms_p:.3f}", flush=True)
+    _check(r <= TOL_ERF_MAP, f"ERF map rel err {r:.3g} > {TOL_ERF_MAP}")
+
+    # eval-mode differentiation with every parameter requiring a gradient
+    model = model.to("cuda").eval()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(ERF_GRAD_BATCH, 3, 224, 224, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    proj = torch.randn(ERF_GRAD_BATCH, cfg.widened_dims[-1], generator=g,
+                       device="cuda")
+    grads = {}
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        feats = model.forward_features(x, plain=plain)
+        (feats.float() * proj).sum().backward()
+        torch.cuda.synchronize()
+        if not plain:
+            got = read_counts()
+            want = {"dwconv": 4 * n_blocks, "dwconv_stats": 0,
+                    "dwconv_wgrad": 2 * n_blocks, "fused_mlp": n_blocks,
+                    "mlp_bwd": narrow, "mlp_bwd_wide": n_blocks - narrow}
+            _check(got == want, f"eval-grad launch counts {got}, want {want}")
+        grads[plain] = {n: p.grad.float().clone()
+                        for n, p in model.named_parameters()
+                        if p.grad is not None}
+    tol = TOL_STEP["bfloat16"]["grad"]
+    missing = [n for n, _ in model.named_parameters() if n not in grads[False]]
+    _check(set(grads[False]) == set(grads[True])
+           and all(n.startswith("head.") for n in missing),
+           f"parameters without a gradient besides the head's: {missing}")
+    ge = {n: ((grads[False][n] - gp).norm() / gp.norm().clamp(min=1e-30)
+              ).item() for n, gp in grads[True].items()}
+    worst = max(ge, key=ge.get)
+    print(f"[erf] eval-mode backward, bf16 batch {ERF_GRAD_BATCH} at 224^2, "
+          f"{len(ge)} parameter gradients, kernels vs plain: rel norm err "
+          f"max {ge[worst]:.3g} ({worst}), median "
+          f"{statistics.median(ge.values()):.3g} (tol {tol}); launches "
+          f"{got}", flush=True)
+    _check(ge[worst] <= tol, f"eval grad {worst} rel err {ge[worst]:.3g}")
+    del model, x, grads
+    torch.cuda.empty_cache()
+    return counts, ms_k, ms_p
 
 
 def _profile_rows(prof):
@@ -914,7 +1213,7 @@ def phase_profile(model, batch):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,timing,"
-                    "train_kernels,train,train_timing")
+                    "train_kernels,train,train_timing,erf_kernels,erf")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     try:
@@ -938,6 +1237,7 @@ def main(argv=None) -> int:
     cfg = config_for("SLaK_tiny", **MODEL_KW)
     totals, counts = None, None
     train_totals, train_counts = None, None
+    erf_totals, k9_bf16, erf_run = None, None, None
     t_start = time.perf_counter()
     try:
         if "build" in phases:
@@ -969,6 +1269,10 @@ def main(argv=None) -> int:
             phase_train_timing(TRAIN_BATCH)
         if "profile" in phases:
             phase_profile_train(TRAIN_BATCH)
+        if "erf_kernels" in phases:
+            erf_totals, k9_bf16 = phase_erf_kernels(cfg)
+        if "erf" in phases:
+            erf_run = phase_erf()
     except Exception as e:                      # report and fail the run
         import traceback
         traceback.print_exc()
@@ -1041,8 +1345,51 @@ def main(argv=None) -> int:
                 times_per="one bf16 train step at batch %d" % TRAIN_BATCH,
                 launches_in="the train path: %d bf16 steps at batch %d"
                 % (TRAIN_STEPS, TRAIN_BATCH)))
+    if erf_totals is not None:
+        t = erf_totals["mlp_bwd_wide"]
+        kernels.append(dict(
+            name="mlp_bwd_wide", route="cuda",
+            source="slak_tpu_torch/ops/csrc/mlp_bwd.cu",
+            replaces="slak_tpu/ops/pallas_mlp.py:419",
+            launches=None if erf_run is None else erf_run[0]["mlp_bwd_wide"],
+            max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"],
+            bound_by=("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                      else "operations"),
+            library_ms=None, unfused_torch_ms=t["library_ms"],
+            library="none; unfused_torch_ms is the autograd backward of the "
+            "unfused composition",
+            times_per="one float32 ERF image at %d^2 (9 launches at T=4096 "
+            "C=499, 3 at T=1024 C=998)" % ERF_SIZE,
+            launches_in="the ERF path: %d float32 images at %d^2"
+            % (ERF_IMAGES, ERF_SIZE),
+            bf16_batch128={"stage%d" % r["stage"]: {
+                k: r[k] for k in ("T", "C", "ms", "plain_ms",
+                                  "unfused_torch_ms", "bound_ms",
+                                  "max_abs_err")} for r in k9_bf16}))
+        # the ERF path's share of the older kernels; the yardstick is the
+        # library call (K1), none (K2/K3), the unfused autograd (K8)
+        for name, lib in (("dwconv", "erf_library_ms"), ("fused_mlp", None),
+                          ("mlp_bwd", "erf_unfused_torch_ms")):
+            per = erf_totals[name]
+            for k in kernels:
+                if k["name"] == name:
+                    k.update({"erf_" + f: per[f] for f in (
+                        "ms", "plain_ms", "bound_ms")},
+                        erf_max_abs_err=per["err"],
+                        erf_times_per="one float32 ERF image at %d^2"
+                        % ERF_SIZE)
+                    if lib:
+                        k[lib] = per["library_ms"]
+        if erf_run is not None:
+            for k in kernels:
+                if k["name"] in ("dwconv", "fused_mlp", "mlp_bwd"):
+                    k["erf_launches"] = erf_run[0][k["name"]]
     if kernels:
         print(json.dumps({"kernels": kernels}))
+    if erf_run is not None:
+        print(f"[erf] ms an image at {ERF_SIZE}^2 fp32: kernels "
+              f"{erf_run[1]:.3f}, plain {erf_run[2]:.3f}")
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,10 +13,17 @@ Port of ``slak_tpu/models/slak.py`` with the reference's module names
 Eval block (every stage): the branch BNs fold into the taps and the small
 branch into LoRA1 (``ops/depthwise.py``), the pair runs as two K1 launches
 (``ops/dwconv.py``), and the folded bias, LN, MLP, gamma and residual run
-as one K2/K3 launch (``ops/mlp.py``) on the NCHW activation. The folded
-taps and packed MLP weights are cached per block and compute dtype, and
-rebuilt when a parameter changes. ``plain=True`` runs the same route
-through the plain PyTorch versions of the kernels.
+as one K2/K3 launch (``ops/mlp.py``) on the NCHW activation. Without a
+graph the folded taps and packed MLP weights are cached per block and
+compute dtype, and rebuilt when a parameter changes. With a graph being
+recorded (grad enabled and the input or a block parameter requiring a
+gradient: differentiated eval, e.g. the ERF analysis) the fold runs inside
+the graph, uncached, and the block runs :class:`~slak_tpu_torch.ops.dwconv.
+DwconvTaps` (K1; dx by K1 on flipped taps) and
+:class:`~slak_tpu_torch.ops.mlp.FusedMlp` (K2; K8 backward at C <= 256,
+K9 above), so every parameter gets its gradient through the fold, as
+``jax.grad`` of the JAX eval forward gives it. ``plain=True`` runs the
+same routes through the plain PyTorch versions of the kernels.
 
 Train block (``model.train()``, the route of ``slak_tpu``
 ``forward_features(train=True)`` with its TPU layout gates dropped): LoRA1
@@ -228,10 +235,30 @@ class Block(nn.Module):
     def forward(self, x, plain: bool = False, generator=None):
         if self.training:
             return self._train_forward(x, plain, generator)
+        if torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad
+                                       for p in self.parameters())):
+            return self._eval_graph_forward(x, plain)
         taps, pk = self.prepared(x.dtype, x.device)
         y = run_taps(x, taps, plain)
         mlp = fused_mlp_plain if plain else fused_mlp
         return mlp(y, x, pk, channel_dim=1)
+
+    def _eval_graph_forward(self, x, plain):
+        """The eval block with autograd: the fold and the packing in the
+        graph (never cached), the taps rounded to x's dtype as
+        :meth:`prepared` rounds them, the folded bias into ``FusedMlp`` as
+        its ``pre_bias``."""
+        taps, bias = self.large_kernel.eval_taps()
+        taps = [t.to(x.dtype).float() for t in taps]
+        y = run_taps(x, taps, plain)
+        gamma = getattr(self, "gamma", None)
+        if gamma is None:
+            gamma = torch.ones_like(self.norm.weight)
+        return FusedMlp.apply(y, x, self.norm.weight, self.norm.bias,
+                              self.pwconv1.weight, self.pwconv1.bias,
+                              self.pwconv2.weight, self.pwconv2.bias, gamma,
+                              True, plain, bias)
 
     def _train_forward(self, x, plain, generator):
         """``_block_forward(train=True)``: the branches, then the fused tail
@@ -316,8 +343,12 @@ class SLaK(nn.Module):
             self.head.bias.mul_(cfg.head_init_scale)
         return self
 
-    def forward_features(self, x, plain: bool = False, generator=None):
-        """NCHW images in the compute dtype -> pooled, normed features."""
+    def forward_features(self, x, plain: bool = False, generator=None,
+                         return_stages: bool = False):
+        """NCHW images in the compute dtype -> pooled, normed features, or
+        with ``return_stages`` the list of the four stage outputs (NCHW),
+        as ``slak_tpu`` ``forward_features(return_stages=True)``."""
+        stages = []
         for i in range(4):
             ds = self.downsample_layers[i]
             if i == 0:
@@ -326,6 +357,9 @@ class SLaK(nn.Module):
                 x = _conv(ds[0](x), ds[1])
             for blk in self.stages[i]:
                 x = blk(x, plain, generator)
+            stages.append(x)
+        if return_stages:
+            return stages
         pooled = x.mean((2, 3))
         return layer_norm(pooled, self.norm.weight, self.norm.bias)
 

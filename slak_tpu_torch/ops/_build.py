@@ -6,8 +6,9 @@ into ``slak_tpu_torch/_build/lib<name>.so`` (git-ignored) on first use:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>.so csrc/<name>.cu
 
-A library is rebuilt when its source is newer. A failed build raises; there
-is no fallback to the plain PyTorch versions.
+A library is rebuilt when its source, or a header under ``csrc/``, is
+newer. A failed build raises; there is no fallback to the plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -50,8 +51,12 @@ def library_path(name: str) -> str:
 
 def _stale(name: str) -> bool:
     so = library_path(name)
-    return (not os.path.exists(so)
-            or os.path.getmtime(so) < os.path.getmtime(source_path(name)))
+    if not os.path.exists(so):
+        return True
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+               if f.endswith(".cuh")]
+    return os.path.getmtime(so) < max(os.path.getmtime(f) for f in
+                                      [source_path(name), *headers])
 
 
 def build(names: Iterable[str] = KERNELS, ptxas_verbose: bool = False

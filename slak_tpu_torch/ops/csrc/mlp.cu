@@ -37,8 +37,13 @@
 //   memory.
 //   Both bf16 kernels copy each hidden chunk's W1^T rows and W2^T columns
 //   into shared memory with cp.async, overlapped with the products.
-// - float32 (mlp_simt_kernel): plain fp32 FMAs (no TF32), matching the JAX
-//   kernels' Precision.HIGHEST, with the accumulator in shared memory.
+// - float32 (the differentiated eval's ERF path): plain fp32 FMAs (no
+//   TF32), matching the JAX kernels' Precision.HIGHEST, in four launches
+//   over f32 scratch: the LayerNorm, the two products as tiled GEMMs (the
+//   first with the GELU epilogue), the residual epilogue (see the float32
+//   section). The hidden activations make one round trip through device
+//   memory there; a one-pass design re-read every weight for each 16-64
+//   tokens at one FMA per two loads and was 10-30x slower.
 //
 // What bounds it on an H100: the two products, 4*T*C*4C operations, at
 // 989 TFLOP/s dense bf16 at best; the bytes (y, res, out and the two
@@ -53,6 +58,8 @@
 #include <stdint.h>
 
 #include <initializer_list>
+
+#include "simt_tile.cuh"
 
 namespace {
 
@@ -581,63 +588,94 @@ __global__ void __launch_bounds__(kThreads) mlp_rf_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// float32, CUDA cores
-//
-// Shared layout: acc [BT][LDA] f32 | hs [BT][LDA] f32 | as [BT][LDF] f32 |
-// gs [BT][LDF] f32 | tok [BT] i64 (acc doubles as the staging tile of the
-// LayerNorm), with odd pitches LDA = Cp + 1 and LDF = FC + 1: neighbouring
-// threads take neighbouring tokens, and read the weight row they share as
-// one broadcast.
+// float32, CUDA cores, in four launches over f32 scratch (the workspace):
+//  1. simt_ln_kernel, kSimtBT tokens a block: y + pre_bias, the LayerNorm
+//     -> hs (Tp, Cp);
+//  2. simt_gemm_kernel<true>: gs (Tp, Fp) = GELU(hs W1^T^T + b1);
+//  3. simt_gemm_kernel<false>: os (Tp, Cp) = gs W2^T^T;
+//  4. simt_out_kernel, kSimtBT tokens a block: out = res + gamma (os + b2)
+//     through the strides.
+// The products are simt_tile.cuh's 64 x 64 tiles, K in steps of 16: each
+// shared load feeds four FMAs, and a weight tile is read once for 64
+// tokens.
 // ---------------------------------------------------------------------------
 
-size_t smem_simt(int BT, int Cp, int FC) {
-  return (size_t)BT * (Cp + 1) * 2 * sizeof(float) +
-         (size_t)BT * (FC + 1) * 2 * sizeof(float) + BT * sizeof(long long);
+constexpr int kSimtBT = 32;                   // tokens a per-token block
+constexpr int kGM = simt_tile::kTile, kGN = simt_tile::kTile, kGK = 16;
+static_assert(kThreads == simt_tile::kThreads, "one thread block shape");
+
+struct SimtLayout {
+  size_t hs, gs, os, total;
+};
+
+inline SimtLayout simt_layout(long long Tp, int Cp, int Fp) {
+  auto al = [](size_t n) { return (n + 255) / 256 * 256; };
+  SimtLayout L;
+  L.hs = 0;
+  L.gs = al((size_t)Tp * Cp * sizeof(float));
+  L.os = L.gs + al((size_t)Tp * Fp * sizeof(float));
+  L.total = L.os + al((size_t)Tp * Cp * sizeof(float));
+  return L;
 }
 
-__global__ void __launch_bounds__(kThreads) mlp_simt_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int BT = a.BT, C = a.C, Cp = a.Cp, Fp = a.Fp, FC = a.FC;
-  const int LDA = Cp + 1, LDF = FC + 1;
-  float* acc = reinterpret_cast<float*>(smem_raw);
-  float* hs = acc + BT * LDA;
-  float* as = hs + BT * LDA;
-  float* gs = as + BT * LDF;
-  long long* tok = reinterpret_cast<long long*>(gs + BT * LDF);
-  const float* __restrict__ w1 = static_cast<const float*>(a.w1);
-  const float* __restrict__ w2 = static_cast<const float*>(a.w2);
-  const int tid = threadIdx.x;
+size_t smem_simt_tile(int Cp) {
+  return (size_t)kSimtBT * (Cp + 1) * sizeof(float) +
+         kSimtBT * sizeof(long long);
+}
 
-  token_offsets(a, (long long)blockIdx.x * BT, tok);
-  load_layernorm<float>(a, tok, acc, LDA, hs, LDA);
-  for (int i = tid; i < BT * LDA; i += kThreads) acc[i] = 0.f;
-  for (int f0 = 0; f0 < Fp; f0 += FC) {
-    __syncthreads();
-    for (int i = tid; i < BT * FC; i += kThreads) {
-      const int f = i / BT, t = i - f * BT;
-      const float* hrow = hs + t * LDA;
-      const float* wrow = w1 + (size_t)(f0 + f) * Cp;
-      float s = 0.f;
-      for (int k = 0; k < C; ++k) s = fmaf(hrow[k], wrow[k], s);
-      as[t * LDF + f] = s;
-    }
-    __syncthreads();
-    for (int i = tid; i < BT * FC; i += kThreads) {
-      const int t = i / FC, f = i - t * FC;
-      gs[t * LDF + f] = gelu(as[t * LDF + f] + a.b1[f0 + f]);
-    }
-    __syncthreads();
-    for (int i = tid; i < BT * Cp; i += kThreads) {
-      const int c = i / BT, t = i - c * BT;
-      const float* grow = gs + t * LDF;
-      const float* wrow = w2 + (size_t)c * Fp + f0;
-      float s = acc[t * LDA + c];
-      for (int k = 0; k < FC; ++k) s = fmaf(grow[k], wrow[k], s);
-      acc[t * LDA + c] = s;
-    }
+__global__ void __launch_bounds__(kThreads)
+simt_ln_kernel(Args a, float* __restrict__ hs) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int LDS = a.Cp + 1;
+  float* stage = reinterpret_cast<float*>(smem_raw);
+  long long* tok = reinterpret_cast<long long*>(stage + kSimtBT * LDS);
+  const long long t0 = (long long)blockIdx.x * kSimtBT;
+  token_offsets(a, t0, tok);
+  load_layernorm<float>(a, tok, stage, LDS, hs + t0 * a.Cp, a.Cp);
+}
+
+__global__ void __launch_bounds__(kThreads)
+simt_out_kernel(Args a, const float* __restrict__ os) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int Cp = a.Cp, LDA = Cp + 1;
+  float* acc = reinterpret_cast<float*>(smem_raw);
+  long long* tok = reinterpret_cast<long long*>(acc + kSimtBT * LDA);
+  const long long t0 = (long long)blockIdx.x * kSimtBT;
+  token_offsets(a, t0, tok);
+  for (int i = threadIdx.x; i < kSimtBT * Cp; i += kThreads) {
+    const int t = i / Cp, c = i - t * Cp;
+    acc[t * LDA + c] = os[(t0 + t) * Cp + c];
   }
   __syncthreads();
   store_out<float>(a, tok, acc, LDA);
+}
+
+// Cout (Tp, N) = A (Tp, K) B^T, B (N, K), all row-major; GELU adds bias
+// and applies the exact-erf GELU. Rows past N load as zeros and are not
+// stored.
+template <bool GELU>
+__global__ void __launch_bounds__(kThreads, simt_tile::kMinBlocks)
+simt_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                 float* __restrict__ Cout, const float* __restrict__ bias,
+                 int K, int N) {
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  const long long m0 = (long long)blockIdx.x * kGM;
+  const int n0 = blockIdx.y * kGN;
+  float acc[4][4] = {};
+  simt_tile::product<kGK, true, true>(
+      [&](int r, long long k) { return k < K ? A[(m0 + r) * K + k] : 0.f; },
+      [&](int r, long long k) {
+        return k < K && n0 + r < N ? B[(long long)(n0 + r) * K + k] : 0.f;
+      },
+      0, K, acc);
+  for (int i = 0; i < 4; ++i) {
+    const long long row = m0 + tr * 4 + i;
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tc * 4 + j;
+      if (n < N)
+        Cout[row * N + n] = GELU ? gelu(acc[i][j] + bias[n]) : acc[i][j];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -712,35 +750,71 @@ cudaError_t launch_tc(Args a, cudaStream_t stream) {
   return cudaErrorInvalidConfiguration;
 }
 
-cudaError_t launch_simt(Args a, cudaStream_t stream) {
-  a.FC = 64;
-  a.KS = 1;
-  for (int BT : {64, 32, 16}) {
-    const size_t smem = smem_simt(BT, a.Cp, a.FC);
-    if (smem > 200 * 1024) continue;
-    a.BT = BT;
-    return run(mlp_simt_kernel, a, smem, stream);
-  }
-  return cudaErrorInvalidConfiguration;
+long long simt_tokens(const Args& a) {
+  return (a.n_outer * a.P + kGM - 1) / kGM * kGM;
+}
+
+cudaError_t launch_simt(Args a, void* ws, cudaStream_t stream) {
+  const size_t smem = smem_simt_tile(a.Cp);
+  if (ws == nullptr || smem > kSmemMax) return cudaErrorInvalidConfiguration;
+  a.BT = kSimtBT;
+  a.FC = a.KS = 1;
+  const long long Tp = simt_tokens(a);
+  const SimtLayout L = simt_layout(Tp, a.Cp, a.Fp);
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  float* hs = reinterpret_cast<float*>(base + L.hs);
+  float* gs = reinterpret_cast<float*>(base + L.gs);
+  float* os = reinterpret_cast<float*>(base + L.os);
+  const float* w1 = static_cast<const float*>(a.w1);
+  const float* w2 = static_cast<const float*>(a.w2);
+  const unsigned tiles = (unsigned)(Tp / kSimtBT);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(simt_ln_kernel));
+  if (e != cudaSuccess) return e;
+  simt_ln_kernel<<<tiles, kThreads, smem, stream>>>(a, hs);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  simt_gemm_kernel<true><<<dim3((unsigned)(Tp / kGM), a.Fp / kGN), kThreads,
+                           0, stream>>>(hs, w1, gs, a.b1, a.Cp, a.Fp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  simt_gemm_kernel<false><<<dim3((unsigned)(Tp / kGM),
+                                 (a.Cp + kGN - 1) / kGN), kThreads, 0,
+                            stream>>>(gs, w2, os, nullptr, a.Fp, a.Cp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = allow_smem(reinterpret_cast<const void*>(simt_out_kernel));
+  if (e != cudaSuccess) return e;
+  simt_out_kernel<<<tiles, kThreads, smem, stream>>>(a, os);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// The bytes of scratch slak_fused_mlp needs for dtype at this many tokens
+// (the float32 path's hs, gs and os; none for bfloat16).
+extern "C" long long slak_fused_mlp_workspace(int dtype, long long tokens,
+                                              int Cp, int Fp) {
+  if (dtype != 0) return 0;
+  return (long long)simt_layout((tokens + kGM - 1) / kGM * kGM, Cp, Fp).total;
+}
+
 // dtype: 0 = float32, 1 = bfloat16. y, res, out: strided activations (see
 // the header); W1^T (Fp, Cp), W2^T (Cp, Fp) in the compute dtype with Cp a
-// multiple of 16 and Fp of 64; b1 (Fp) and vec (5, C) float32.
-// Returns the cudaError_t of the launch.
+// multiple of 16 and Fp of 64; b1 (Fp) and vec (5, C) float32; ws:
+// slak_fused_mlp_workspace bytes (may be null for bfloat16).
+// Returns the cudaError_t of the launches.
 extern "C" int slak_fused_mlp(int dtype, const void* y, const void* res,
                               void* out, const void* w1, const void* w2,
                               const float* b1, const float* vec,
                               long long n_outer, long long P, long long sN,
                               long long sC, long long sP, int C, int Cp,
-                              int Fp, int add_residual, void* stream) {
+                              int Fp, int add_residual, void* ws,
+                              void* stream) {
   if (Cp % 16 || Fp % 64 || C > Cp) return (int)cudaErrorInvalidValue;
   Args a{y, res, out, w1, w2, b1, vec, n_outer, P, sN, sC, sP,
          C, Cp, Fp, 0, 0, 0, add_residual};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_simt(a, s);
+  if (dtype == 0) return (int)launch_simt(a, ws, s);
   if (dtype == 1) return (int)launch_tc(a, s);
   return (int)cudaErrorInvalidValue;
 }

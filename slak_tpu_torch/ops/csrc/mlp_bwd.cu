@@ -1,8 +1,10 @@
 // Backward of the fused ConvNeXt block tail
-//   out = res + gamma * (GELU(LN(y + pre_bias) @ W1 + b1) @ W2 + b2)
-// for C <= 256: dy, dW1, dW2, db1, db2, dgamma, dLN-scale and dLN-bias.
+//   out = res + gamma * (GELU(LN(y + pre_bias) @ W1 + b1) @ W2 + b2):
+// dy, dW1, dW2, db1, db2, dgamma, dLN-scale and dLN-bias. Two entry points:
+// slak_mlp_bwd (K8, C <= 256, below) and slak_mlp_bwd_wide (K9, any C, the
+// section at the end).
 //
-// Replaces slak_tpu/ops/pallas_mlp.py: _mlp_bwd_2d (_mlp_bwd_kernel). The
+// K8 replaces slak_tpu/ops/pallas_mlp.py: _mlp_bwd_2d (_mlp_bwd_kernel). The
 // TPU kernel walks the token tiles in order and keeps dW1 and dW2 in a
 // resident output block that every tile adds into. Blocks here run in
 // parallel, and at C = 249 the fp32 dW1 + dW2 are 2 MB, which fits in no
@@ -35,10 +37,9 @@
 // The block and split partials are added by sum_partials in a fixed
 // order. No atomics: every run gives the same bits.
 //
-// float32 (the check path): mlp_bwd_f32_kernel on the CUDA cores does the
-// per-token work of kernels 1 and 2 in one pass with its accumulators in
-// shared memory (o_pre included), then mlp_bwd_gemm_f32_kernel gives the
-// weight gradients.
+// float32 (the differentiated eval's ERF path at stages 1-2) runs K9's
+// kernels (slak_mlp_bwd_wide, below), which cover any width; the wrapper
+// calls that entry point for float32.
 //
 // Rounding follows _mlp_bwd_kernel: LN statistics, a, gelu, dg, da and dh
 // in fp32; h, g, do and da rounded to the compute dtype before the
@@ -52,12 +53,53 @@
 // memory (at stage 1, batch 128, about 2.7 GB written and read once: 0.8
 // ms at 3.35 TB/s); keeping g and da on chip, and wgmma, are the next
 // steps.
+//
+// K9 replaces pallas_mlp.py: _mlp_bwd_chunked_2d (_mlp_bwd_chunked_kernel),
+// the backward of the wide tails (C = 499 and 998 at SLaK-T w1.3's stages
+// 3-4), which backs differentiated eval (the ERF analysis) in float32 and
+// bfloat16. The TPU kernel walks a sequential grid (token tiles, 4C
+// chunks): dW1/dW2/db1 blocks are added into across token tiles, dh into
+// the dy block across chunks, and the LayerNorm backward runs on the last
+// chunk. K8's design does not stretch that far: its kernel 2 holds dh as
+// 16 x Cp accumulators a warp (about 500 registers a thread at Cp = 1008)
+// and its kernel 1 stages a 128-token h tile (258 KB at Cp = 1008, above a
+// block's 227 KB). So K9 carries no sum between blocks and keeps no whole
+// row of dh on chip; every step is a separate launch over scratch:
+//  1. wide_prep_kernel, 32 tokens a block: the LayerNorm (mean and inv to
+//     scratch), h -> hs and [do | dout] -> dd, rounded; the block's column
+//     sums of do and dout.
+//  2. wide_{tc,simt}_kernel<true>: a = h W1^T and dg = do W2 as tiled
+//     products over C (two accumulator sets), the epilogue g = GELU(a + b1)
+//     and da = dg gelu'(a + b1) -> gs, das (rounded), and the block's
+//     column sums of da (db1).
+//  3. wide_{tc,simt}_kernel<false>: dh = da W1 -> f32 scratch.
+//  4. wide_lnb_kernel, 32 tokens a block: the LayerNorm backward from the
+//     whole dh row (a warp a token), dy in f32 through the forward's
+//     strides; the block's column sums of dh xhat and dh.
+//  5. K8's token-reduction GEMMs and dgamma_kernel: dW1^T = da^T h,
+//     [dW2^T; M] = [do | dout]^T g, dgamma = sum_f W2^T M + b2 sum_t dout.
+// Partials are summed by sum_partials in a fixed order: no atomics. bf16
+// runs the products on the tensor cores (mma.sync, 128 x 64 tiles), f32 on
+// the CUDA cores (simt_tile.cuh: 64 x 64 tiles, 4 x 4 a thread, shared with
+// K2/K3's f32 path and the f32 token-reduction GEMMs). Padding: the weights
+// are pack_mlp's, zero-padded to Cp (a multiple of 16) and Fp (of 64); the
+// product kernels load zeros past K and N, the per-token kernels mask the
+// ragged channels and tokens, so padded hidden units and channels give
+// exactly zero gradients, which the wrapper slices away.
+// What bounds it: the six products, 12*T*C*4C operations: about 49 GFLOP a
+// launch at both ERF shapes (T = 4096, C = 499 and T = 1024, C = 998), 0.73
+// ms at 67 TFLOP/s f32; 0.30 TFLOP at bf16 batch 128's stage 3 (T = 25088),
+// 0.30 ms at 989 TFLOP/s. The scratch traffic (h, do, dout, g, da in the
+// compute dtype, dh in f32, each written once and read about twice) is
+// about 48*T*Cp + 24*T*Fp bytes in f32: 0.3 GB at the ERF's stage 3, 0.09
+// ms at 3.35 TB/s, so the products bound it; wgmma/TMA and keeping g and da
+// on chip are the later steps.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <initializer_list>
+#include "simt_tile.cuh"
 
 namespace {
 
@@ -171,9 +213,9 @@ struct BArgs {
   void* dd;            // scratch (Tp, 2 Cp): [do | dout]
   void* gs;            // scratch (Tp, Fp): g
   void* das;           // scratch (Tp, Fp): da
-  float* stats;        // scratch (Tp, 2): LayerNorm mean, inv (bf16)
-  float* vpart_a;      // (grid, Fp + 2 Cp) bf16; (grid, Fp + 5 Cp) f32
-  float* vpart_b;      // (grid, 2 Cp) bf16
+  float* stats;        // scratch (Tp, 2): LayerNorm mean, inv
+  float* vpart_a;      // partials: (grid, Fp + 2 Cp) K8, (Tp/32, 2 Cp) K9
+  float* vpart_b;      // partials: (grid, 2 Cp) K8, (Tp/32, 2 Cp) K9
   long long n_outer, P, sN, sC, sP;
   int C, Cp, Fp, BT;
 };
@@ -808,8 +850,9 @@ mlp_bwd_gemm_kernel(const bf16* __restrict__ A, int lda,
 
 // dgamma[c] = sum_f W2^T[c, f] M[c, f] + b2[c] sum_t dout[t, c], a warp a
 // channel
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-dgamma_kernel(const bf16* __restrict__ w2, const float* __restrict__ m,
+dgamma_kernel(const T* __restrict__ w2, const float* __restrict__ m,
               const float* __restrict__ b2, const float* __restrict__ dsum,
               float* __restrict__ dgamma, int C, int Cp, int Fp) {
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -823,307 +866,28 @@ dgamma_kernel(const bf16* __restrict__ w2, const float* __restrict__ m,
   if (lane == 0) dgamma[c] = c < C ? s + b2[c] * dsum[c] : 0.f;
 }
 
-// ---------------------------------------------------------------------------
-// float32: mlp_bwd_f32_kernel, the per-token work in one pass on the CUDA
-// cores. Per tile of BT tokens, in shared memory: the LayerNorm (mean,
-// inv) and h; do = dout * gamma; then for each chunk of FC hidden units
-//   a = h W1^T + b1, g = GELU(a), gelu'(a); o_pre += g W2^T (for dgamma);
-//   dg = do W2; da = dg gelu'(a); dh += da W1;
-// then the LayerNorm backward gives dy. h, do, g and da go to scratch.
-//
-// Shared layout (LDA = Cp + 4, LDF = FC + 4 floats):
-//   hs, dos [BT][LDA] | acc_o, acc_dh [BT][LDA] | w: w1c [FC][LDA] +
-//   w2c [Cp][LDF], or an fp32 staging tile [BT][LDA] | af, gp [BT][LDF] |
-//   gs, dab [BT][LDF] | mean, inv, m1, m2 [BT] | tok [BT] i64 |
-//   vacc [Fp + 5 Cp]
-// ---------------------------------------------------------------------------
-
-constexpr int kFcF32 = 32;
-
-struct FLayout {
-  size_t hs, dos, acc_o, acc_dh, w, af, gp, gs, dab, stats, tok, vacc,
-      total;
-};
-
-__host__ __device__ inline FLayout f32_layout(int BT, int Cp, int Fp) {
-  constexpr int FC = kFcF32;
-  const size_t LDA = Cp + 4, LDF = FC + 4;
-  const size_t wb = (FC * LDA + Cp * LDF) * sizeof(float);
-  const size_t sb = BT * LDA * sizeof(float);
-  FLayout L;
-  size_t o = 0;
-  L.hs = take(&o, BT * LDA * sizeof(float));
-  L.dos = take(&o, BT * LDA * sizeof(float));
-  L.acc_o = take(&o, BT * LDA * sizeof(float));
-  L.acc_dh = take(&o, BT * LDA * sizeof(float));
-  L.w = take(&o, wb > sb ? wb : sb);
-  L.af = take(&o, BT * LDF * sizeof(float));
-  L.gp = take(&o, BT * LDF * sizeof(float));
-  L.gs = take(&o, BT * LDF * sizeof(float));
-  L.dab = take(&o, BT * LDF * sizeof(float));
-  L.stats = take(&o, 4 * BT * sizeof(float));
-  L.tok = take(&o, BT * sizeof(long long));
-  L.vacc = take(&o, (Fp + 5 * Cp) * sizeof(float));
-  L.total = o;
-  return L;
-}
-
-// C (M x N, row pitch ldc) (+)= A (M x K) B (K x N), all in shared memory;
-// A row-major (A[m * lda + k]) or column-major (A[k * lda + m]), B likewise
-template <bool A_ROW, bool B_ROW>
-__device__ void mm(int M, int N, int K, const float* A, int lda,
-                   const float* B, int ldb, float* C, int ldc, bool acc) {
-  for (int i = threadIdx.x; i < M * N; i += kThreads) {
-    const int m = i / N, n = i - m * N;
-    float s = acc ? C[m * ldc + n] : 0.f;
-    for (int k = 0; k < K; ++k)
-      s = fmaf(A_ROW ? A[m * lda + k] : A[k * lda + m],
-               B_ROW ? B[k * ldb + n] : B[n * ldb + k], s);
-    C[m * ldc + n] = s;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) mlp_bwd_f32_kernel(BArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int FC = kFcF32;
-  const int BT = a.BT, C = a.C, Cp = a.Cp, Fp = a.Fp;
-  const int LDA = Cp + 4, LDF = FC + 4;
-  const FLayout L = f32_layout(BT, Cp, Fp);
-  float* hs = reinterpret_cast<float*>(smem_raw + L.hs);
-  float* dos = reinterpret_cast<float*>(smem_raw + L.dos);
-  float* acc_o = reinterpret_cast<float*>(smem_raw + L.acc_o);
-  float* acc_dh = reinterpret_cast<float*>(smem_raw + L.acc_dh);
-  float* w1c = reinterpret_cast<float*>(smem_raw + L.w);
-  float* w2c = w1c + FC * LDA;
-  float* stage = w1c;
-  float* af = reinterpret_cast<float*>(smem_raw + L.af);
-  float* gp = reinterpret_cast<float*>(smem_raw + L.gp);
-  float* gsh = reinterpret_cast<float*>(smem_raw + L.gs);
-  float* dab = reinterpret_cast<float*>(smem_raw + L.dab);
-  float* mean = reinterpret_cast<float*>(smem_raw + L.stats);
-  float* inv = mean + BT;
-  float* m1 = inv + BT;
-  float* m2 = m1 + BT;
-  long long* tok = reinterpret_cast<long long*>(smem_raw + L.tok);
-  float* vacc = reinterpret_cast<float*>(smem_raw + L.vacc);
-  // the bf16 path's layout: db1 | db2 | (sum_t dout) | dlns | dlnb | dgamma
-  float* v_db1 = vacc;
-  float* v_db2 = vacc + Fp;
-  float* v_dlns = v_db2 + 2 * Cp;
-  float* v_dlnb = v_dlns + Cp;
-  float* v_dg = v_dlnb + Cp;
-
-  const float* __restrict__ y = static_cast<const float*>(a.y);
-  const float* __restrict__ dout = static_cast<const float*>(a.dout);
-  float* __restrict__ dy = static_cast<float*>(a.dy);
-  const float* __restrict__ w1 = static_cast<const float*>(a.w1);
-  const float* __restrict__ w2 = static_cast<const float*>(a.w2);
-  float* __restrict__ h_g = static_cast<float*>(a.hs);
-  float* __restrict__ dd_g = static_cast<float*>(a.dd);
-  float* __restrict__ g_g = static_cast<float*>(a.gs);
-  float* __restrict__ da_g = static_cast<float*>(a.das);
-  const float* __restrict__ ln_s = a.vec;
-  const float* __restrict__ ln_b = a.vec + C;
-  const float* __restrict__ b2 = a.vec + 2 * C;
-  const float* __restrict__ gamma = a.vec + 3 * C;
-  const float* __restrict__ pre = a.vec + 4 * C;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long T_total = a.n_outer * a.P;
-  const long long n_tiles = (T_total + BT - 1) / BT;
-
-  for (int i = tid; i < Fp + 5 * Cp; i += kThreads) vacc[i] = 0.f;
-
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long t0 = tile * BT;
-    __syncthreads();                         // the previous tile is done
-    token_offsets(a, t0, tok);
-    __syncthreads();
-    // y + pre_bias -> acc_dh (staging), dout -> acc_o (staging)
-    for_tile<1>(
-        a, tok, [&](long long off) { return off >= 0 ? y[off] : 0.f; },
-        [&](int t, int c, long long off, float v) {
-          acc_dh[t * LDA + c] = off >= 0 ? v + pre[c] : 0.f;
-          acc_o[t * LDA + c] = off >= 0 ? dout[off] : 0.f;
-        });
-    __syncthreads();
-    // LayerNorm, a warp a token: mean, inv, h
-    for (int t = warp; t < BT; t += kWarps) {
-      const float* row = acc_dh + t * LDA;
-      float s = 0.f;
-      for (int c = lane; c < C; c += 32) s += row[c];
-      const float mu = warp_sum(s) / C;
-      float q = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float d = row[c] - mu;
-        q += d * d;
-      }
-      const float iv = rsqrtf(warp_sum(q) / C + kLnEps);
-      const bool real = tok[t] >= 0;
-      for (int c = lane; c < Cp; c += 32)
-        hs[t * LDA + c] =
-            real && c < C ? (row[c] - mu) * iv * ln_s[c] + ln_b[c] : 0.f;
-      if (lane == 0) {
-        mean[t] = mu;
-        inv[t] = iv;
-      }
-    }
-    // do = dout * gamma, summed into db2 (a thread a channel, the tokens
-    // in order)
-    for (int c = tid; c < Cp; c += kThreads) {
-      const float gm = c < C ? gamma[c] : 0.f;
-      float s = 0.f;
-      for (int t = 0; t < BT; ++t) {
-        const float d = acc_o[t * LDA + c] * gm;
-        dos[t * LDA + c] = d;
-        s += d;
-      }
-      v_db2[c] += s;
-    }
-    __syncthreads();
-    for (int i = tid; i < BT * LDA; i += kThreads) {
-      acc_o[i] = 0.f;
-      acc_dh[i] = 0.f;
-    }
-    copy_rows<float>(h_g + t0 * Cp, Cp, hs, LDA, BT, Cp);
-    copy_rows<float>(dd_g + t0 * 2 * Cp, 2 * Cp, dos, LDA, BT, Cp);
-
-    for (int f0 = 0; f0 < Fp; f0 += FC) {
-      __syncthreads();                       // the previous chunk is done
-      copy_rows<float>(w1c, LDA, w1 + (size_t)f0 * Cp, Cp, FC, Cp);
-      copy_rows<float>(w2c, LDF, w2 + f0, Fp, Cp, FC);
-      __syncthreads();
-      mm<true, false>(BT, FC, Cp, hs, LDA, w1c, LDA, af, LDF, false);
-      __syncthreads();
-      for (int i = tid; i < BT * FC; i += kThreads) {
-        const int t = i / FC, f = i - t * FC;
-        const float av = af[t * LDF + f] + a.b1[f0 + f];
-        const float e = erff(av * kInvSqrt2);
-        const float g = 0.5f * av * (1.f + e);
-        gsh[t * LDF + f] = g;
-        gp[t * LDF + f] = 0.5f * (1.f + e) +
-                          av * kInvSqrt2Pi * expf(-0.5f * av * av);
-        g_g[(t0 + t) * Fp + f0 + f] = g;
-      }
-      __syncthreads();
-      mm<true, false>(BT, Cp, FC, gsh, LDF, w2c, LDF, acc_o, LDA, true);
-      mm<true, true>(BT, FC, Cp, dos, LDA, w2c, LDF, af, LDF, false);
-      __syncthreads();
-      for (int f = tid; f < FC; f += kThreads) {
-        float s = 0.f;
-        for (int t = 0; t < BT; ++t) {
-          const float d = af[t * LDF + f] * gp[t * LDF + f];
-          dab[t * LDF + f] = d;
-          da_g[(t0 + t) * Fp + f0 + f] = d;
-          s += d;
-        }
-        v_db1[f0 + f] += s;
-      }
-      __syncthreads();
-      mm<true, true>(BT, Cp, FC, dab, LDF, w1c, LDA, acc_dh, LDA, true);
-    }
-    __syncthreads();
-    // dgamma: sum over tokens of dout * (o_pre + b2)
-    for_tile<1>(
-        a, tok, [&](long long off) { return off >= 0 ? dout[off] : 0.f; },
-        [&](int t, int c, long long, float v) { stage[t * LDA + c] = v; });
-    __syncthreads();
-    for (int c = tid; c < C; c += kThreads) {
-      float s = 0.f;
-      for (int t = 0; t < BT; ++t)
-        s += stage[t * LDA + c] * (acc_o[t * LDA + c] + b2[c]);
-      v_dg[c] += s;
-    }
-    __syncthreads();
-    for_tile<1>(
-        a, tok, [&](long long off) { return off >= 0 ? y[off] : 0.f; },
-        [&](int t, int c, long long off, float v) {
-          stage[t * LDA + c] = off >= 0 ? v + pre[c] : 0.f;
-        });
-    __syncthreads();
-    // xhat (into stage), dlns, dlnb, dxh = dh * ln_scale (into acc_dh)
-    for (int c = tid; c < Cp; c += kThreads) {
-      float sl = 0.f, sb = 0.f;
-      for (int t = 0; t < BT; ++t) {
-        float xh = 0.f, dh = 0.f;
-        if (c < C && tok[t] >= 0) {
-          xh = (stage[t * LDA + c] - mean[t]) * inv[t];
-          dh = acc_dh[t * LDA + c];
-        }
-        sl += dh * xh;
-        sb += dh;
-        stage[t * LDA + c] = xh;
-        acc_dh[t * LDA + c] = c < C ? dh * ln_s[c] : 0.f;
-      }
-      v_dlns[c] += sl;
-      v_dlnb[c] += sb;
-    }
-    __syncthreads();
-    for (int t = warp; t < BT; t += kWarps) {
-      float s = 0.f, q = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float d = acc_dh[t * LDA + c];
-        s += d;
-        q += d * stage[t * LDA + c];
-      }
-      s = warp_sum(s);
-      q = warp_sum(q);
-      if (lane == 0) {
-        m1[t] = s / C;
-        m2[t] = q / C;
-      }
-    }
-    __syncthreads();
-    for_tile<1>(
-        a, tok, [](long long) { return 0.f; },
-        [&](int t, int c, long long off, float) {
-          if (off >= 0)
-            dy[off] = inv[t] * (acc_dh[t * LDA + c] - m1[t] -
-                                stage[t * LDA + c] * m2[t]);
-        });
-  }
-  __syncthreads();
-  float* dst = a.vpart_a + (long long)blockIdx.x * (Fp + 5 * Cp);
-  for (int i = tid; i < Fp + 5 * Cp; i += kThreads) dst[i] = vacc[i];
-}
-
 // part[z] (M x N) = sum over the tokens of split z of A[t][m] * B[t][n],
-// float32 on the CUDA cores: a 64 x 64 output tile a block, 32 tokens a
-// step through shared memory
-constexpr int kTileMN = 64, kLDS = kTileMN + 4, kTileT32 = 32;
+// float32 on the CUDA cores: simt_tile.cuh's 64 x 64 output tile a block,
+// 32 tokens a step through shared memory
+constexpr int kTileMN = simt_tile::kTile, kTileT32 = 32;
+static_assert(kThreads == simt_tile::kThreads, "one thread block shape");
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, simt_tile::kMinBlocks)
 mlp_bwd_gemm_f32_kernel(const float* __restrict__ A, int lda,
                         const float* __restrict__ B, int ldb, float* part,
                         long long Tp, int M, int N, long long per) {
-  __shared__ __align__(16) float As[kTileT32 * kLDS];
-  __shared__ __align__(16) float Bs[kTileT32 * kLDS];
   const int m0 = blockIdx.x * kTileMN, n0 = blockIdx.y * kTileMN;
   const long long ta = blockIdx.z * per, tb = min(Tp, ta + per);
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
   float acc[4][4] = {};
-  for (long long t0 = ta; t0 < tb; t0 += kTileT32) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kTileT32 * kTileMN; i += kThreads) {
-      const int r = i / kTileMN, col = i - r * kTileMN;
-      const bool in = t0 + r < tb;
-      As[r * kLDS + col] = in && m0 + col < M ? A[(t0 + r) * lda + m0 + col]
-                                              : 0.f;
-      Bs[r * kLDS + col] = in && n0 + col < N ? B[(t0 + r) * ldb + n0 + col]
-                                              : 0.f;
-    }
-    __syncthreads();
-    for (int k = 0; k < kTileT32; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[k * kLDS + tr * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[k * kLDS + tc * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
+  simt_tile::product<kTileT32, false, false>(
+      [&](int m, long long t) {
+        return t < tb && m0 + m < M ? A[t * lda + m0 + m] : 0.f;
+      },
+      [&](int n, long long t) {
+        return t < tb && n0 + n < N ? B[t * ldb + n0 + n] : 0.f;
+      },
+      ta, tb, acc);
   float* dst = part + (long long)blockIdx.z * M * N;
   for (int i = 0; i < 4; ++i)
     for (int j = 0; j < 4; ++j) {
@@ -1234,35 +998,592 @@ cudaError_t launch_bf16(const BArgs& a, int grid, float* wpart1,
   e = gemm_bf16(a.dd, 2 * Cp, a.gs, Fp, wpart2, dw2, Tp, 2 * Cp, Fp,
                 splits2, s);
   if (e != cudaSuccess) return e;
-  dgamma_kernel<<<(Cp + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+  dgamma_kernel<bf16><<<(Cp + kWarps - 1) / kWarps, kThreads, 0, s>>>(
       static_cast<const bf16*>(a.w2), dw2 + (long long)Cp * Fp,
       a.vec + 2 * a.C, dvec + Fp + Cp, dvec + Fp + 4 * Cp, a.C, Cp, Fp);
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const BArgs& a, int grid, float* wpart1,
-                       float* wpart2, float* dw1, float* dw2, float* dvec,
-                       int splits1, int splits2, cudaStream_t s) {
-  const int Cp = a.Cp, Fp = a.Fp;
-  const size_t smem = f32_layout(a.BT, Cp, Fp).total;
-  if (smem > kSmemMax || Fp % kFcF32) return cudaErrorInvalidConfiguration;
-  cudaError_t e = run(mlp_bwd_f32_kernel, a, grid, smem, s);
+// ===========================================================================
+// K9: the same backward at any width (slak_mlp_bwd_wide; see the header)
+// ===========================================================================
+
+constexpr int kWT = 32;        // tokens a block in the per-token kernels
+constexpr int kWPadT = 128;    // the tokens are padded to a multiple of this
+
+// Shared layout of the per-token kernels: tile [kWT][Cp + 1] f32 (the odd
+// pitch keeps the token-walking lanes off each other's banks) | mean, inv
+// [kWT] f32 | tok [kWT] i64
+struct TLayout {
+  size_t tile, stats, tok, total;
+};
+
+__host__ __device__ inline TLayout t_layout(int Cp) {
+  TLayout L;
+  size_t o = 0;
+  L.tile = take(&o, (size_t)kWT * (Cp + 1) * sizeof(float));
+  L.stats = take(&o, 2 * kWT * sizeof(float));
+  L.tok = take(&o, kWT * sizeof(long long));
+  L.total = o;
+  return L;
+}
+
+// The LayerNorm (each token's mean and inv to scratch), h rounded -> hs,
+// [do | dout] rounded -> dd, and this block's column sums of do (db2) and
+// dout -> vpart_a[blockIdx.x]. Padded tokens and channels give zeros.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) wide_prep_kernel(BArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int C = a.C, Cp = a.Cp, LDW = Cp + 1;
+  const TLayout L = t_layout(Cp);
+  float* tile = reinterpret_cast<float*>(smem_raw + L.tile);
+  long long* tok = reinterpret_cast<long long*>(smem_raw + L.tok);
+  const T* __restrict__ y = static_cast<const T*>(a.y);
+  const T* __restrict__ dout = static_cast<const T*>(a.dout);
+  T* __restrict__ h_g = static_cast<T*>(a.hs);
+  T* __restrict__ dd_g = static_cast<T*>(a.dd);
+  const float* __restrict__ ln_s = a.vec;
+  const float* __restrict__ ln_b = a.vec + C;
+  const float* __restrict__ gamma = a.vec + 3 * C;
+  const float* __restrict__ pre = a.vec + 4 * C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long t0 = (long long)blockIdx.x * kWT;
+
+  token_offsets(a, t0, tok);
+  __syncthreads();
+  for_tile<4>(
+      a, tok, [&](long long off) { return off >= 0 ? to_f(y[off]) : 0.f; },
+      [&](int t, int c, long long off, float v) {
+        tile[t * LDW + c] = off >= 0 ? v + pre[c] : 0.f;
+      });
+  __syncthreads();
+  for (int t = warp; t < kWT; t += kWarps) {
+    float* row = tile + t * LDW;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += row[c];
+    const float mu = warp_sum(s) / C;
+    float q = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = row[c] - mu;
+      q += d * d;
+    }
+    const float iv = rsqrtf(warp_sum(q) / C + kLnEps);
+    const bool real = tok[t] >= 0;
+    for (int c = lane; c < Cp; c += 32)
+      row[c] = real && c < C ? (row[c] - mu) * iv * ln_s[c] + ln_b[c] : 0.f;
+    if (lane == 0) {
+      a.stats[(t0 + t) * 2] = mu;
+      a.stats[(t0 + t) * 2 + 1] = iv;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kWT * Cp; i += kThreads) {
+    const int t = i / Cp, c = i - t * Cp;
+    h_g[(t0 + t) * Cp + c] = from_f<T>(tile[t * LDW + c]);
+  }
+  __syncthreads();
+  for_tile<4>(
+      a, tok,
+      [&](long long off) { return off >= 0 ? to_f(dout[off]) : 0.f; },
+      [&](int t, int c, long long, float v) { tile[t * LDW + c] = v; });
+  __syncthreads();
+  float* part = a.vpart_a + (long long)blockIdx.x * 2 * Cp;
+  for (int c = tid; c < Cp; c += kThreads) {
+    const float gm = c < C ? gamma[c] : 0.f;
+    float s = 0.f, sd = 0.f;
+    for (int t = 0; t < kWT; ++t) {
+      const float d = tile[t * LDW + c];
+      const float v = d * gm;
+      T* row = dd_g + (t0 + t) * 2 * Cp;
+      row[c] = from_f<T>(v);
+      row[Cp + c] = from_f<T>(d);
+      s += v;
+      sd += d;
+    }
+    part[c] = s;
+    part[Cp + c] = sd;
+  }
+}
+
+// The LayerNorm backward from dh (f32 scratch, (Tp, Cp)): dy (f32, through
+// the forward's strides) and this block's column sums of dh * xhat
+// (dLN-scale) and dh (dLN-bias) -> vpart_b[blockIdx.x].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+wide_lnb_kernel(BArgs a, const float* __restrict__ dh) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int C = a.C, Cp = a.Cp, LDW = Cp + 1;
+  const TLayout L = t_layout(Cp);
+  float* tile = reinterpret_cast<float*>(smem_raw + L.tile);
+  float* mean = reinterpret_cast<float*>(smem_raw + L.stats);
+  float* inv = mean + kWT;
+  long long* tok = reinterpret_cast<long long*>(smem_raw + L.tok);
+  const T* __restrict__ y = static_cast<const T*>(a.y);
+  float* __restrict__ dy = static_cast<float*>(a.dy);
+  const float* __restrict__ ln_s = a.vec;
+  const float* __restrict__ pre = a.vec + 4 * C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long t0 = (long long)blockIdx.x * kWT;
+  const float* dh_t = dh + t0 * Cp;
+
+  token_offsets(a, t0, tok);
+  for (int t = tid; t < kWT; t += kThreads) {
+    mean[t] = a.stats[(t0 + t) * 2];
+    inv[t] = a.stats[(t0 + t) * 2 + 1];
+  }
+  __syncthreads();
+  // xhat -> tile (zero on padded tokens and channels)
+  for_tile<4>(
+      a, tok, [&](long long off) { return off >= 0 ? to_f(y[off]) : 0.f; },
+      [&](int t, int c, long long off, float v) {
+        tile[t * LDW + c] = off >= 0 ? (v + pre[c] - mean[t]) * inv[t] : 0.f;
+      });
+  __syncthreads();
+  float* part = a.vpart_b + (long long)blockIdx.x * 2 * Cp;
+  for (int c = tid; c < Cp; c += kThreads) {
+    float sl = 0.f, sb = 0.f;
+    for (int t = 0; t < kWT; ++t) {
+      const float d = dh_t[t * Cp + c];
+      sl += d * tile[t * LDW + c];
+      sb += d;
+    }
+    part[c] = sl;
+    part[Cp + c] = sb;
+  }
+  __syncthreads();
+  // dy = inv (dxh - mean_c dxh - xhat mean_c(dxh xhat)), dxh = dh ln_scale,
+  // a warp a token, in place of xhat
+  for (int t = warp; t < kWT; t += kWarps) {
+    float* row = tile + t * LDW;
+    const float* drow = dh_t + t * Cp;
+    float s = 0.f, q = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = drow[c] * ln_s[c];
+      s += d;
+      q += d * row[c];
+    }
+    const float m1 = warp_sum(s) / C, m2 = warp_sum(q) / C, iv = inv[t];
+    for (int c = lane; c < Cp; c += 32)
+      row[c] = c < C ? iv * (drow[c] * ln_s[c] - m1 - row[c] * m2) : 0.f;
+  }
+  __syncthreads();
+  for_tile<4>(
+      a, tok, [](long long) { return 0.f; },
+      [&](int t, int c, long long off, float) {
+        if (off >= 0) dy[off] = tile[t * LDW + c];
+      });
+}
+
+// The two token-row products of K9 (row-major operands, pitches in
+// elements):
+//  fused:  a = h W1^T (B = W1^T rows, [n = f][k = c]) and dg = do W2 (B =
+//          W2^T, [k = c][n = f]) over K = Cp; then g = GELU(a + b1) and
+//          da = dg gelu'(a + b1), rounded -> g, da (Tp, Fp); the block's
+//          column sums of da (db1) -> vpart[blockIdx.x] (row pitch ldo).
+//  !fused: dh = da W1 (B = W1^T, [k = f][n = c]) over K = Fp -> dh (Tp, N)
+//          f32.
+template <typename T>
+struct PArgs {
+  const T* a0;          // h (fused) or da, [t][k]
+  long long lda0;
+  const T* a1;          // do (fused), [t][k]
+  long long lda1;
+  const T* bn;          // [n][k] (fused)
+  long long ldbn;
+  const T* bk;          // [k][n]
+  long long ldbk;
+  int K, N;
+  const float* b1;      // fused
+  T* g;                 // fused outputs, row pitch ldo
+  T* da;
+  long long ldo;
+  float* vpart;
+  float* dh;            // !fused output, row pitch N
+};
+
+__device__ __forceinline__ void zero16(void* p) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(0, 0, 0, 0);
+}
+
+// GELU of a = acc + bias, and gelu'(a) * dg
+__device__ __forceinline__ void gelu_pair(float acc, float bias, float dg,
+                                          float* g, float* da) {
+  const float v = acc + bias;
+  const float er = erff(v * kInvSqrt2);
+  *g = 0.5f * v * (1.f + er);
+  *da = dg * (0.5f * (1.f + er) + v * kInvSqrt2Pi * __expf(-0.5f * v * v));
+}
+
+// bf16 on the tensor cores (mma.sync m16n8k16 + ldmatrix, f32
+// accumulators): a 128-token x 64-column tile a block, 32 x 32 a warp, K in
+// steps of 32 through a 2-stage cp.async ring; operands past K or N load as
+// zeros.
+constexpr int kPM = 128, kPN = 64, kPK = 32;
+constexpr int kPLD = kPK + kPad, kPLDN = kPN + kPad;
+constexpr int kPStage = 2 * kPM * kPLD + kPN * kPLD + kPK * kPLDN;
+constexpr size_t kPSmem = 2 * kPStage * sizeof(bf16) + 4 * kPN * sizeof(float);
+
+template <bool FUSED>
+__global__ void __launch_bounds__(kThreads) wide_tc_kernel(PArgs<bf16> p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const Lanes ln(lane);
+  const long long m0 = (long long)blockIdx.x * kPM;
+  const int n0 = blockIdx.y * kPN;
+  const int nk = (p.K + kPK - 1) / kPK;
+  constexpr int KV = kPK / 8, NV = kPN / 8;   // 16-byte pieces a row
+
+  auto load = [&](int s, int kt) {
+    const int k0 = kt * kPK;
+    bf16* a0s = sm + s * kPStage;
+    bf16* a1s = a0s + kPM * kPLD;
+    bf16* bns = a1s + kPM * kPLD;
+    bf16* bks = bns + kPN * kPLD;
+    for (int i = tid; i < kPM * KV; i += kThreads) {
+      const int r = i / KV, v = (i - r * KV) * 8, k = k0 + v;
+      bf16* d0 = a0s + r * kPLD + v;
+      if (k < p.K) cp_async16(d0, p.a0 + (m0 + r) * p.lda0 + k);
+      else zero16(d0);
+      if (FUSED) {
+        bf16* d1 = a1s + r * kPLD + v;
+        if (k < p.K) cp_async16(d1, p.a1 + (m0 + r) * p.lda1 + k);
+        else zero16(d1);
+      }
+    }
+    if (FUSED)
+      for (int i = tid; i < kPN * KV; i += kThreads) {
+        const int r = i / KV, v = (i - r * KV) * 8, k = k0 + v;
+        bf16* d = bns + r * kPLD + v;
+        if (k < p.K) cp_async16(d, p.bn + (long long)(n0 + r) * p.ldbn + k);
+        else zero16(d);
+      }
+    for (int i = tid; i < kPK * NV; i += kThreads) {
+      const int r = i / NV, v = (i - r * NV) * 8, n = n0 + v;
+      bf16* d = bks + r * kPLDN + v;
+      if (k0 + r < p.K && n < p.N)
+        cp_async16(d, p.bk + (long long)(k0 + r) * p.ldbk + n);
+      else
+        zero16(d);
+    }
+  };
+
+  float acc_n[2][4][4], acc_k[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_n[mi][j][e] = acc_k[mi][j][e] = 0.f;
+
+  load(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();               // tile kt landed; tile kt-1 all read
+    if (kt + 1 < nk) load((kt + 1) & 1, kt + 1);
+    cp_async_commit();
+    const bf16* a0s = sm + (kt & 1) * kPStage;
+    const bf16* a1s = a0s + kPM * kPLD;
+    const bf16* bns = a1s + kPM * kPLD;
+    const bf16* bks = bns + kPN * kPLD;
+#pragma unroll
+    for (int kk = 0; kk < kPK; kk += 16) {
+      unsigned a0f[2][4], a1f[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm * 32 + mi * 16 + ln.a_row;
+        ldsm_x4(smem_u32(a0s + r * kPLD + kk + ln.a_col), a0f[mi]);
+        if (FUSED) ldsm_x4(smem_u32(a1s + r * kPLD + kk + ln.a_col), a1f[mi]);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        unsigned b[4];
+        if (FUSED) {
+          ldsm_x4(smem_u32(bns + (wn * 32 + np * 16 + ln.b_row) * kPLD + kk +
+                           ln.b_col), b);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_16816(acc_n[mi][2 * np], a0f[mi], b[0], b[1]);
+            mma_16816(acc_n[mi][2 * np + 1], a0f[mi], b[2], b[3]);
+          }
+        }
+        ldsm_x4_t(smem_u32(bks + (kk + ln.bt_k) * kPLDN + wn * 32 + np * 16 +
+                           ln.bt_n), b);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const unsigned* af = FUSED ? a1f[mi] : a0f[mi];
+          mma_16816(acc_k[mi][2 * np], af, b[0], b[1]);
+          mma_16816(acc_k[mi][2 * np + 1], af, b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  const int c_lane = 2 * (lane & 3);
+  if (!FUSED) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const int n = n0 + wn * 32 + nj * 8 + c_lane;
+        if (n >= p.N) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long long row =
+              m0 + wm * 32 + mi * 16 + (lane >> 2) + half * 8;
+          *reinterpret_cast<float2*>(p.dh + row * p.N + n) = make_float2(
+              acc_k[mi][nj][2 * half], acc_k[mi][nj][2 * half + 1]);
+        }
+      }
+    return;
+  }
+  float* colp =
+      reinterpret_cast<float*>(smem_raw + 2 * kPStage * sizeof(bf16));
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj) {
+    const int fl = wn * 32 + nj * 8 + c_lane, f = n0 + fl;
+    const float2 bb = *reinterpret_cast<const float2*>(p.b1 + f);
+    float cs0 = 0.f, cs1 = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long row = m0 + wm * 32 + mi * 16 + (lane >> 2) + half * 8;
+        float g0, g1, d0, d1;
+        gelu_pair(acc_n[mi][nj][2 * half], bb.x, acc_k[mi][nj][2 * half],
+                  &g0, &d0);
+        gelu_pair(acc_n[mi][nj][2 * half + 1], bb.y,
+                  acc_k[mi][nj][2 * half + 1], &g1, &d1);
+        *reinterpret_cast<unsigned*>(p.g + row * p.ldo + f) =
+            pack_bf16x2(g0, g1);
+        *reinterpret_cast<unsigned*>(p.da + row * p.ldo + f) =
+            pack_bf16x2(d0, d1);
+        cs0 += d0;
+        cs1 += d1;
+      }
+    cs0 = rows_sum(cs0);
+    cs1 = rows_sum(cs1);
+    if (lane < 4) {
+      colp[wm * kPN + fl] = cs0;
+      colp[wm * kPN + fl + 1] = cs1;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kPN; i += kThreads)
+    p.vpart[(long long)blockIdx.x * p.ldo + n0 + i] =
+        colp[i] + colp[kPN + i] + colp[2 * kPN + i] + colp[3 * kPN + i];
+}
+
+// float32 on the CUDA cores: the same products as simt_tile.cuh tiles (64
+// x 64 a block, 4 x 4 a thread), K in steps of 16 through shared memory;
+// fused runs the two products one after the other over the same rows.
+constexpr int kSM = simt_tile::kTile, kSN = simt_tile::kTile, kSK = 16;
+
+template <bool FUSED>
+__global__ void __launch_bounds__(kThreads, simt_tile::kMinBlocks)
+    wide_simt_kernel(PArgs<float> p) {
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const long long m0 = (long long)blockIdx.x * kSM;
+  const int n0 = blockIdx.y * kSN;
+  const long long K = p.K;
+  auto a0 = [&](int r, long long k) {
+    return k < K ? p.a0[(m0 + r) * p.lda0 + k] : 0.f;
+  };
+  // B = [k][n] (bk): W1^T for dh = da W1, W2^T for dg = do W2
+  auto bk = [&](int n, long long k) {
+    return k < K && n0 + n < p.N ? p.bk[k * p.ldbk + n0 + n] : 0.f;
+  };
+  float acc_k[4][4] = {};
+  if constexpr (!FUSED) {
+    simt_tile::product<kSK, true, false>(a0, bk, 0, K, acc_k);
+    for (int i = 0; i < 4; ++i) {
+      const long long row = m0 + tr * 4 + i;
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + tc * 4 + j;
+        if (n < p.N) p.dh[row * p.N + n] = acc_k[i][j];
+      }
+    }
+  } else {
+    __shared__ float colp[16][kSN];
+    float acc_n[4][4] = {};
+    simt_tile::product<kSK, true, true>(
+        a0,
+        [&](int n, long long k) {
+          return k < K ? p.bn[(long long)(n0 + n) * p.ldbn + k] : 0.f;
+        },
+        0, K, acc_n);
+    simt_tile::product<kSK, true, false>(
+        [&](int r, long long k) {
+          return k < K ? p.a1[(m0 + r) * p.lda1 + k] : 0.f;
+        },
+        bk, 0, K, acc_k);
+    float cs[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = 0; i < 4; ++i) {
+      const long long row = m0 + tr * 4 + i;
+      float gv[4], dv[4];
+      for (int j = 0; j < 4; ++j) {
+        gelu_pair(acc_n[i][j], p.b1[n0 + tc * 4 + j], acc_k[i][j], &gv[j],
+                  &dv[j]);
+        cs[j] += dv[j];
+      }
+      *reinterpret_cast<float4*>(p.g + row * p.ldo + n0 + tc * 4) =
+          make_float4(gv[0], gv[1], gv[2], gv[3]);
+      *reinterpret_cast<float4*>(p.da + row * p.ldo + n0 + tc * 4) =
+          make_float4(dv[0], dv[1], dv[2], dv[3]);
+    }
+    for (int j = 0; j < 4; ++j) colp[tr][tc * 4 + j] = cs[j];
+    __syncthreads();
+    if (tid < kSN) {
+      float s = 0.f;
+      for (int r = 0; r < 16; ++r) s += colp[r][tid];
+      p.vpart[(long long)blockIdx.x * p.ldo + n0 + tid] = s;
+    }
+  }
+}
+
+cudaError_t run_product(const PArgs<bf16>& p, bool fused, long long Tp,
+                        cudaStream_t s) {
+  const void* k = fused ? reinterpret_cast<const void*>(wide_tc_kernel<true>)
+                        : reinterpret_cast<const void*>(wide_tc_kernel<false>);
+  cudaError_t e = allow_smem(k);
   if (e != cudaSuccess) return e;
-  e = reduce(a.vpart_a, dvec, Fp + 5LL * Cp, grid, s);
+  const dim3 grid((unsigned)(Tp / kPM), (p.N + kPN - 1) / kPN);
+  if (fused)
+    wide_tc_kernel<true><<<grid, kThreads, kPSmem, s>>>(p);
+  else
+    wide_tc_kernel<false><<<grid, kThreads, kPSmem, s>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t run_product(const PArgs<float>& p, bool fused, long long Tp,
+                        cudaStream_t s) {
+  const dim3 grid((unsigned)(Tp / kSM), (p.N + kSN - 1) / kSN);
+  if (fused)
+    wide_simt_kernel<true><<<grid, kThreads, 0, s>>>(p);
+  else
+    wide_simt_kernel<false><<<grid, kThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+// Workspace of slak_mlp_bwd_wide, compute dtype of `e` bytes: hs (Tp, Cp),
+// dd (Tp, 2 Cp), gs and das (Tp, Fp) in the compute dtype; dh (Tp, Cp),
+// stats (Tp, 2), the per-token kernels' partials (Tp / kWT, 2 Cp) twice,
+// db1's (Tp / product rows, Fp), wpart1 (s1, Fp, Cp), wpart2 (s2, 2 Cp, Fp)
+// float32.
+struct WLayout {
+  size_t hs, dd, gs, das, dh, stats, vp_prep, vp_lnb, vp_db1, wpart1, wpart2,
+      total;
+};
+
+inline WLayout w_layout(size_t e, long long Tp, int Cp, int Fp, int s1,
+                        int s2) {
+  const size_t tp = (size_t)Tp, cp = (size_t)Cp, fp = (size_t)Fp;
+  const size_t nb = tp / kWT, nm = tp / (e == 2 ? kPM : kSM);
+  WLayout L;
+  size_t o = 0;
+  L.hs = take(&o, tp * cp * e);
+  L.dd = take(&o, tp * 2 * cp * e);
+  L.gs = take(&o, tp * fp * e);
+  L.das = take(&o, tp * fp * e);
+  L.dh = take(&o, tp * cp * sizeof(float));
+  L.stats = take(&o, tp * 2 * sizeof(float));
+  L.vp_prep = take(&o, nb * 2 * cp * sizeof(float));
+  L.vp_lnb = take(&o, nb * 2 * cp * sizeof(float));
+  L.vp_db1 = take(&o, nm * fp * sizeof(float));
+  L.wpart1 = take(&o, (size_t)s1 * fp * cp * sizeof(float));
+  L.wpart2 = take(&o, (size_t)s2 * 2 * cp * fp * sizeof(float));
+  L.total = o;
+  return L;
+}
+
+template <typename T>
+cudaError_t launch_wide(BArgs a, void* ws, float* dw1, float* dw2,
+                        float* dvec, int s1, int s2, cudaStream_t s) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const int C = a.C, Cp = a.Cp, Fp = a.Fp;
+  const long long Tp = (a.n_outer * a.P + kWPadT - 1) / kWPadT * kWPadT;
+  const WLayout W = w_layout(sizeof(T), Tp, Cp, Fp, s1, s2);
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  a.hs = base + W.hs;
+  a.dd = base + W.dd;
+  a.gs = base + W.gs;
+  a.das = base + W.das;
+  a.stats = reinterpret_cast<float*>(base + W.stats);
+  a.vpart_a = reinterpret_cast<float*>(base + W.vp_prep);
+  a.vpart_b = reinterpret_cast<float*>(base + W.vp_lnb);
+  a.BT = kWT;
+  float* dh = reinterpret_cast<float*>(base + W.dh);
+  float* vp_db1 = reinterpret_cast<float*>(base + W.vp_db1);
+  float* wpart1 = reinterpret_cast<float*>(base + W.wpart1);
+  float* wpart2 = reinterpret_cast<float*>(base + W.wpart2);
+  const size_t smem_t = t_layout(Cp).total;
+  if (smem_t > kSmemMax) return cudaErrorInvalidConfiguration;
+  const int nb = (int)(Tp / kWT);
+  const int nm = (int)(Tp / (kBf16 ? kPM : kSM));
+
+  // 1. LayerNorm, h, do, dout; db2 and sum_t dout
+  cudaError_t e = run(wide_prep_kernel<T>, a, nb, smem_t, s);
   if (e != cudaSuccess) return e;
-  const long long tokens = a.n_outer * a.P;
-  const long long Tp = (tokens + a.BT - 1) / a.BT * a.BT;
-  // dW1^T (Fp, Cp) = da^T h ; dW2^T (Cp, Fp) = do^T g
-  e = gemm_f32(a.das, Fp, a.hs, Cp, wpart1, dw1, Tp, Fp, Cp, splits1, s);
+  e = reduce(a.vpart_a, dvec + Fp, 2LL * Cp, nb, s);
   if (e != cudaSuccess) return e;
-  return gemm_f32(a.dd, 2 * Cp, a.gs, Fp, wpart2, dw2, Tp, Cp, Fp, splits2,
-                  s);
+  // 2. a, dg -> g, da; db1
+  PArgs<T> p{};
+  p.a0 = static_cast<const T*>(a.hs);
+  p.lda0 = Cp;
+  p.a1 = static_cast<const T*>(a.dd);
+  p.lda1 = 2 * Cp;
+  p.bn = static_cast<const T*>(a.w1);
+  p.ldbn = Cp;
+  p.bk = static_cast<const T*>(a.w2);
+  p.ldbk = Fp;
+  p.K = Cp;
+  p.N = Fp;
+  p.b1 = a.b1;
+  p.g = static_cast<T*>(a.gs);
+  p.da = static_cast<T*>(a.das);
+  p.ldo = Fp;
+  p.vpart = vp_db1;
+  e = run_product(p, true, Tp, s);
+  if (e != cudaSuccess) return e;
+  e = reduce(vp_db1, dvec, Fp, nm, s);
+  if (e != cudaSuccess) return e;
+  // 3. dh = da W1
+  PArgs<T> q{};
+  q.a0 = static_cast<const T*>(a.das);
+  q.lda0 = Fp;
+  q.bk = static_cast<const T*>(a.w1);
+  q.ldbk = Cp;
+  q.K = Fp;
+  q.N = Cp;
+  q.dh = dh;
+  e = run_product(q, false, Tp, s);
+  if (e != cudaSuccess) return e;
+  // 4. the LayerNorm backward: dy; dLN-scale, dLN-bias
+  e = allow_smem(reinterpret_cast<const void*>(wide_lnb_kernel<T>));
+  if (e != cudaSuccess) return e;
+  wide_lnb_kernel<T><<<nb, kThreads, smem_t, s>>>(a, dh);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = reduce(a.vpart_b, dvec + Fp + 2 * Cp, 2LL * Cp, nb, s);
+  if (e != cudaSuccess) return e;
+  // 5. dW1^T = da^T h ; [dW2^T ; M] = [do | dout]^T g ; dgamma
+  auto gemm = kBf16 ? gemm_bf16 : gemm_f32;
+  e = gemm(a.das, Fp, a.hs, Cp, wpart1, dw1, Tp, Fp, Cp, s1, s);
+  if (e != cudaSuccess) return e;
+  e = gemm(a.dd, 2 * Cp, a.gs, Fp, wpart2, dw2, Tp, 2 * Cp, Fp, s2, s);
+  if (e != cudaSuccess) return e;
+  dgamma_kernel<T><<<(Cp + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+      static_cast<const T*>(a.w2), dw2 + (long long)Cp * Fp, a.vec + 2 * C,
+      dvec + Fp + Cp, dvec + Fp + 4 * Cp, C, Cp, Fp);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The token tile for dtype (0 = float32, 1 = bfloat16) at this width, or
-// -1 when no tile's shared memory fits a block.
+// The token tile for dtype (1 = bfloat16; float32 runs slak_mlp_bwd_wide)
+// at this width, or -1 when no tile's shared memory fits a block.
 extern "C" int slak_mlp_bwd_tile(int dtype, int Cp, int Fp) {
   if (dtype == 1)
     return Cp <= 256 &&
@@ -1270,17 +1591,16 @@ extern "C" int slak_mlp_bwd_tile(int dtype, int Cp, int Fp) {
                    b_layout(Cp, 64).total <= kSmemMax
                ? kBT
                : -1;
-  for (int BT : {32, 16})
-    if (f32_layout(BT, Cp, Fp).total <= kSmemMax) return BT;
   return -1;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. y, dout, dy: strided activations as in
-// slak_fused_mlp; W1^T (Fp, Cp), W2^T (Cp, Fp) compute dtype, Cp a
-// multiple of 16, Fp of 64; b1 (Fp), vec (5, C) float32; BT from
+// dtype: 1 = bfloat16 (float32 runs slak_mlp_bwd_wide). y, dout, dy:
+// strided activations as in slak_fused_mlp; W1^T (Fp, Cp), W2^T (Cp, Fp)
+// compute dtype, Cp a multiple of 16, Fp of 64; b1 (Fp), vec (5, C)
+// float32; BT from
 // slak_mlp_bwd_tile. Scratch, with Tp = tokens rounded up to BT: hs (Tp,
 // Cp), dd (Tp, 2 Cp), gs and das (Tp, Fp) in the compute dtype; stats (Tp,
-// 2), vpart_a (grid, Fp + 5 Cp), vpart_b (grid, 2 Cp), wpart1 (splits1,
+// 2), vpart_a (grid, Fp + 2 Cp), vpart_b (grid, 2 Cp), wpart1 (splits1,
 // Fp, Cp), wpart2 (splits2, 2 Cp, Fp) float32. Outputs, float32: dw1 =
 // dW1^T (Fp, Cp); dw2 (2 Cp, Fp), whose first Cp rows are dW2^T; dvec =
 // [db1 (Fp) | db2 | (sum_t dout) | dlns | dlnb | dgamma (Cp each)].
@@ -1301,11 +1621,44 @@ extern "C" int slak_mlp_bwd(int dtype, const void* y, const void* dout,
   BArgs a{y, dout, dy, w1, w2, b1, vec, hs, dd, gs, das, stats, vpart_a,
           vpart_b, n_outer, P, sN, sC, sP, C, Cp, Fp, BT};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_f32(a, grid, wpart1, wpart2, dw1, dw2, dvec, splits1,
-                           splits2, s);
   if (dtype == 1)
     return (int)launch_bf16(a, grid, wpart1, wpart2, dw1, dw2, dvec, splits1,
                             splits2, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+
+// K9. The bytes of the workspace slak_mlp_bwd_wide takes for dtype (0 =
+// float32, 1 = bfloat16), Tp = the tokens rounded up to 128, and the two
+// weight-gradient GEMMs' token splits s1 and s2 (-1 for a bad dtype).
+extern "C" long long slak_mlp_bwd_wide_workspace(int dtype, long long Tp,
+                                                 int Cp, int Fp, int s1,
+                                                 int s2) {
+  if (dtype != 0 && dtype != 1) return -1;
+  return (long long)w_layout(dtype == 1 ? 2 : 4, Tp, Cp, Fp, s1, s2).total;
+}
+
+// K9: the tail's backward at any width. Arguments as slak_mlp_bwd's, but
+// one workspace (slak_mlp_bwd_wide_workspace bytes) for every scratch
+// buffer, and dy float32 (shaped and strided like y). Outputs as
+// slak_mlp_bwd's: dw1 = dW1^T (Fp, Cp), dw2 (2 Cp, Fp) whose first Cp rows
+// are dW2^T, dvec = [db1 (Fp) | db2 | (sum_t dout) | dlns | dlnb | dgamma
+// (Cp each)]. Returns the cudaError_t of the launches.
+extern "C" int slak_mlp_bwd_wide(int dtype, const void* y, const void* dout,
+                                 float* dy, const void* w1, const void* w2,
+                                 const float* b1, const float* vec, void* ws,
+                                 float* dw1, float* dw2, float* dvec,
+                                 long long n_outer, long long P, long long sN,
+                                 long long sC, long long sP, int C, int Cp,
+                                 int Fp, int s1, int s2, void* stream) {
+  if (Cp % 16 || Fp % 64 || C < 1 || C > Cp || s1 < 1 || s2 < 1)
+    return (int)cudaErrorInvalidValue;
+  BArgs a{y, dout, dy, w1, w2, b1, vec, nullptr, nullptr, nullptr, nullptr,
+          nullptr, nullptr, nullptr, n_outer, P, sN, sC, sP, C, Cp, Fp, kWT};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_wide<float>(a, ws, dw1, dw2, dvec, s1, s2, s);
+  if (dtype == 1)
+    return (int)launch_wide<bf16>(a, ws, dw1, dw2, dvec, s1, s2, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,7 +16,12 @@ the caller adds later (the fused MLP's ``pre_bias``). What is left -- the
 (K, s) + (s, K) pair, or one (K, K) kernel -- runs through the K1 kernel
 (:mod:`slak_tpu_torch.ops.dwconv`), one launch per branch into one output.
 The port applies the fold at every stage, stage 4 (13x13 pair on 7x7
-maps) included, so one route serves the whole model.
+maps) included, so one route serves the whole model. When a graph is being
+recorded (an input or a tap requires a gradient), :func:`run_taps` goes
+through the differentiable :class:`~slak_tpu_torch.ops.dwconv.DwconvTaps`
+(K1 forward, K1 on flipped taps for dx, the weight-gradient kernel for
+the taps); :func:`fold_branches` is plain torch ops, so the gradients
+reach the branch weights and BN affines through the fold.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from slak_tpu_torch.ops.batchnorm import batch_norm_from_sums
-from slak_tpu_torch.ops.dwconv import DwconvBnStats, dwconv, dwconv_plain
+from slak_tpu_torch.ops.dwconv import DwconvBnStats, DwconvTaps, conv_taps
 
 
 def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
@@ -77,12 +82,12 @@ def fold_branches(weights: Sequence[torch.Tensor],
 def run_taps(x: torch.Tensor, taps: Sequence[torch.Tensor],
              plain: bool = False) -> torch.Tensor:
     """sum_i dwconv(x, taps_i): one K1 launch per tap tensor, all adding
-    into one output. ``plain`` runs the plain version on any device."""
-    conv = dwconv_plain if plain else dwconv
-    y = conv(x, taps[0])
-    for t in taps[1:]:
-        y = conv(x, t, out=y)
-    return y
+    into one output, through :class:`DwconvTaps` when a graph is being
+    recorded. ``plain`` runs the plain version on any device."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in taps)):
+        return DwconvTaps.apply(x, plain, *taps)
+    return conv_taps(x, taps, plain)
 
 
 def bn_branch_train(x: torch.Tensor, w: torch.Tensor, bn: torch.nn.Module,

@@ -1,11 +1,17 @@
 """K1/K4: same-padded stride-1 depthwise conv with rectangular taps (NCHW),
-and its train-mode autograd Function.
+and its autograd Functions (eval and train).
 
 Kernel: ``csrc/dwconv.cu`` (replaces ``slak_tpu/ops/pallas_banded.py``
 ``dwconv_banded_cmajor`` and, with the BN-sum epilogue,
 ``dwconv_banded_stats_cmajor``). :func:`dwconv` and :func:`dwconv_stats`
 launch it for CUDA tensors and run :func:`dwconv_plain` /
 :func:`dwconv_stats_plain` for CPU tensors.
+
+:class:`DwconvTaps` is the differentiable eval conv (the counterpart of
+``depthwise_conv2d_banded``'s custom VJP): ``sum_i conv(x, taps_i)`` as
+K1 launches into one output; backward = K1 on each tap tensor flipped on
+both axes, the launches adding into one dx, and the tap gradients from the
+``ops/dwconv_wgrad.py`` kernel where they are asked for.
 
 :class:`DwconvBnStats` is the counterpart of
 ``depthwise_conv2d_banded_stats`` / ``dwconv_banded_stats_cmajor_vjp``:
@@ -164,6 +170,47 @@ def dwconv(x: torch.Tensor, w: torch.Tensor,
     global launch_count
     launch_count += 1
     return out
+
+
+def conv_taps(x: torch.Tensor, taps, plain: bool = False) -> torch.Tensor:
+    """sum_i conv(x, taps_i): one K1 launch per tap tensor, all adding into
+    one output. ``plain`` runs the plain version on any device."""
+    conv = dwconv_plain if plain else dwconv
+    y = conv(x, taps[0])
+    for t in taps[1:]:
+        y = conv(x, t, out=y)
+    return y
+
+
+class DwconvTaps(torch.autograd.Function):
+    """``sum_i conv(x, taps_i)`` with its backward: ``apply(x, plain,
+    *taps)``. x: (N, C, H, W) in the compute dtype; taps: (C, kh, kw)
+    float32 each, already rounded to the compute dtype (the eval fold's).
+    dx = sum_i conv(dy, flip(taps_i)) in x's dtype; each tap gradient
+    (float32) only where ``needs_input_grad`` asks for it."""
+
+    @staticmethod
+    def forward(ctx, x, plain, *taps):
+        x = x.contiguous()
+        taps = [t.contiguous() for t in taps]
+        ctx.save_for_backward(x, *taps)
+        ctx.plain = plain
+        return conv_taps(x, taps, plain)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from slak_tpu_torch.ops.dwconv_wgrad import (dwconv_wgrad,
+                                                     dwconv_wgrad_plain)
+        x, *taps = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = conv_taps(dy, [t.flip(1, 2).contiguous() for t in taps],
+                           ctx.plain)
+        wgrad = dwconv_wgrad_plain if ctx.plain else dwconv_wgrad
+        dtaps = [wgrad(x, dy, *t.shape[1:]) if need else None
+                 for t, need in zip(taps, ctx.needs_input_grad[2:])]
+        return (dx, None, *dtaps)
 
 
 class DwconvBnStats(torch.autograd.Function):

@@ -1,14 +1,17 @@
-"""K2/K3/K8: the fused ConvNeXt block tail
+"""K2/K3/K8/K9: the fused ConvNeXt block tail
 ``res + gamma * (GELU(LN(y + pre_bias) @ W1 + b1) @ W2 + b2)`` and its
 backward.
 
 Kernels: ``csrc/mlp.cu`` (replaces ``slak_tpu/ops/pallas_mlp.py``
-``_mlp_fused_2d`` and ``_mlp_cmajor_2d``) and ``csrc/mlp_bwd.cu``
-(replaces ``_mlp_bwd_2d``). :func:`fused_mlp` and :func:`fused_mlp_bwd`
-launch them for CUDA tensors and run :func:`fused_mlp_plain` /
-:func:`fused_mlp_bwd_plain` for CPU tensors. :class:`FusedMlp` is the
-autograd Function of the train route (``fused_mlp``'s custom VJP): K2
-forward, K8 backward, for C <= 256 only.
+``_mlp_fused_2d`` and ``_mlp_cmajor_2d``) and ``csrc/mlp_bwd.cu``, two
+entry points: ``slak_mlp_bwd`` (K8, replaces ``_mlp_bwd_2d``, C <= 256)
+and ``slak_mlp_bwd_wide`` (K9, replaces ``_mlp_bwd_chunked_2d``, any C).
+:func:`fused_mlp`, :func:`fused_mlp_bwd` and :func:`fused_mlp_bwd_wide`
+launch them for CUDA tensors and run :func:`fused_mlp_plain`,
+:func:`fused_mlp_bwd_plain` and :func:`fused_mlp_bwd_wide_plain` for CPU
+tensors. :class:`FusedMlp` is the autograd Function of ``fused_mlp``'s
+custom VJP: K2 forward, K8 backward at C <= 256 and K9 above, as
+``_vjp_bwd`` picks.
 
 The activation may hold its channels on any axis (``channel_dim``): the
 kernel addresses tokens and channels through strides, so NHWC (the
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 
 launch_count = 0            # K2/K3 launches
 bwd_launch_count = 0        # K8 launches
+wide_bwd_launch_count = 0   # K9 launches
 
 LN_EPS = 1e-6               # the block's LayerNorm (models/layers.py)
 BWD_C_MAX = 256             # the fused backward's width (pallas_mlp.py:73)
@@ -43,6 +47,7 @@ _INV_SQRT_2PI = 0.3989422804014327
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F_ALIGN = 64               # the hidden width is padded to this (mlp.cu)
+_WIDE_TILE = 128            # K9 pads the tokens to this (mlp_bwd.cu)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -115,14 +120,19 @@ def token_strides(shape, channel_dim: int) -> Tuple[int, int, int, int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entries():
     from slak_tpu_torch.ops._build import load
-    fn = load("mlp").slak_fused_mlp
+    lib = load("mlp")
+    ws = lib.slak_fused_mlp_workspace
+    ws.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int]
+    ws.restype = ctypes.c_longlong
+    fn = lib.slak_fused_mlp
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                    + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
-    return fn
+    return ws, fn
 
 
 def fused_mlp(y: torch.Tensor, res: Optional[torch.Tensor], pk: MlpWeights,
@@ -151,12 +161,17 @@ def fused_mlp(y: torch.Tensor, res: Optional[torch.Tensor], pk: MlpWeights,
         raise ValueError("fused_mlp needs contiguous tensors")
     n_outer, p, s_n, s_c, s_p = token_strides(y.shape, channel_dim)
     fp, cp = pk.w1.shape
+    dt = _DTYPES[y.dtype]
+    ws_fn, fn = _entries()
+    nbytes = ws_fn(dt, n_outer * p, cp, fp)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=y.device) \
+        if nbytes else None
     out = torch.empty_like(y)
-    err = _entry()(_DTYPES[y.dtype], y.data_ptr(),
-             (res if add_residual else y).data_ptr(), out.data_ptr(),
-             pk.w1.data_ptr(), pk.w2.data_ptr(), pk.b1.data_ptr(),
-             pk.vec.data_ptr(), n_outer, p, s_n, s_c, s_p, pk.c, cp, fp,
-             int(add_residual),
+    err = fn(dt, y.data_ptr(), (res if add_residual else y).data_ptr(),
+             out.data_ptr(), pk.w1.data_ptr(), pk.w2.data_ptr(),
+             pk.b1.data_ptr(), pk.vec.data_ptr(), n_outer, p, s_n, s_c, s_p,
+             pk.c, cp, fp, int(add_residual),
+             None if ws is None else ws.data_ptr(),
              torch.cuda.current_stream(y.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed: cudaError {err}")
@@ -228,30 +243,55 @@ def _bwd_entries():
     return tile, fn
 
 
-def fused_mlp_bwd(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
-                  channel_dim: int = -1):
-    """The tail's backward from its input y and output cotangent dout
-    (channels on ``channel_dim``); returns what
-    :func:`fused_mlp_bwd_plain` returns. C <= 256."""
-    if y.device.type == "cpu":
-        return fused_mlp_bwd_plain(y, dout, pk, channel_dim)
-    if y.device.type != "cuda":
-        raise RuntimeError(f"fused_mlp_bwd runs on cuda or cpu, not "
-                           f"{y.device}")
+def _gemm_splits(tp: int, fp: int, cp: int, dtype: torch.dtype, sms: int):
+    """Token splits of the two weight-gradient GEMMs (Fp x Cp and
+    2 Cp x Fp outputs): about two blocks an SM, at least 128 tokens a
+    split."""
+    tile = 128 if dtype == torch.bfloat16 else 64
+
+    def splits(m, n):
+        tiles = -(-m // tile) * -(-n // tile)
+        return max(1, min(-(-tp // 128), -(-2 * sms // tiles)))
+    return splits(fp, cp), splits(2 * cp, fp)
+
+
+def _check_bwd(name, y, dout, pk, channel_dim):
     if y.dtype not in _DTYPES:
-        raise TypeError(f"fused_mlp_bwd takes float32 or bfloat16, not "
-                        f"{y.dtype}")
-    if y.shape[channel_dim] != pk.c or pk.c > BWD_C_MAX:
-        raise ValueError(f"channels {y.shape[channel_dim]} vs weights "
-                         f"{pk.c} (at most {BWD_C_MAX})")
+        raise TypeError(f"{name} takes float32 or bfloat16, not {y.dtype}")
+    if y.shape[channel_dim] != pk.c:
+        raise ValueError(f"channels {y.shape[channel_dim]} vs weights {pk.c}")
     if pk.w1.dtype != y.dtype or dout.dtype != y.dtype \
             or dout.shape != y.shape:
         raise TypeError("dout and the packed weights must match y")
     tensors = [y, dout, pk.w1, pk.w2, pk.b1, pk.vec]
     if any(t.device != y.device for t in tensors):
-        raise ValueError("fused_mlp_bwd: tensors on different devices")
+        raise ValueError(f"{name}: tensors on different devices")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_mlp_bwd needs contiguous tensors")
+        raise ValueError(f"{name} needs contiguous tensors")
+
+
+def fused_mlp_bwd(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
+                  channel_dim: int = -1):
+    """K8: the tail's backward from its input y and output cotangent dout
+    (channels on ``channel_dim``); returns what
+    :func:`fused_mlp_bwd_plain` returns. C <= 256 on every device (wider
+    tails are :func:`fused_mlp_bwd_wide`'s). bf16 runs K8's tensor-core
+    kernels; fp32 runs K9's kernels (``slak_mlp_bwd_wide``), which take
+    any width."""
+    if pk.c > BWD_C_MAX:
+        raise ValueError(f"fused_mlp_bwd: C = {pk.c} > {BWD_C_MAX} "
+                         f"(fused_mlp_bwd_wide covers it)")
+    if y.device.type == "cpu":
+        return fused_mlp_bwd_plain(y, dout, pk, channel_dim)
+    if y.device.type != "cuda":
+        raise RuntimeError(f"fused_mlp_bwd runs on cuda or cpu, not "
+                           f"{y.device}")
+    _check_bwd("fused_mlp_bwd", y, dout, pk, channel_dim)
+    global bwd_launch_count
+    if y.dtype == torch.float32:              # K9's kernels serve fp32
+        out = _launch_wide(y, dout, pk, channel_dim)
+        bwd_launch_count += 1
+        return out
     dt = _DTYPES[y.dtype]
     fp, cp = pk.w1.shape
     tile_fn, fn = _bwd_entries()
@@ -263,14 +303,7 @@ def fused_mlp_bwd(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
     tp = _round_up(tokens, bt)
     sms = torch.cuda.get_device_properties(y.device).multi_processor_count
     grid = min(tp // bt, sms)
-    gemm_tile = 128 if y.dtype == torch.bfloat16 else 64
-
-    def splits(m, n):
-        """Token splits of a weight-gradient GEMM: about two blocks an SM,
-        at least 128 tokens a split."""
-        tiles = -(-m // gemm_tile) * -(-n // gemm_tile)
-        return max(1, min(-(-tp // 128), -(-2 * sms // tiles)))
-    s1, s2 = splits(fp, cp), splits(2 * cp, fp)
+    s1, s2 = _gemm_splits(tp, fp, cp, y.dtype, sms)
     dev, f32 = y.device, torch.float32
     dy = torch.empty_like(y)
     hs = torch.empty(tp, cp, dtype=y.dtype, device=dev)
@@ -278,7 +311,7 @@ def fused_mlp_bwd(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
     gs = torch.empty(tp, fp, dtype=y.dtype, device=dev)
     das = torch.empty_like(gs)
     stats = torch.empty(tp, 2, dtype=f32, device=dev)
-    vpart_a = torch.empty(grid, fp + 5 * cp, dtype=f32, device=dev)
+    vpart_a = torch.empty(grid, fp + 2 * cp, dtype=f32, device=dev)
     vpart_b = torch.empty(grid, 2 * cp, dtype=f32, device=dev)
     wpart1 = torch.empty(s1, fp, cp, dtype=f32, device=dev)
     wpart2 = torch.empty(s2, 2 * cp, fp, dtype=f32, device=dev)
@@ -296,7 +329,6 @@ def fused_mlp_bwd(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
     if err != 0:
         raise RuntimeError(f"fused_mlp_bwd kernel launch failed: cudaError "
                            f"{err}")
-    global bwd_launch_count
     bwd_launch_count += 1
     c, f = pk.c, pk.f
     # dvec: db1 (fp) | db2 | sum_t dout | dlns | dlnb | dgamma (cp each)
@@ -305,22 +337,146 @@ def fused_mlp_bwd(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
             dlnb)
 
 
+def pick_fc(c4: int, itemsize: int) -> int:
+    """The hidden-chunk width of ``_mlp_bwd_chunked_2d`` (``_pick_fc``,
+    pallas_mlp.py:390-395): about 1024 (bf16) or 512 (fp32) units, rounded
+    up to 128."""
+    target = 1024 if itemsize < 4 else 512
+    nf = -(-c4 // target)
+    return -(-(-(-c4 // nf)) // 128) * 128
+
+
+def fused_mlp_bwd_wide_plain(y: torch.Tensor, dout: torch.Tensor,
+                             pk: MlpWeights, channel_dim: int = -1):
+    """Plain version of K9, a transcription of ``_mlp_bwd_chunked_kernel``
+    with its rounding points (h, g, do and da rounded to y's dtype before
+    the products that use them), its hidden chunks (:func:`pick_fc`), dh
+    summed over the chunks in fp32 and the LayerNorm backward after the
+    last one; exact erf. Returns what :func:`fused_mlp_bwd_plain` returns,
+    but dy in float32 (the TPU kernel's dy output is float32 too)."""
+    c, f = pk.c, pk.f
+    cdt = y.dtype
+    ln_s, ln_b, b2, gamma, pre = pk.vec
+    yl = y.movedim(channel_dim, -1)
+    shape = yl.shape
+    yf = yl.reshape(-1, c).float() + pre
+    dl = dout.movedim(channel_dim, -1).reshape(-1, c).float()
+    mu = yf.mean(-1, keepdim=True)
+    var = (yf - mu).square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + LN_EPS)
+    xhat = (yf - mu) * inv
+    hb = (xhat * ln_s + ln_b).to(cdt).float()
+    do = dl * gamma
+    dob = do.to(cdt).float()
+    db2 = do.sum(0)
+    dgamma = dl.sum(0) * b2                     # b2's share of dgamma
+    w1 = pk.w1[:f, :c].float()                  # W1^T (4C, C)
+    w2 = pk.w2[:c, :f].float()                  # W2^T (C, 4C)
+    b1 = pk.b1[:f]
+    fc = pick_fc(f, torch.tensor([], dtype=cdt).element_size())
+    dh = torch.zeros_like(yf)
+    dw1, dw2, db1 = [], [], []
+    for f0 in range(0, f, fc):
+        w1c, w2c = w1[f0:f0 + fc], w2[:, f0:f0 + fc]
+        a = hb @ w1c.t() + b1[f0:f0 + fc]
+        erf_a = torch.erf(a * _INV_SQRT2)
+        gb = (0.5 * a * (1.0 + erf_a)).to(cdt).float()
+        dgamma = dgamma + (dl * (gb @ w2c.t())).sum(0)
+        dw2.append(dob.t() @ gb)
+        gp = (0.5 * (1.0 + erf_a)
+              + a * _INV_SQRT_2PI * torch.exp(-0.5 * a * a))
+        da = (dob @ w2c) * gp
+        db1.append(da.sum(0))
+        dab = da.to(cdt).float()
+        dw1.append(dab.t() @ hb)
+        dh = dh + dab @ w1c
+    dlns = (dh * xhat).sum(0)
+    dlnb = dh.sum(0)
+    dxh = dh * ln_s
+    m1 = dxh.mean(-1, keepdim=True)
+    m2 = (dxh * xhat).mean(-1, keepdim=True)
+    dy = (inv * (dxh - m1 - xhat * m2)).reshape(shape)
+    return (dy.movedim(-1, channel_dim).contiguous(), torch.cat(dw1),
+            torch.cat(dw2, 1), torch.cat(db1), db2, dgamma, dlns, dlnb)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_entries():
+    from slak_tpu_torch.ops._build import load
+    lib = load("mlp_bwd")
+    ws = lib.slak_mlp_bwd_wide_workspace
+    ws.argtypes = [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
+    ws.restype = ctypes.c_longlong
+    fn = lib.slak_mlp_bwd_wide
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                   + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return ws, fn
+
+
+def fused_mlp_bwd_wide(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
+                       channel_dim: int = -1):
+    """K9: the tail's backward at any width (the kernel of the wide stages,
+    C > 256); returns what :func:`fused_mlp_bwd_wide_plain` returns (dy in
+    float32)."""
+    if y.device.type == "cpu":
+        return fused_mlp_bwd_wide_plain(y, dout, pk, channel_dim)
+    if y.device.type != "cuda":
+        raise RuntimeError(f"fused_mlp_bwd_wide runs on cuda or cpu, not "
+                           f"{y.device}")
+    _check_bwd("fused_mlp_bwd_wide", y, dout, pk, channel_dim)
+    out = _launch_wide(y, dout, pk, channel_dim)
+    global wide_bwd_launch_count
+    wide_bwd_launch_count += 1
+    return out
+
+
+def _launch_wide(y, dout, pk, channel_dim):
+    """One launch of ``slak_mlp_bwd_wide`` on checked CUDA tensors."""
+    dt = _DTYPES[y.dtype]
+    fp, cp = pk.w1.shape
+    n_outer, p, s_n, s_c, s_p = token_strides(y.shape, channel_dim)
+    tp = _round_up(n_outer * p, _WIDE_TILE)
+    dev, f32 = y.device, torch.float32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    s1, s2 = _gemm_splits(tp, fp, cp, y.dtype, sms)
+    ws_fn, fn = _wide_entries()
+    ws = torch.empty(ws_fn(dt, tp, cp, fp, s1, s2), dtype=torch.uint8,
+                     device=dev)
+    dy = torch.empty(y.shape, dtype=f32, device=dev)
+    dw1 = torch.empty(fp, cp, dtype=f32, device=dev)
+    dw2 = torch.empty(2 * cp, fp, dtype=f32, device=dev)
+    dvec = torch.empty(fp + 5 * cp, dtype=f32, device=dev)
+    err = fn(dt, y.data_ptr(), dout.data_ptr(), dy.data_ptr(),
+             pk.w1.data_ptr(), pk.w2.data_ptr(), pk.b1.data_ptr(),
+             pk.vec.data_ptr(), ws.data_ptr(), dw1.data_ptr(),
+             dw2.data_ptr(), dvec.data_ptr(), n_outer, p, s_n, s_c, s_p,
+             pk.c, cp, fp, s1, s2, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_bwd_wide kernel launch failed: "
+                           f"cudaError {err}")
+    c, f = pk.c, pk.f
+    db2, _, dlns, dlnb, dgamma = dvec[fp:].view(5, cp)[:, :c]
+    return (dy, dw1[:f, :c], dw2[:c, :f], dvec[:f], db2, dgamma, dlns,
+            dlnb)
+
+
 class FusedMlp(torch.autograd.Function):
-    """The train route's fused tail on an NCHW activation (the counterpart
-    of ``fused_mlp``'s custom VJP): K2 forward, K8 backward. Inputs are the
-    block's float32 parameters in ``nn.Linear`` orientation (w1 (4C, C),
-    w2 (C, 4C)); they are packed in y's dtype for each call. The forward
-    saves y only; the backward recomputes. Raises above C = 256 (the
-    block routes wider tails through the plain composition)."""
+    """The fused tail on an NCHW activation, the counterpart of
+    ``fused_mlp``'s custom VJP: K2 forward; K8 backward at C <= 256 and K9
+    above (``_vjp_bwd``'s pick). Inputs are the block's float32 parameters
+    in ``nn.Linear`` orientation (w1 (4C, C), w2 (C, 4C)) and, last, the
+    folded conv bias ``pre_bias`` (None for zeros); they are packed in y's
+    dtype for each call. The forward saves y only; the backward recomputes, and
+    gives ``d pre_bias = sum over tokens of dy`` (``_vjp_bwd`` l.821-823).
+    """
 
     @staticmethod
     def forward(ctx, y, res, ln_scale, ln_bias, w1, b1, w2, b2, gamma,
-                add_residual=True, plain=False):
-        if y.shape[1] > BWD_C_MAX:
-            raise ValueError(f"FusedMlp: C = {y.shape[1]} > {BWD_C_MAX}; "
-                             f"the fused backward covers C <= {BWD_C_MAX}")
+                add_residual=True, plain=False, pre_bias=None):
         pk = pack_mlp(ln_scale, ln_bias, w1.t(), b1, w2.t(), b2, gamma,
-                      None, y.dtype)
+                      pre_bias, y.dtype)
         y = y.contiguous()
         fwd = fused_mlp_plain if plain else fused_mlp
         out = fwd(y, res.contiguous() if add_residual else None, pk, 1,
@@ -332,9 +488,16 @@ class FusedMlp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         (y,) = ctx.saved_tensors
-        bwd = fused_mlp_bwd_plain if ctx.plain else fused_mlp_bwd
+        if y.shape[1] <= BWD_C_MAX:
+            bwd = fused_mlp_bwd_plain if ctx.plain else fused_mlp_bwd
+        else:
+            bwd = fused_mlp_bwd_wide_plain if ctx.plain else \
+                fused_mlp_bwd_wide
         dy, dw1, dw2, db1, db2, dgamma, dlns, dlnb = bwd(
             y, dout.contiguous(), ctx.pk, 1)
         dres = dout if ctx.add_residual else None
-        return (dy, dres, dlns, dlnb, dw1, db1, dw2, db2, dgamma, None,
-                None)
+        need = ctx.needs_input_grad         # 11 long when pre_bias is left out
+        dpre = dy.float().sum((0, 2, 3)) if need[-1] and len(need) > 11 \
+            else None
+        return (dy.to(y.dtype), dres, dlns, dlnb, dw1, db1, dw2, db2, dgamma,
+                None, None, dpre)[:len(need)]

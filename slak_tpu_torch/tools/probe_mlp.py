@@ -136,13 +136,13 @@ def main():
             fn = lib.slak_fused_mlp
             fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                            + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p])
+                           + [ctypes.c_void_p] * 2)
 
             def call():
                 err = fn(1, y.data_ptr(), res.data_ptr(), out.data_ptr(),
                          pk.w1.data_ptr(), pk.w2.data_ptr(),
                          pk.b1.data_ptr(), pk.vec.data_ptr(), n_outer, p,
-                         s_n, s_c, s_p, C, cp, fp, 1,
+                         s_n, s_c, s_p, C, cp, fp, 1, None,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: cudaError {err}")

@@ -16,6 +16,10 @@ numpy arrays (or anything ``np.asarray`` takes):
 Layouts: depthwise (kh, kw, C) -> (C, 1, kh, kw); HWIO -> OIHW;
 (in, out) -> (out, in). :func:`masks_from_jax` maps a ``slak_tpu`` mask
 dict (keyed by dotted param paths) the same way.
+
+:func:`load_torch_checkpoint` unwraps a reference ``checkpoint-*.pth`` into
+the state dict ``load_state_dict`` takes: the port's names are already the
+reference's, so no conversion is needed.
 """
 
 from __future__ import annotations
@@ -114,3 +118,26 @@ def masks_from_jax(masks: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``slak_tpu`` DST masks ({dotted path: array}) -> the port's
     ({parameter name: float32 tensor in the port's layout})."""
     return {port_name(n): to_port_layout(m) for n, m in masks.items()}
+
+
+def load_torch_checkpoint(path: str, prefer_ema: bool = False,
+                          model_key: str = "model|module",
+                          model_prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The model state dict inside a reference checkpoint, unwrapped as
+    ``slak_tpu.utils.load_torch_checkpoint`` does (the reference's
+    ``main.py:407-409``): '|'-separated ``model_key`` candidates tried in
+    order (after ``model_ema`` with ``prefer_ema``, then ``state_dict`` and
+    ``model_ema``), and ``model_prefix`` stripped from the names
+    (``utils.py:508-544``)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict):
+        keys = (["model_ema"] if prefer_ema else []) \
+            + model_key.split("|") + ["state_dict", "model_ema"]
+        for key in keys:
+            if key in ckpt:
+                ckpt = ckpt[key]
+                break
+    if model_prefix:
+        ckpt = {k[len(model_prefix):] if k.startswith(model_prefix) else k: v
+                for k, v in ckpt.items()}
+    return dict(ckpt)

@@ -8,6 +8,7 @@ once in interpret mode; further cases use the JAX plain references
 are held against the same plain versions on the card by ``chip_smoke.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,9 +56,10 @@ def test_dwconv_matches_banded_kernel(rng):
     wk = rng.standard_normal((K, s, c), dtype=np.float32) * 0.1
     xc = jnp.pad(jnp.transpose(jnp.asarray(x), (3, 1, 2, 0)),
                  ((0, 0), (0, 0), (s // 2, s // 2), (0, 0)))
-    want = np.transpose(np.asarray(
-        dwconv_banded_cmajor(xc, jnp.asarray(wk), interpret=True)),
-        (3, 0, 1, 2))                                   # (C,H,W,N) -> NCHW
+    # jitted: one XLA program, not the interpreter's op-by-op dispatch
+    want = np.transpose(np.asarray(jax.jit(
+        lambda a, b: dwconv_banded_cmajor(a, b, interpret=True))(
+            xc, jnp.asarray(wk))), (3, 0, 1, 2))        # (C,H,W,N) -> NCHW
     got = dwconv(_nchw(x), _taps(wk)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
