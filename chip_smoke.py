@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # all phases, needs one CUDA card
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,erf_kernels,erf
+    python3 chip_smoke.py --phases build,dual_kernels,dual,dual_timing,probes
 
 Phases (any failure exits non-zero):
   build    nvcc-build every kernel under slak_tpu_torch/ops/csrc/.
@@ -53,6 +54,27 @@ Phases (any failure exits non-zero):
            batch 8, 224^2) with every parameter requiring a gradient, each
            gradient held against the plain route's; ms an image on both
            routes.
+  dual_kernels
+           the dual eval path's kernels and the probes' kernels against
+           their plain versions at the flagship's four stage shapes (bf16
+           and fp32, batch 64): K10 (the one-pass pair) in its four modes
+           summed and in the two dual-out modes raw, K12 (the dual tail)
+           with and without the q output, K11 (the tap-stacked banded
+           conv) and K13 (K1 with 0, 1 and all 5 tap columns); K10's modes
+           also at 256^2 in fp32 (row tiles); times, bound, plain and
+           library (or unfused) times.
+  dual     the dual eval path: create_model(eval_layout="dual") +
+           make_eval_step on the batches of `forward`, bf16 and fp32, the
+           launch counters set to 0 just before and read just after (18 K10
+           + 18 K12 a forward, no K1, no K2/K3); logits held against the
+           plain dual route and against the default (split) route.
+  dual_timing
+           bf16 eval at batch 256: the dual route against the split route
+           (tools/probe_eval_ab.py) and the dual route's plain versions.
+  probes   the kernel probes as a user runs them, with the launch counters
+           set to 0 just before and read just after: tools/probe_stacked
+           (K11 against K1), probe_overhead and probe_floor (K13),
+           probe_pair_ab (the PAIR_IMPL modes of K10 on the NCHW route).
   profile  (not in the default run) one eval forward and one train step
            under torch.profiler: device time by kernel, idle share, traces
            in chiprun_out/.
@@ -112,6 +134,8 @@ K9_BF16_BATCH = 128
 TOL_ERF_MAP = 1e-3
 MLP_BWD_NAMES = ("dy", "dW1", "dW2", "db1", "db2", "dgamma", "dln_scale",
                  "dln_bias")
+PAIR_MODES = ("kernel", "input", "dualout", "dualboth")
+PAIR_BIG = 256                              # K10's row-tiled maps (fp32)
 
 
 class PhaseError(RuntimeError):
@@ -813,9 +837,26 @@ def _counters():
 
 
 def reset_counts():
+    from slak_tpu_torch.ops import dwconv_stacked as K11
+    from slak_tpu_torch.ops import dwpair as K10
     K1, KW, K2 = _counters()
     K1.launch_count = K1.stats_launch_count = KW.launch_count = 0
     K2.launch_count = K2.bwd_launch_count = K2.wide_bwd_launch_count = 0
+    K10.pair_launch_count = K2.dual_launch_count = 0
+    K11.stacked_launch_count = K1.probe_launch_count = 0
+
+
+def read_dual_counts():
+    """The counters of the dual eval path and of the probes (K10, K12, K11,
+    K13) beside K1's and K2/K3's."""
+    from slak_tpu_torch.ops import dwconv_stacked as K11
+    from slak_tpu_torch.ops import dwpair as K10
+    K1, _, K2 = _counters()
+    return {"dwpair": K10.pair_launch_count,
+            "fused_mlp_dual": K2.dual_launch_count,
+            "dwconv_stacked": K11.stacked_launch_count,
+            "dwconv_probe": K1.probe_launch_count,
+            "dwconv": K1.launch_count, "fused_mlp": K2.launch_count}
 
 
 def read_counts():
@@ -1209,11 +1250,379 @@ def phase_profile(model, batch):
     os.makedirs(OUT_DIR, exist_ok=True)
     prof.export_chrome_trace(os.path.join(OUT_DIR, "forward_trace.json"))
 
+def probe_macs(N, C, H, W, K, s, ntaps) -> int:
+    """MACs of the (K, s) conv with only its first ``ntaps`` tap columns,
+    taps that only read padding skipped."""
+    p = K // 2
+    rows = sum(min(K, H + p - i) - max(0, p - i) for i in range(H))
+    cols = sum(1 for w in range(W) for j in range(ntaps)
+               if 0 <= w + j - s // 2 < W)
+    return N * C * rows * cols
+
+
+def phase_dual_kernels(cfg, batch):
+    """K10, K12, K11 and K13 against their plain versions at the four stage
+    shapes, bf16 and fp32 at the main batch; K10's modes at 256^2 fp32.
+    Returns bf16 totals for the JSON line: K10 and K12 per dual forward at
+    batch ``batch``, K11 and K13 (all taps) one launch at each stage shape,
+    K13's time by tap count, and the K11 against K1 A/B."""
+    import torch
+    import torch.nn.functional as F
+    from slak_tpu_torch.ops import dwconv as K1
+    from slak_tpu_torch.ops import dwconv_stacked as K11
+    from slak_tpu_torch.ops import dwpair as K10
+    from slak_tpu_torch.ops import mlp as K2
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(30)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+            "ops_ms")
+    totals = {n: dict({k: 0.0 for k in keys}, err=0.0) for n in (
+        "dwpair", "fused_mlp_dual", "dwconv_stacked", "dwconv_probe")}
+    extra = {"probe_ms_by_ntaps": {}, "stacked_vs_k1": {}}
+
+    def add(name, n, row, b_ms, o_ms):
+        t = totals[name]
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            t[k] += n * (row[k] or 0.0)
+        t["bytes_ms"] += n * b_ms
+        t["ops_ms"] += n * o_ms
+        t["err"] = max(t["err"], row["max_abs_err"])
+
+    def check_all(tag, got, want, tol):
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else \
+            [(got, want)]
+        d_max = r_max = 0.0
+        for a, b in pairs:
+            d, r = rel_err(a, b)
+            d_max, r_max = max(d_max, d), max(r_max, r)
+        _check(r_max <= tol, f"{tag}: rel err {r_max:.3g} > {tol}")
+        return d_max, r_max
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        item = torch.tensor([], dtype=dtype).element_size()
+        bf16 = dtype == torch.bfloat16
+        for i, C, H, K, s, depth in stage_shapes(cfg):
+            x = torch.randn(batch, C, H, H, generator=g, device=dev
+                            ).to(dtype)
+            xq = x.transpose(2, 3).contiguous()
+            w1 = (torch.randn(C, K, s, generator=g, device=dev) * 0.05
+                  ).to(dtype).float()
+            w2 = (torch.randn(C, s, K, generator=g, device=dev) * 0.05
+                  ).to(dtype).float()
+            wl1, wl2 = w1.to(dtype)[:, None], w2.to(dtype)[:, None]
+            act = x.numel() * item
+            macs = dwconv_macs(batch, C, H, H, K, s)
+
+            # K10, every mode against its plain version
+            errs, d_max = {}, 0.0
+            for mode in PAIR_MODES:
+                dual_in, dual_out = K10.MODES[mode]
+                for sum_out in (True, False) if dual_out else (True,):
+                    xm = xq if dual_in else None
+                    d, r = check_all(
+                        f"dwpair {mode} sum_out={sum_out} stage {i + 1} "
+                        f"{dn}", K10.dwpair(x, w1, w2, mode, xm, sum_out),
+                        K10.dwpair_plain(x, w1, w2, mode, xm, sum_out),
+                        TOL_KERNEL[dn])
+                    errs[mode + ("" if sum_out else "_raw")] = r
+                    d_max = max(d_max, d)
+            mode_ms = {m: time_ms(lambda m=m: K10.dwpair(
+                x, w1, w2, m, xq if K10.MODES[m][0] else None))
+                for m in PAIR_MODES}
+            b_ms, o_ms = bounds(4 * act + 8 * C * K * s, 4 * macs, dtype)
+            row = dict(
+                kernel="dwpair", dtype=dn, stage=i + 1, C=C, H=H,
+                taps=[K, s], batch=batch, max_abs_err=d_max, rel_err=errs,
+                tol=TOL_KERNEL[dn], mode="dualboth raw (the dual stage's)",
+                ms=time_ms(lambda: K10.dwpair(x, w1, w2, "dualboth", xq,
+                                              False)),
+                summed_mode_ms=mode_ms,
+                plain_ms=time_ms(lambda: K10.dwpair_plain(
+                    x, w1, w2, "dualboth", xq, False), 3, warmup=1),
+                library_ms=time_ms(lambda: F.conv2d(
+                    x, wl1, padding=(K // 2, s // 2), groups=C) + F.conv2d(
+                    x, wl2, padding=(s // 2, K // 2), groups=C)),
+                k1_pair_ms=time_ms(lambda: K1.conv_taps(x, [w1, w2])),
+                bound_ms=max(b_ms, o_ms), launches_per_forward=depth)
+            print("[dual_kernels] " + json.dumps(row), flush=True)
+            if bf16:
+                add("dwpair", depth, row, b_ms, o_ms)
+
+            # K11 (the (K, s) branch) against K1 and its plain version
+            d, r = check_all(f"dwconv_stacked stage {i + 1} {dn}",
+                             K11.dwconv_stacked(x, w1),
+                             K1.dwconv_plain(x, w1), TOL_KERNEL[dn])
+            b_ms, o_ms = bounds(2 * act + 4 * C * K * s, 2 * macs, dtype)
+            row = dict(
+                kernel="dwconv_stacked", dtype=dn, stage=i + 1, C=C, H=H,
+                taps=[K, s], batch=batch, max_abs_err=d, rel_err=r,
+                tol=TOL_KERNEL[dn],
+                ms=time_ms(lambda: K11.dwconv_stacked(x, w1)),
+                k1_ms=time_ms(lambda: K1.dwconv(x, w1)),
+                plain_ms=time_ms(lambda: K1.dwconv_plain(x, w1), 3,
+                                 warmup=1),
+                library_ms=time_ms(lambda: F.conv2d(
+                    x, wl1, padding=(K // 2, s // 2), groups=C)),
+                bound_ms=max(b_ms, o_ms))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print("[dual_kernels] " + json.dumps(row), flush=True)
+            if bf16:
+                add("dwconv_stacked", 1, row, b_ms, o_ms)
+                extra["stacked_vs_k1"][f"stage{i + 1}"] = dict(
+                    stacked_ms=row["ms"], k1_ms=row["k1_ms"],
+                    bound_ms=row["bound_ms"],
+                    bound_share=row["bound_share"])
+
+            # K13 at 0, 1 and all tap columns
+            for nt in (0, 1, s):
+                d, r = check_all(f"dwconv_probe ntaps={nt} stage {i + 1} "
+                                 f"{dn}", K1.dwconv_probe(x, w1, nt),
+                                 K1.dwconv_probe_plain(x, w1, nt),
+                                 TOL_KERNEL[dn])
+                if nt == 0:
+                    def lib():
+                        return F.pad(x, (s // 2, -(s // 2)))
+                else:
+                    wl = wl1[..., :nt]
+
+                    def lib():
+                        return F.conv2d(x, wl, padding=(K // 2, s // 2),
+                                        groups=C)[..., :H]
+                b_ms, o_ms = bounds(2 * act + 4 * C * K * nt,
+                                    2 * probe_macs(batch, C, H, H, K, s, nt),
+                                    dtype)
+                row = dict(
+                    kernel="dwconv_probe", dtype=dn, stage=i + 1, C=C, H=H,
+                    taps=[K, s], ntaps=nt, batch=batch, max_abs_err=d,
+                    rel_err=r, tol=TOL_KERNEL[dn],
+                    ms=time_ms(lambda: K1.dwconv_probe(x, w1, nt)),
+                    plain_ms=time_ms(lambda: K1.dwconv_probe_plain(
+                        x, w1, nt), 3, warmup=1),
+                    library_ms=time_ms(lib), bound_ms=max(b_ms, o_ms))
+                print("[dual_kernels] " + json.dumps(row), flush=True)
+                if bf16:
+                    extra["probe_ms_by_ntaps"].setdefault(
+                        f"ntaps{nt}", 0.0)
+                    extra["probe_ms_by_ntaps"][f"ntaps{nt}"] += row["ms"]
+                    if nt == s:
+                        add("dwconv_probe", 1, row, b_ms, o_ms)
+            del x, xq
+
+            # K12 with and without the q output
+            F4 = 4 * C
+            y1 = torch.randn(batch, C, H, H, generator=g, device=dev
+                             ).to(dtype)
+            y2 = torch.randn(batch, C, H, H, generator=g, device=dev
+                             ).to(dtype)
+            res = torch.randn(batch, C, H, H, generator=g, device=dev
+                              ).to(dtype)
+            pk = random_pack(C, g, dtype)
+            d_max, errs = 0.0, {}
+            for emit in (True, False):
+                got = K2.fused_mlp_dual(y1, y2, res, pk, emit)
+                want = K2.fused_mlp_dual_plain(y1, y2, res, pk, emit)
+                d, r = check_all(
+                    f"fused_mlp_dual emit_q={emit} stage {i + 1} {dn}",
+                    got if emit else got[0], want if emit else want[0],
+                    TOL_MLP[dn])
+                errs[f"emit_q={emit}"] = r
+                d_max = max(d_max, d)
+            ln_s, ln_b, b2, gam, pre = pk.vec
+            w1d = pk.w1[:F4, :C].contiguous()
+            w2d = pk.w2[:C, :F4].contiguous()
+            b1d, b2d = pk.b1[:F4].to(dtype), b2.to(dtype)
+            lnd = (ln_s.to(dtype), ln_b.to(dtype))
+            gd, pd = gam.to(dtype), pre.to(dtype)
+
+            def unfused():
+                z = (y1 + y2.transpose(2, 3) + pd[:, None, None]
+                     ).permute(0, 2, 3, 1)
+                z = F.layer_norm(z, (C,), *lnd, eps=1e-6)
+                z = F.linear(F.gelu(F.linear(z, w1d, b1d)), w2d, b2d)
+                out = res + (gd * z).permute(0, 3, 1, 2)
+                return out, out.transpose(2, 3).contiguous()
+            T = batch * H * H
+            row = dict(
+                kernel="fused_mlp_dual", dtype=dn, stage=i + 1, C=C,
+                batch=batch, max_abs_err=d_max, rel_err=errs,
+                tol=TOL_MLP[dn],
+                ms=time_ms(lambda: K2.fused_mlp_dual(y1, y2, res, pk, True)),
+                ms_without_q=time_ms(lambda: K2.fused_mlp_dual(
+                    y1, y2, res, pk, False)),
+                k2_ms=time_ms(lambda: K2.fused_mlp(y1, res, pk, 1)),
+                plain_ms=time_ms(lambda: K2.fused_mlp_dual_plain(
+                    y1, y2, res, pk, True), 3, warmup=1),
+                library_ms=None, unfused_torch_ms=time_ms(unfused))
+            b_q, o_q = bounds(5 * T * C * item + 2 * C * F4 * item,
+                              4 * T * C * F4, dtype)
+            b_n, o_n = bounds(4 * T * C * item + 2 * C * F4 * item,
+                              4 * T * C * F4, dtype)
+            row.update(bound_ms=max(b_q, o_q),
+                       bound_ms_without_q=max(b_n, o_n),
+                       launches_per_forward=depth)
+            print("[dual_kernels] " + json.dumps(row), flush=True)
+            if bf16:
+                t = totals["fused_mlp_dual"]
+                t["ms"] += (depth - 1) * row["ms"] + row["ms_without_q"]
+                t["plain_ms"] += depth * row["plain_ms"]
+                t["library_ms"] += depth * row["unfused_torch_ms"]
+                t["bound_ms"] += ((depth - 1) * row["bound_ms"]
+                                  + row["bound_ms_without_q"])
+                t["bytes_ms"] += (depth - 1) * b_q + b_n
+                t["ops_ms"] += (depth - 1) * o_q + o_n
+                t["err"] = max(t["err"], d_max)
+            del y1, y2, res, pk
+            torch.cuda.empty_cache()
+
+    # K10 on maps larger than a block's shared memory: row tiles
+    C, K, s = cfg.widened_dims[0], cfg.stage_kernel(0), cfg.small_kernel
+    x = torch.randn(2, C, PAIR_BIG, PAIR_BIG, generator=g, device=dev)
+    w1 = torch.randn(C, K, s, generator=g, device=dev) * 0.05
+    w2 = torch.randn(C, s, K, generator=g, device=dev) * 0.05
+    errs = {}
+    for mode in PAIR_MODES:
+        for sum_out in (True, False) if K10.MODES[mode][1] else (True,):
+            _, errs[mode + ("" if sum_out else "_raw")] = check_all(
+                f"dwpair {mode} sum_out={sum_out} {PAIR_BIG}^2 float32",
+                K10.dwpair(x, w1, w2, mode, sum_out=sum_out),
+                K10.dwpair_plain(x, w1, w2, mode, sum_out=sum_out),
+                TOL_KERNEL["float32"])
+    print("[dual_kernels] " + json.dumps(dict(
+        kernel="dwpair", dtype="float32", C=C, H=PAIR_BIG, taps=[K, s],
+        batch=2, rel_err=errs, tol=TOL_KERNEL["float32"],
+        kernel_mode_ms=time_ms(lambda: K10.dwpair(x, w1, w2, "kernel")),
+        k1_pair_ms=time_ms(lambda: K1.conv_taps(x, [w1, w2])))), flush=True)
+    del x
+    torch.cuda.empty_cache()
+    print("[dual_kernels] bf16 totals: " + json.dumps(
+        {n: {k: round(v, 4) for k, v in t.items()}
+         for n, t in totals.items()}), flush=True)
+    return totals, extra
+
+
+def phase_dual(batch):
+    """The dual eval path; returns the launch counts of its bf16 run."""
+    import dataclasses
+    import torch
+    from slak_tpu_torch.models import apply, create_model
+    from slak_tpu_torch.train.engine import make_eval_step
+    model = create_model("SLaK_tiny", dtype=torch.bfloat16, seed=0,
+                         eval_layout="dual", **MODEL_KW)
+    randomize(model, 1)
+    n_blocks = sum(model.cfg.depths)
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(2)
+    batches = [(torch.randn(batch, 224, 224, 3, generator=g),
+                torch.randint(0, 1000, (batch,), generator=g))
+               for _ in range(N_BATCHES)]
+    counts = None
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        step = make_eval_step(model, dtype)
+        step(batches[0])                     # pack weights, warm up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = [step(b) for b in batches]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = read_dual_counts()
+        want = {"dwpair": n_blocks * N_BATCHES,
+                "fused_mlp_dual": n_blocks * N_BATCHES,
+                "dwconv_stacked": 0, "dwconv_probe": 0, "dwconv": 0,
+                "fused_mlp": 0}
+        if dtype == torch.bfloat16:
+            counts = got
+        print(f"[dual] {dn}: {N_BATCHES} batches of {batch} in {sec:.3f} s;"
+              f" launches {got}", flush=True)
+        _check(got == want, f"dual {dn} launch counts {got}, want {want}")
+        for j, (o, (x, _)) in enumerate(zip(outs, batches)):
+            lg = o["logits"]
+            _check(lg.shape == (batch, 1000) and bool(
+                torch.isfinite(lg).all()), f"dual {dn} logits bad")
+            xd = x.to("cuda", dtype)
+            plain = apply(model, xd, plain=True)
+            model.cfg = dataclasses.replace(cfg, eval_layout="auto")
+            split = apply(model, xd)
+            model.cfg = cfg
+            d, r = rel_err(lg, plain)
+            ds, rs = rel_err(lg, split)
+            top1 = (lg.argmax(-1) == split.argmax(-1)).float().mean().item()
+            print(f"[dual] {dn} batch {j}: loss {o['loss'].item():.6f} | vs "
+                  f"plain dual route: max abs {d:.4g}, rel {r:.4g}; vs split"
+                  f" route: max abs {ds:.4g}, rel {rs:.4g} (tol "
+                  f"{TOL_LOGITS[dn]}), top-1 agreement {top1:.4f}",
+                  flush=True)
+            _check(r <= TOL_LOGITS[dn], f"dual {dn} vs plain: rel {r:.3g}")
+            _check(rs <= TOL_LOGITS[dn], f"dual {dn} vs split: rel {rs:.3g}")
+    return counts
+
+
+def phase_dual_timing(batch):
+    """bf16 eval at ``batch``: the dual route against the split route
+    (tools/probe_eval_ab.py) and the dual route's plain versions."""
+    import torch
+    from slak_tpu_torch.models import apply, create_model
+    from slak_tpu_torch.tools import probe_eval_ab
+    model = create_model("SLaK_tiny", dtype=torch.bfloat16, seed=0,
+                         eval_layout="dual", **MODEL_KW)
+    rows = probe_eval_ab.run(batch, model=model)
+    x = torch.randn(batch, 224, 224, 3, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5)
+                    ).to(torch.bfloat16)
+    plain_ms = time_ms(lambda: apply(model, x, plain=True), 3, warmup=1)
+    for r in rows:
+        print("[dual_timing] " + json.dumps(r), flush=True)
+    by = {r["eval_layout"]: r for r in rows}
+    print(f"[dual_timing] bf16 eval bs{batch}: dual {by['dual']['ms']:.3f} "
+          f"ms ({by['dual']['img_per_s']:.1f} img/s), split "
+          f"{by['split']['ms']:.3f} ms ({by['split']['img_per_s']:.1f} "
+          f"img/s), dual plain versions {plain_ms:.3f} ms "
+          f"({batch / plain_ms * 1e3:.1f} img/s)", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return by
+
+
+def phase_probes():
+    """The four kernel probes with the launch counters set to 0 just before
+    and read just after; returns {probe: counts}."""
+    import torch
+    from slak_tpu_torch.tools import (probe_floor, probe_overhead,
+                                      probe_pair_ab, probe_stacked)
+    out = {}
+    for name, fn, want in (
+            ("probe_stacked", lambda: probe_stacked.run(TRAIN_BATCH,
+                                                        rounds=3),
+             "dwconv_stacked"),
+            ("probe_overhead", lambda: probe_overhead.run(TRAIN_BATCH,
+                                                          rounds=3),
+             "dwconv_probe"),
+            ("probe_floor", lambda: probe_floor.run(TRAIN_BATCH, rounds=3),
+             "dwconv_probe"),
+            ("probe_pair_ab", lambda: probe_pair_ab.run(TIMING_BATCH,
+                                                        rounds=3),
+             "dwpair")):
+        torch.cuda.synchronize()
+        reset_counts()
+        rows = fn()
+        torch.cuda.synchronize()
+        counts = read_dual_counts()
+        for r in rows:
+            print(f"[probes] {name} " + json.dumps(r), flush=True)
+        print(f"[probes] {name} launches {counts}", flush=True)
+        _check(counts[want] > 0, f"{name} launched no {want}")
+        out[name] = counts
+        torch.cuda.empty_cache()
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,timing,"
-                    "train_kernels,train,train_timing,erf_kernels,erf")
+                    "train_kernels,train,train_timing,erf_kernels,erf,"
+                    "dual_kernels,dual,dual_timing,probes")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     try:
@@ -1238,6 +1647,7 @@ def main(argv=None) -> int:
     totals, counts = None, None
     train_totals, train_counts = None, None
     erf_totals, k9_bf16, erf_run = None, None, None
+    dual_totals, dual_counts, dual_by, probe_counts = None, None, None, None
     t_start = time.perf_counter()
     try:
         if "build" in phases:
@@ -1273,6 +1683,14 @@ def main(argv=None) -> int:
             erf_totals, k9_bf16 = phase_erf_kernels(cfg)
         if "erf" in phases:
             erf_run = phase_erf()
+        if "dual_kernels" in phases:
+            dual_totals = phase_dual_kernels(cfg, MAIN_BATCH)
+        if "dual" in phases:
+            dual_counts = phase_dual(MAIN_BATCH)
+        if "dual_timing" in phases:
+            dual_by = phase_dual_timing(TIMING_BATCH)
+        if "probes" in phases:
+            probe_counts = phase_probes()
     except Exception as e:                      # report and fail the run
         import traceback
         traceback.print_exc()
@@ -1385,11 +1803,62 @@ def main(argv=None) -> int:
             for k in kernels:
                 if k["name"] in ("dwconv", "fused_mlp", "mlp_bwd"):
                     k["erf_launches"] = erf_run[0][k["name"]]
+    if dual_totals is not None:
+        totals_d, extra_d = dual_totals
+        per_fwd = "one bf16 dual forward at batch %d" % MAIN_BATCH
+        per_stage = ("one launch at each of the four stage shapes, bf16, "
+                     "batch %d, summed" % MAIN_BATCH)
+        for name, src, repl, per, launches, more in (
+                ("dwpair", "slak_tpu_torch/ops/csrc/dwpair.cu",
+                 "slak_tpu/ops/pallas_banded.py:632", per_fwd,
+                 None if dual_counts is None else dual_counts["dwpair"],
+                 {"library": "two F.conv2d(groups=C) and the add",
+                  "mode": "dualboth, raw pair"}),
+                ("fused_mlp_dual", "slak_tpu_torch/ops/csrc/mlp.cu",
+                 "slak_tpu/ops/pallas_mlp.py:681", per_fwd,
+                 None if dual_counts is None
+                 else dual_counts["fused_mlp_dual"],
+                 {"library": "none; unfused_torch_ms is the unfused "
+                  "composition (the add, LN, two nn.Linear, GELU, gamma, "
+                  "residual, the q copy)"}),
+                ("dwconv_stacked", "slak_tpu_torch/ops/csrc/dwconv_stacked.cu",
+                 "slak_tpu/ops/pallas_banded.py:364", per_stage,
+                 None if probe_counts is None
+                 else probe_counts["probe_stacked"]["dwconv_stacked"],
+                 {"library": "F.conv2d(groups=C)",
+                  "vs_k1": extra_d["stacked_vs_k1"],
+                  "launches_in": "tools/probe_stacked.py"}),
+                ("dwconv_probe", "slak_tpu_torch/ops/csrc/dwconv.cu",
+                 "tools/probe_overhead.py:65", per_stage + " (all 5 taps)",
+                 None if probe_counts is None else
+                 probe_counts["probe_overhead"]["dwconv_probe"]
+                 + probe_counts["probe_floor"]["dwconv_probe"],
+                 {"library": "F.conv2d(groups=C) on the truncated taps "
+                  "(F.pad for the copy)",
+                  "ms_by_ntaps": extra_d["probe_ms_by_ntaps"],
+                  "launches_in": "tools/probe_overhead.py and "
+                  "tools/probe_floor.py"})):
+            t = totals_d[name]
+            lib = t["library_ms"]
+            if name == "fused_mlp_dual":
+                more = dict(more, unfused_torch_ms=lib)
+                lib = None
+            kernels.append(dict(
+                name=name, route="cuda", source=src, replaces=repl,
+                launches=launches, max_abs_err=t["err"], ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                          else "operations"),
+                library_ms=lib, times_per=per, **more))
     if kernels:
         print(json.dumps({"kernels": kernels}))
     if erf_run is not None:
         print(f"[erf] ms an image at {ERF_SIZE}^2 fp32: kernels "
               f"{erf_run[1]:.3f}, plain {erf_run[2]:.3f}")
+    if dual_by is not None:
+        print(f"[dual_timing] bf16 eval bs{TIMING_BATCH} img/s: dual "
+              f"{dual_by['dual']['img_per_s']:.1f}, split "
+              f"{dual_by['split']['img_per_s']:.1f}")
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

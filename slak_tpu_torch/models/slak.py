@@ -25,6 +25,16 @@ K9 above), so every parameter gets its gradient through the fold, as
 ``jax.grad`` of the JAX eval forward gives it. ``plain=True`` runs the
 same routes through the plain PyTorch versions of the kernels.
 
+Dual eval stages (``eval_layout="dual"``, the route of ``slak_tpu``
+``_stage_forward_dual``): a no-graph eval stage whose blocks are all
+decomposed pairs keeps the activation in both orientations, xh (N, C, H, W)
+and xq (N, C, W, H), made by one contiguous H<->W copy at stage entry;
+each block is one K10 launch (``ops/dwpair.py``, mode ``dualboth``, the raw
+pair y1 and y2 in the q orientation) and one K12 launch (``ops/mlp.py``
+``fused_mlp_dual``: y1 + y2^T, the tail, oh and -- but on the stage's last
+block -- oq); oh leaves the stage. SLaK-T runs all four stages so: 18 K10 +
+18 K12 launches a forward, no K1 and no K2/K3.
+
 Train block (``model.train()``, the route of ``slak_tpu``
 ``forward_features(train=True)`` with its TPU layout gates dropped): LoRA1
 and LoRA2 each run the stats-fused conv (K4, with the K1 dgrad and the
@@ -57,8 +67,12 @@ from slak_tpu_torch.ops.batchnorm import batch_norm_train, fold_bn
 from slak_tpu_torch.ops.depthwise import (_pad_center, bn_branch_train,
                                           depthwise_conv2d, fold_branches,
                                           run_taps)
+from slak_tpu_torch.ops.dwpair import dwpair, dwpair_plain
 from slak_tpu_torch.ops.mlp import (BWD_C_MAX, FusedMlp, fused_mlp,
+                                    fused_mlp_dual, fused_mlp_dual_plain,
                                     fused_mlp_plain, pack_mlp)
+
+EVAL_LAYOUTS = ("auto", "cmajor", "dual", "nhwc")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +88,19 @@ class SLaKConfig:
     drop_path_rate: float = 0.0
     layer_scale_init_value: float = 1e-6
     head_init_scale: float = 1.0
+    # Eval activation layout, slak_tpu's SLaKConfig.eval_layout. "auto",
+    # "cmajor" and "nhwc" all mean this port's one NCHW route (the pair as
+    # two K1 launches, the tail as one K2/K3 launch a block): the JAX
+    # package's C-major and NHWC layouts put the batch or the channels on
+    # the TPU's 128-lane axis, and the CUDA kernels address NCHW directly
+    # through strides. "dual" runs the dual eval stages (module docstring).
+    eval_layout: str = "auto"
+
+    def __post_init__(self):
+        if self.eval_layout not in EVAL_LAYOUTS:
+            raise ValueError(f"eval_layout must be one of "
+                             f"{'/'.join(EVAL_LAYOUTS)}, got "
+                             f"{self.eval_layout!r}")
 
     @property
     def widened_dims(self) -> Tuple[int, ...]:
@@ -343,6 +370,55 @@ class SLaK(nn.Module):
             self.head.bias.mul_(cfg.head_init_scale)
         return self
 
+    def _stage_dual_ok(self, i: int, x: torch.Tensor) -> bool:
+        """Whether stage i runs dual (``_stage_resident_ok``'s structural
+        conditions): eval, ``eval_layout="dual"``, no graph being recorded,
+        and every block a BN'd LoRA1 (K, s) + LoRA2 (s, K) pair, K > s,
+        with at most a BN'd small branch that fits inside LoRA1. The JAX
+        gate's TPU conditions are dropped: K >= 31 (the banded kernels'
+        MXU break-even), the batch blocks of 128 lanes, running on a TPU,
+        and ``fused_mlp_ok``'s VMEM budget for the MLP weights."""
+        if self.training or self.cfg.eval_layout != "dual":
+            return False
+        blocks = self.stages[i]
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                p.requires_grad for p in blocks.parameters())):
+            return False
+        for blk in blocks:
+            lk = blk.large_kernel
+            names = {n for n in ("LoRA1", "LoRA2", "lkb_origin",
+                                 "small_conv", "lkb_reparam")
+                     if hasattr(lk, n)}
+            if not {"LoRA1", "LoRA2"} <= names or \
+                    names - {"LoRA1", "LoRA2", "small_conv"}:
+                return False
+            if not all(hasattr(b, "bn") for b in lk.branches()):
+                return False
+            kh, kw = lk.LoRA1.conv.weight.shape[-2:]
+            if kw >= kh or tuple(lk.LoRA2.conv.weight.shape[-2:]) != (kw, kh):
+                return False
+            if hasattr(lk, "small_conv"):
+                sh, sw = lk.small_conv.conv.weight.shape[-2:]
+                if sh > kh or sw > kw:
+                    return False
+        return True
+
+    def _stage_forward_dual(self, i: int, x: torch.Tensor,
+                            plain: bool) -> torch.Tensor:
+        """A dual eval stage (``_stage_forward_dual``): one H<->W copy in,
+        then K10 (``dualboth``, raw pair) and K12 a block; oh out."""
+        pair = dwpair_plain if plain else dwpair
+        mlp = fused_mlp_dual_plain if plain else fused_mlp_dual
+        blocks = self.stages[i]
+        xh = x.contiguous()
+        xq = xh.transpose(2, 3).contiguous()
+        for j, blk in enumerate(blocks):
+            (w1, w2), pk = blk.prepared(x.dtype, x.device)
+            y1, y2 = pair(xh, w1, w2, "dualboth", xq=xq, sum_out=False)
+            xh, xq = mlp(y1, y2, xh, pk, emit_q=j < len(blocks) - 1)
+            del y1, y2
+        return xh
+
     def forward_features(self, x, plain: bool = False, generator=None,
                          return_stages: bool = False):
         """NCHW images in the compute dtype -> pooled, normed features, or
@@ -355,8 +431,11 @@ class SLaK(nn.Module):
                 x = ds[1](_conv(x, ds[0]))
             else:
                 x = _conv(ds[0](x), ds[1])
-            for blk in self.stages[i]:
-                x = blk(x, plain, generator)
+            if self._stage_dual_ok(i, x):
+                x = self._stage_forward_dual(i, x, plain)
+            else:
+                for blk in self.stages[i]:
+                    x = blk(x, plain, generator)
             stages.append(x)
         if return_stages:
             return stages

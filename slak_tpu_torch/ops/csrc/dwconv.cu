@@ -45,6 +45,14 @@
 // (dwconv_stats_reduce) sums those partials per channel in a fixed order.
 // No atomics: the sums are the same bits on every run. Outputs on tap rows
 // that only read padding are real outputs and count like any other.
+//
+// Probe entry (slak_dwconv_probe) replaces tools/probe_overhead.py:
+// run_variant (variant_kernel), the TPU's probe of K1's fixed cost: the
+// (K, 5) tiled kernel instantiated with a tap limit, computing K1 with
+// only the first ntaps of the 5 tap columns; ntaps = 0 runs no tap and
+// copies the W-padded input's first W columns, as the TPU copy-only twin
+// does (x_ref[i, :, 0:W, :]): out[h][w] = x[h][w - 2], zero for w < 2.
+// K1's own instantiations (PROBE = false) are unchanged.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -75,6 +83,7 @@ struct Geom {
   int C, H, W, kh, kw;
   int G, TH, n_row_tiles;
   int rows_in, Wp;                // shared tile of one plane
+  int ntaps;                      // the probe's tap columns (K1: all)
 };
 
 template <typename T>
@@ -248,7 +257,7 @@ dwconv_kernel(const T* __restrict__ x, const float* __restrict__ w,
 //   (5, K) tile: rows h0 - 2 .. h0 + ceil(TH/RB)*RB + 2 (zero outside the
 //                map), unpadded along W (Wp = W): the long axis skips the
 //                taps that would read padding.
-template <typename T, bool LONG_H>
+template <typename T, bool LONG_H, bool PROBE = false>
 __global__ void __launch_bounds__(kThreads)
 dwconv_tiled_kernel(const T* __restrict__ x, const float* __restrict__ w,
                     T* __restrict__ out, Geom g, int accumulate,
@@ -307,8 +316,13 @@ dwconv_tiled_kernel(const T* __restrict__ x, const float* __restrict__ w,
     for (int q = 0; q < RB; ++q) acc[q] = 0.f;
     if (LONG_H) {
       const int hh = h0 + rem / nblk, wb = rem % nblk;
-      const int i_lo = max(0, pk - hh), i_hi = min(K, H + pk - hh);
+      const int i_lo = max(0, pk - hh);
+      const int i_hi = PROBE && g.ntaps == 0 ? i_lo : min(K, H + pk - hh);
       const float* xb = xs + (pg * g.rows_in + hh - pk - r_lo) * Wp + wb * RB;
+      if (PROBE && g.ntaps == 0) {          // copy-only: the padded row
+#pragma unroll
+        for (int q = 0; q < RB; ++q) acc[q] = xb[pk * Wp + q];
+      }
       for (int ti = i_lo; ti < i_hi; ++ti) {
         const float* xr = xb + ti * Wp;
         float xv[RB + S - 1], tv[S];
@@ -319,7 +333,8 @@ dwconv_tiled_kernel(const T* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int q = 0; q < RB; ++q)
 #pragma unroll
-          for (int j = 0; j < S; ++j) acc[q] = fmaf(tv[j], xv[q + j], acc[q]);
+          for (int j = 0; j < S; ++j)
+            if (!PROBE || j < g.ntaps) acc[q] = fmaf(tv[j], xv[q + j], acc[q]);
       }
       const long long o = p * plane + (long long)hh * W + wb * RB;
 #pragma unroll
@@ -400,6 +415,7 @@ bool make_geom(long long N, int C, int H, int W, int kh, int kw, Geom* gp,
     else return false;
   }
   g.n_row_tiles = (H + g.TH - 1) / g.TH;
+  g.ntaps = kw;
   *gp = g;
   *smem_out = smem;
   return true;
@@ -447,6 +463,51 @@ extern "C" int slak_dwconv(int dtype, const void* x, const float* w,
     return (int)launch<__nv_bfloat16>(x, w, out, N, C, H, W, kh, kw,
                                       accumulate, nullptr, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The probe: out = conv(x, w) with only the first ntaps (0 .. 5) of the 5
+// tap columns of (K, 5) taps, 0 = copy the W-padded input (see the header).
+// dtype, x, w, out as slak_dwconv; kw must be 5 and kh another odd size.
+extern "C" int slak_dwconv_probe(int dtype, const void* x, const float* w,
+                                 void* out, long long N, int C, int H, int W,
+                                 int kh, int kw, int ntaps, void* stream) {
+  if (variant_of(kh, kw) != 1 || ntaps < 0 || ntaps > kShort)
+    return (int)cudaErrorInvalidValue;
+  Geom g;
+  size_t smem;
+  if (!make_geom(N, C, H, W, kh, kw, &g, &smem))
+    return (int)cudaErrorInvalidConfiguration;
+  g.ntaps = ntaps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long blocks = (g.planes + g.G - 1) / g.G * g.n_row_tiles;
+  cudaError_t e;
+  static bool raised[2] = {false, false};             // once a dtype
+  if (dtype == 0) {
+    auto k = dwconv_tiled_kernel<float, true, true>;
+    if (!raised[0]) {
+      e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
+      if (e != cudaSuccess) return (int)e;
+      raised[0] = true;
+    }
+    k<<<(unsigned)blocks, kThreads, smem, s>>>(
+        static_cast<const float*>(x), w, static_cast<float*>(out), g, 0,
+        nullptr);
+  } else if (dtype == 1) {
+    auto k = dwconv_tiled_kernel<__nv_bfloat16, true, true>;
+    if (!raised[1]) {
+      e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
+      if (e != cudaSuccess) return (int)e;
+      raised[1] = true;
+    }
+    k<<<(unsigned)blocks, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), w,
+        static_cast<__nv_bfloat16*>(out), g, 0, nullptr);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // The float32 scratch the stats variant needs: 2 * N * C * row tiles

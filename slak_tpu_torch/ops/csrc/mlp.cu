@@ -58,6 +58,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "simt_tile.cuh"
 
@@ -123,9 +124,29 @@ struct Args {
   int add_residual;
 };
 
+// K12 (the dual tail): y2 and outq in the q orientation (N, C, W, H) of an
+// NCHW activation (qW = W, qH = H), and q_off, the byte offset in dynamic
+// shared memory of the tile's q token offsets (n*sN + w*H + h). The
+// kernels take Args (K2/K3) or DualArgs (K12) as a template type.
+struct DualArgs : Args {
+  const void* y2;
+  void* outq;
+  int qW, qH;
+  int q_off;
+};
+
+template <typename A>
+constexpr bool kDual = std::is_same<A, DualArgs>::value;
+
+__device__ __forceinline__ long long* q_tokens(const DualArgs& a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  return reinterpret_cast<long long*>(smem_raw + a.q_off);
+}
+
 // Each token's offset in global memory (n*sN + p*sP; -1 past the end),
-// computed once a tile: tok[BT].
-__device__ void token_offsets(const Args& a, long long t0, long long* tok) {
+// computed once a tile: tok[BT] (and K12's q offsets).
+template <typename A>
+__device__ void token_offsets(const A& a, long long t0, long long* tok) {
   const long long T_total = a.n_outer * a.P;
   for (int t = threadIdx.x; t < a.BT; t += kThreads) {
     const long long tg = t0 + t;
@@ -135,6 +156,15 @@ __device__ void token_offsets(const Args& a, long long t0, long long* tok) {
       off = n * a.sN + (tg - n * a.P) * a.sP;
     }
     tok[t] = off;
+    if constexpr (kDual<A>) {
+      long long q = -1;
+      if (tg < T_total) {
+        const long long n = tg / a.P;
+        const int p = (int)(tg - n * a.P), h = p / a.qW;
+        q = n * a.sN + (long long)(p - h * a.qW) * a.qH + h;
+      }
+      q_tokens(a)[t] = q;
+    }
   }
   __syncthreads();
 }
@@ -145,8 +175,8 @@ __device__ void token_offsets(const Args& a, long long t0, long long* tok) {
 // channel). Each thread takes its elements U at a time: first U loads
 // (load(offset), offset -1 outside the real extent), all in flight
 // together, then use(t, c, offset, loaded value) for each.
-template <int U, typename Load, typename Use>
-__device__ __forceinline__ void for_tile(const Args& a, const long long* tok,
+template <int U, typename A, typename Load, typename Use>
+__device__ __forceinline__ void for_tile(const A& a, const long long* tok,
                                          Load load, Use use) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (a.sC != 1) {
@@ -188,9 +218,10 @@ __device__ __forceinline__ void for_tile(const Args& a, const long long* tok,
 
 // stage <- y + pre_bias (fp32, zero outside the tile, row pitch LDS);
 // hs <- LN(stage) (row pitch LDA). The LayerNorm runs a warp per token, R
-// tokens of a warp at once.
-template <typename T>
-__device__ void load_layernorm(const Args& a, const long long* tok,
+// tokens of a warp at once. K12: y = y1 + y2^T in the compute dtype, y2
+// read in the q orientation (strided by H along the tokens).
+template <typename T, typename A>
+__device__ void load_layernorm(const A& a, const long long* tok,
                                float* stage, int LDS, T* hs, int LDA) {
   constexpr int R = 4;
   const T* __restrict__ y = static_cast<const T*>(a.y);
@@ -202,6 +233,12 @@ __device__ void load_layernorm(const Args& a, const long long* tok,
       a, tok,
       [&](long long off) { return off >= 0 ? to_f<T>(y[off]) : 0.f; },
       [&](int t, int c, long long off, float v) {
+        if constexpr (kDual<A>) {
+          const T* y2 = static_cast<const T*>(a.y2);
+          if (off >= 0)
+            v = to_f<T>(from_f<T>(v + to_f<T>(y2[q_tokens(a)[t] +
+                                                 c * a.sC])));
+        }
         stage[t * LDS + c] = off >= 0 ? v + pre[c] : 0.f;
       });
   __syncthreads();
@@ -240,9 +277,10 @@ __device__ void load_layernorm(const Args& a, const long long* tok,
   __syncthreads();
 }
 
-// out <- res + gamma * (acc + b2) over the tile's real extent.
-template <typename T>
-__device__ void store_out(const Args& a, const long long* tok,
+// out <- res + gamma * (acc + b2) over the tile's real extent; K12 with
+// a non-null a.outq also writes the same values in the q orientation.
+template <typename T, typename A>
+__device__ void store_out(const A& a, const long long* tok,
                           const float* acc, int LDA) {
   const T* __restrict__ res = static_cast<const T*>(a.res);
   T* __restrict__ out = static_cast<T*>(a.out);
@@ -256,6 +294,12 @@ __device__ void store_out(const Args& a, const long long* tok,
       [&](int t, int c, long long off, float r) {
         if (off >= 0)
           out[off] = from_f<T>(r + (acc[t * LDA + c] + b2[c]) * gamma[c]);
+        if constexpr (kDual<A>) {
+          T* outq = static_cast<T*>(a.outq);
+          if (off >= 0 && outq != nullptr)
+            outq[q_tokens(a)[t] + c * a.sC] =
+                from_f<T>(r + (acc[t * LDA + c] + b2[c]) * gamma[c]);
+        }
       });
 }
 
@@ -304,8 +348,8 @@ __device__ void load_weights_w2(const Args& a, int f0, bf16* w2s, int LDF) {
   }
 }
 
-template <int NFRAG, int FC>
-__global__ void __launch_bounds__(kThreads) mlp_tc_kernel(Args a) {
+template <int NFRAG, int FC, typename A>
+__global__ void __launch_bounds__(kThreads) mlp_tc_kernel(A a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int BT = a.BT, Cp = a.Cp, Fp = a.Fp, KS = a.KS;
   const int LDA = Cp + kPad;
@@ -458,8 +502,8 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
 }
 
 // NT: output n8 tiles a warp holds (Cp <= 8 * NT * WN)
-template <int NT, int WN, int FC>
-__global__ void __launch_bounds__(kThreads) mlp_rf_kernel(Args a) {
+template <int NT, int WN, int FC, typename A>
+__global__ void __launch_bounds__(kThreads) mlp_rf_kernel(A a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr int BT = 16 * kWarps / WN, LDF = FC + kPad;
   constexpr int HT = FC / 8 / WN;                 // n8 tiles of product 1
@@ -623,8 +667,9 @@ size_t smem_simt_tile(int Cp) {
          kSimtBT * sizeof(long long);
 }
 
+template <typename A>
 __global__ void __launch_bounds__(kThreads)
-simt_ln_kernel(Args a, float* __restrict__ hs) {
+simt_ln_kernel(A a, float* __restrict__ hs) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int LDS = a.Cp + 1;
   float* stage = reinterpret_cast<float*>(smem_raw);
@@ -634,8 +679,9 @@ simt_ln_kernel(Args a, float* __restrict__ hs) {
   load_layernorm<float>(a, tok, stage, LDS, hs + t0 * a.Cp, a.Cp);
 }
 
+template <typename A>
 __global__ void __launch_bounds__(kThreads)
-simt_out_kernel(Args a, const float* __restrict__ os) {
+simt_out_kernel(A a, const float* __restrict__ os) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int Cp = a.Cp, LDA = Cp + 1;
   float* acc = reinterpret_cast<float*>(smem_raw);
@@ -683,32 +729,47 @@ simt_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
 // Raise a kernel's dynamic shared-memory limit to the most a block may
 // have, once a kernel, not at every launch.
 cudaError_t allow_smem(const void* kernel) {
-  static const void* done[16];
+  static const void* done[32];
   static int n_done = 0;
   for (int i = 0; i < n_done; ++i)
     if (done[i] == kernel) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
-  if (e == cudaSuccess && n_done < 16) done[n_done++] = kernel;
+  if (e == cudaSuccess && n_done < 32) done[n_done++] = kernel;
   return e;
 }
 
-template <typename K>
-cudaError_t run(K kernel, const Args& a, size_t smem, cudaStream_t stream) {
+// K12's q token offsets go after a kernel's own shared layout: the
+// dynamic shared memory with them (a.q_off set), and what the layout may
+// use so that they still fit.
+size_t with_q_tokens(const Args&, size_t smem) { return smem; }
+size_t with_q_tokens(DualArgs& a, size_t smem) {
+  a.q_off = (int)((smem + 15) / 16 * 16);
+  return a.q_off + (size_t)a.BT * sizeof(long long);
+}
+
+template <typename A>
+constexpr size_t smem_budget() {
+  return kDual<A> ? kSmemMax - 16 - 128 * sizeof(long long) : kSmemMax;
+}
+
+template <typename K, typename A>
+cudaError_t run(K kernel, A a, size_t smem, cudaStream_t stream) {
   cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel));
   if (e != cudaSuccess) return e;
+  smem = with_q_tokens(a, smem);
   const long long tokens = a.n_outer * a.P;
   const long long blocks = (tokens + a.BT - 1) / a.BT;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int FC>
-cudaError_t run_tc(int nfrag, const Args& a, size_t smem,
+template <int FC, typename A>
+cudaError_t run_tc(int nfrag, const A& a, size_t smem,
                    cudaStream_t stream) {
-  if (nfrag <= 4) return run(mlp_tc_kernel<4, FC>, a, smem, stream);
-  if (nfrag <= 8) return run(mlp_tc_kernel<8, FC>, a, smem, stream);
-  return run(mlp_tc_kernel<16, FC>, a, smem, stream);
+  if (nfrag <= 4) return run(mlp_tc_kernel<4, FC, A>, a, smem, stream);
+  if (nfrag <= 8) return run(mlp_tc_kernel<8, FC, A>, a, smem, stream);
+  return run(mlp_tc_kernel<16, FC, A>, a, smem, stream);
 }
 
 // Token tile, hidden chunk and product-1 split for bf16: the largest tile
@@ -716,17 +777,20 @@ cudaError_t run_tc(int nfrag, const Args& a, size_t smem,
 // fit, with the larger hidden chunk where both fit. (A smaller tile that
 // fills more SMs when tokens are few measured slower at stage 4: every
 // tile streams the whole weight matrices.)
-cudaError_t launch_tc(Args a, cudaStream_t stream) {
+template <typename A>
+cudaError_t launch_tc(A a, cudaStream_t stream) {
   if (a.Cp <= 512) {
     a.KS = 1;
     a.FC = a.Cp <= 256 ? 64 : 32;
     const int WN = a.Cp <= 256 ? 1 : 2;
     a.BT = 16 * kWarps / WN;
     const size_t smem = smem_rf(a.Cp, WN, a.FC);
-    if (smem <= kSmemMax) {
-      if (a.Cp <= 128) return run(mlp_rf_kernel<16, 1, 64>, a, smem, stream);
-      if (a.Cp <= 256) return run(mlp_rf_kernel<32, 1, 64>, a, smem, stream);
-      return run(mlp_rf_kernel<32, 2, 32>, a, smem, stream);
+    if (smem <= smem_budget<A>()) {
+      if (a.Cp <= 128)
+        return run(mlp_rf_kernel<16, 1, 64, A>, a, smem, stream);
+      if (a.Cp <= 256)
+        return run(mlp_rf_kernel<32, 1, 64, A>, a, smem, stream);
+      return run(mlp_rf_kernel<32, 2, 32, A>, a, smem, stream);
     }
   }
   const int tiles_c = a.Cp / 16;
@@ -739,7 +803,7 @@ cudaError_t launch_tc(Args a, cudaStream_t stream) {
       const int tiles_1 = WM * (FC / 16);
       const int KS = tiles_1 >= kWarps ? 1 : kWarps / tiles_1;
       const size_t smem = smem_tc(BT, a.Cp, FC, KS);
-      if (smem > kSmemMax) continue;
+      if (smem > smem_budget<A>()) continue;
       a.BT = BT;
       a.FC = FC;
       a.KS = KS;
@@ -754,11 +818,12 @@ long long simt_tokens(const Args& a) {
   return (a.n_outer * a.P + kGM - 1) / kGM * kGM;
 }
 
-cudaError_t launch_simt(Args a, void* ws, cudaStream_t stream) {
-  const size_t smem = smem_simt_tile(a.Cp);
-  if (ws == nullptr || smem > kSmemMax) return cudaErrorInvalidConfiguration;
+template <typename A>
+cudaError_t launch_simt(A a, void* ws, cudaStream_t stream) {
   a.BT = kSimtBT;
   a.FC = a.KS = 1;
+  const size_t smem = with_q_tokens(a, smem_simt_tile(a.Cp));
+  if (ws == nullptr || smem > kSmemMax) return cudaErrorInvalidConfiguration;
   const long long Tp = simt_tokens(a);
   const SimtLayout L = simt_layout(Tp, a.Cp, a.Fp);
   unsigned char* base = static_cast<unsigned char*>(ws);
@@ -768,9 +833,10 @@ cudaError_t launch_simt(Args a, void* ws, cudaStream_t stream) {
   const float* w1 = static_cast<const float*>(a.w1);
   const float* w2 = static_cast<const float*>(a.w2);
   const unsigned tiles = (unsigned)(Tp / kSimtBT);
-  cudaError_t e = allow_smem(reinterpret_cast<const void*>(simt_ln_kernel));
+  cudaError_t e =
+      allow_smem(reinterpret_cast<const void*>(simt_ln_kernel<A>));
   if (e != cudaSuccess) return e;
-  simt_ln_kernel<<<tiles, kThreads, smem, stream>>>(a, hs);
+  simt_ln_kernel<A><<<tiles, kThreads, smem, stream>>>(a, hs);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   simt_gemm_kernel<true><<<dim3((unsigned)(Tp / kGM), a.Fp / kGN), kThreads,
@@ -782,9 +848,9 @@ cudaError_t launch_simt(Args a, void* ws, cudaStream_t stream) {
                             stream>>>(gs, w2, os, nullptr, a.Fp, a.Cp);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = allow_smem(reinterpret_cast<const void*>(simt_out_kernel));
+  e = allow_smem(reinterpret_cast<const void*>(simt_out_kernel<A>));
   if (e != cudaSuccess) return e;
-  simt_out_kernel<<<tiles, kThreads, smem, stream>>>(a, os);
+  simt_out_kernel<A><<<tiles, kThreads, smem, stream>>>(a, os);
   return cudaGetLastError();
 }
 
@@ -813,6 +879,30 @@ extern "C" int slak_fused_mlp(int dtype, const void* y, const void* res,
   if (Cp % 16 || Fp % 64 || C > Cp) return (int)cudaErrorInvalidValue;
   Args a{y, res, out, w1, w2, b1, vec, n_outer, P, sN, sC, sP,
          C, Cp, Fp, 0, 0, 0, add_residual};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_simt(a, ws, s);
+  if (dtype == 1) return (int)launch_tc(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K12 (replaces pallas_mlp.py: fused_mlp_cmajor_dual_raw, the
+// _mlp_cmajor_dual_kernel of the dual eval stage): the same tail on
+// y = y1 + y2^T, y1, res and out NCHW (N, C, H, W) and y2 in the q
+// orientation (N, C, W, H), all contiguous; the branch sum is taken in the
+// compute dtype before the fp32 LayerNorm (pallas_mlp.py:632). With outq
+// non-null the output is also written in the q orientation. The rest as
+// slak_fused_mlp with the NCHW strides (n_outer = N, P = H * W).
+extern "C" int slak_fused_mlp_dual(int dtype, const void* y1, const void* y2,
+                                   const void* res, void* out, void* outq,
+                                   const void* w1, const void* w2,
+                                   const float* b1, const float* vec,
+                                   long long N, int C, int H, int W, int Cp,
+                                   int Fp, void* ws, void* stream) {
+  if (Cp % 16 || Fp % 64 || C > Cp) return (int)cudaErrorInvalidValue;
+  const long long P = (long long)H * W;
+  DualArgs a{{y1, res, out, w1, w2, b1, vec, N, P, C * P, P, 1, C, Cp, Fp,
+              0, 0, 0, 1},
+             y2, outq, W, H, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_simt(a, ws, s);
   if (dtype == 1) return (int)launch_tc(a, s);

@@ -22,6 +22,14 @@ through the differentiable :class:`~slak_tpu_torch.ops.dwconv.DwconvTaps`
 (K1 forward, K1 on flipped taps for dx, the weight-gradient kernel for
 the taps); :func:`fold_branches` is plain torch ops, so the gradients
 reach the branch weights and BN affines through the fold.
+
+:data:`PAIR_IMPL` is the JAX module's eval-pair dispatch (``PAIR_IMPL``,
+slak_tpu/ops/depthwise.py:113-132): ``"split"`` (the default) runs the
+pair as the two K1 launches above; ``"fused-kernel"``, ``"fused-input"``,
+``"fused-dualout"`` and ``"fused-dualboth"`` run a no-graph (K, s) + (s, K)
+pair as one K10 launch (:func:`~slak_tpu_torch.ops.dwpair.dwpair`) in that
+mode, summed. With a graph being recorded the pair keeps the
+``DwconvTaps`` route.
 """
 
 from __future__ import annotations
@@ -33,6 +41,12 @@ import torch.nn.functional as F
 
 from slak_tpu_torch.ops.batchnorm import batch_norm_from_sums
 from slak_tpu_torch.ops.dwconv import DwconvBnStats, DwconvTaps, conv_taps
+from slak_tpu_torch.ops.dwpair import dwpair, dwpair_plain
+
+# Eval-pair dispatch: "split" or "fused-<tmode>" (ops/dwpair.py's modes).
+PAIR_IMPL = "split"
+PAIR_IMPLS = ("split", "fused-kernel", "fused-input", "fused-dualout",
+              "fused-dualboth")
 
 
 def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
@@ -79,14 +93,29 @@ def fold_branches(weights: Sequence[torch.Tensor],
     return [first] + [w for w, _ in rest], bias_total
 
 
+def is_pair(taps: Sequence[torch.Tensor]) -> bool:
+    """Whether ``taps`` is a decomposed (K, s) + (s, K) pair, K > s."""
+    if len(taps) != 2:
+        return False
+    k, s = taps[0].shape[-2:]
+    return k > s and tuple(taps[1].shape[-2:]) == (s, k)
+
+
 def run_taps(x: torch.Tensor, taps: Sequence[torch.Tensor],
              plain: bool = False) -> torch.Tensor:
     """sum_i dwconv(x, taps_i): one K1 launch per tap tensor, all adding
     into one output, through :class:`DwconvTaps` when a graph is being
-    recorded. ``plain`` runs the plain version on any device."""
+    recorded; a no-graph pair as one K10 launch when :data:`PAIR_IMPL`
+    names a fused mode. ``plain`` runs the plain versions on any device."""
+    if PAIR_IMPL not in PAIR_IMPLS:
+        raise ValueError(f"PAIR_IMPL must be one of {PAIR_IMPLS}, got "
+                         f"{PAIR_IMPL!r}")
     if torch.is_grad_enabled() and (
             x.requires_grad or any(t.requires_grad for t in taps)):
         return DwconvTaps.apply(x, plain, *taps)
+    if PAIR_IMPL != "split" and is_pair(taps):
+        pair = dwpair_plain if plain else dwpair
+        return pair(x, taps[0], taps[1], PAIR_IMPL.removeprefix("fused-"))
     return conv_taps(x, taps, plain)
 
 

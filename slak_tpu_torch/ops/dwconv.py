@@ -20,6 +20,13 @@ into ``dy_eff = dy + ds1 + 2 y ds2`` (rounded to the compute dtype), dgrad =
 K1 with the taps flipped on both axes, wgrad = the
 ``ops/dwconv_wgrad.py`` kernel.
 
+:func:`dwconv_probe` (K13, ``slak_dwconv_probe``, replaces
+``tools/probe_overhead.py`` ``run_variant``, the probe of K1's fixed cost)
+is K1's (K, 5) kernel with a tap limit: only the first ``ntaps`` of the 5
+tap columns, and with ``ntaps = 0`` a copy of the W-padded input's first W
+columns (x shifted right by 2, zero columns on the left), as the TPU
+copy-only twin writes.
+
 Taps are ``(C, kh, kw)`` float32, already rounded to the compute dtype by
 the caller (``models/slak.py`` folds and rounds them once per model), so
 the kernel and the plain version multiply the same values. Both accumulate
@@ -39,6 +46,7 @@ import torch.nn.functional as F
 
 launch_count = 0               # K1 launches (forward and dgrad)
 stats_launch_count = 0         # K4 launches (the stats variant)
+probe_launch_count = 0         # K13 launches (the tap-limited probe)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -169,6 +177,64 @@ def dwconv(x: torch.Tensor, w: torch.Tensor,
         raise RuntimeError(f"dwconv kernel launch failed: cudaError {err}")
     global launch_count
     launch_count += 1
+    return out
+
+
+def _check_probe(x, w, ntaps):
+    _check(x, w, None)
+    kh, kw = w.shape[1:]
+    if kw != 5 or kh == 5:
+        raise ValueError(f"dwconv_probe takes (K, 5) taps, got {(kh, kw)}")
+    if not 0 <= ntaps <= kw:
+        raise ValueError(f"ntaps must be in 0..{kw}, got {ntaps}")
+
+
+def dwconv_probe_plain(x: torch.Tensor, w: torch.Tensor,
+                       ntaps: int) -> torch.Tensor:
+    """Plain version of K13: the conv with the tap columns >= ntaps zeroed;
+    ntaps = 0: x shifted right by kw // 2 along W, zeros on the left."""
+    _check_probe(x, w, ntaps)
+    if ntaps == 0:
+        ps = w.shape[2] // 2
+        return F.pad(x, (ps, 0))[..., :x.shape[3]].contiguous()
+    wt = w.clone()
+    wt[:, :, ntaps:] = 0
+    return dwconv_plain(x, wt)
+
+
+@functools.lru_cache(maxsize=None)
+def _probe_entry():
+    from slak_tpu_torch.ops._build import load
+    fn = load("dwconv").slak_dwconv_probe
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dwconv_probe(x: torch.Tensor, w: torch.Tensor,
+                 ntaps: int) -> torch.Tensor:
+    """K13: K1 on (K, 5) taps with only the first ``ntaps`` tap columns
+    (0 = the padded-input copy). x: (N, C, H, W) float32 or bfloat16."""
+    if x.device.type == "cpu":
+        return dwconv_probe_plain(x, w, ntaps)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"dwconv_probe runs on cuda or cpu, not "
+                           f"{x.device}")
+    _check_cuda("dwconv_probe", x, w)
+    _check_probe(x, w, ntaps)
+    N, C, H, W = x.shape
+    kh, kw = w.shape[1], w.shape[2]
+    out = torch.empty_like(x)
+    err = _probe_entry()(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
+                         out.data_ptr(), N, C, H, W, kh, kw, ntaps,
+                         torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dwconv_probe kernel launch failed: cudaError "
+                           f"{err}")
+    global probe_launch_count
+    probe_launch_count += 1
     return out
 
 

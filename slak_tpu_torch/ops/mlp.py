@@ -1,6 +1,6 @@
-"""K2/K3/K8/K9: the fused ConvNeXt block tail
-``res + gamma * (GELU(LN(y + pre_bias) @ W1 + b1) @ W2 + b2)`` and its
-backward.
+"""K2/K3/K8/K9/K12: the fused ConvNeXt block tail
+``res + gamma * (GELU(LN(y + pre_bias) @ W1 + b1) @ W2 + b2)``, its
+backward, and its dual-orientation variant.
 
 Kernels: ``csrc/mlp.cu`` (replaces ``slak_tpu/ops/pallas_mlp.py``
 ``_mlp_fused_2d`` and ``_mlp_cmajor_2d``) and ``csrc/mlp_bwd.cu``, two
@@ -12,6 +12,14 @@ launch them for CUDA tensors and run :func:`fused_mlp_plain`,
 tensors. :class:`FusedMlp` is the autograd Function of ``fused_mlp``'s
 custom VJP: K2 forward, K8 backward at C <= 256 and K9 above, as
 ``_vjp_bwd`` picks.
+
+K12 (``slak_fused_mlp_dual`` in ``csrc/mlp.cu``, replaces
+``fused_mlp_cmajor_dual_raw``) is a variant of the K2/K3 kernel family, as
+K3 is: :func:`fused_mlp_dual` runs the tail on ``y1 + y2^T`` (the raw pair
+of the dual eval stage's conv, y2 in the q orientation (N, C, W, H)),
+summed in the compute dtype before the fp32 LayerNorm, and writes the
+output in NCHW and, with ``emit_q``, also in the q orientation;
+:func:`fused_mlp_dual_plain` is its plain version.
 
 The activation may hold its channels on any axis (``channel_dim``): the
 kernel addresses tokens and channels through strides, so NHWC (the
@@ -37,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 launch_count = 0            # K2/K3 launches
+dual_launch_count = 0       # K12 launches
 bwd_launch_count = 0        # K8 launches
 wide_bwd_launch_count = 0   # K9 launches
 
@@ -178,6 +187,84 @@ def fused_mlp(y: torch.Tensor, res: Optional[torch.Tensor], pk: MlpWeights,
     global launch_count
     launch_count += 1
     return out
+
+
+def _check_dual(y1, y2, res, pk):
+    if y1.ndim != 4 or y2.ndim != 4:
+        raise ValueError(f"want y1 (N,C,H,W) and y2 (N,C,W,H), got "
+                         f"{tuple(y1.shape)} and {tuple(y2.shape)}")
+    n, c, h, w = y1.shape
+    if tuple(y2.shape) != (n, c, w, h) or y2.dtype != y1.dtype:
+        raise ValueError(f"y2 must be (N, C, W, H) = {(n, c, w, h)} in "
+                         f"{y1.dtype}, got {tuple(y2.shape)} {y2.dtype}")
+    if res.shape != y1.shape or res.dtype != y1.dtype:
+        raise ValueError("res must match y1 in shape and dtype")
+    if c != pk.c:
+        raise ValueError(f"channels {c} vs weights {pk.c}")
+
+
+def fused_mlp_dual_plain(y1: torch.Tensor, y2: torch.Tensor,
+                         res: torch.Tensor, pk: MlpWeights,
+                         emit_q: bool = True):
+    """Plain version of K12 (``_reference_mlp_dual``): (oh, oq), oq the
+    same values in the q orientation or None without ``emit_q``."""
+    _check_dual(y1, y2, res, pk)
+    oh = fused_mlp_plain(y1 + y2.transpose(2, 3), res, pk, 1)
+    return oh, (oh.transpose(2, 3).contiguous() if emit_q else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _dual_entry():
+    from slak_tpu_torch.ops._build import load
+    fn = load("mlp").slak_fused_mlp_dual
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_mlp_dual(y1: torch.Tensor, y2: torch.Tensor, res: torch.Tensor,
+                   pk: MlpWeights, emit_q: bool = True):
+    """K12: the tail on ``y1 + y2^T`` with the shortcut res (y1, res NCHW,
+    y2 (N, C, W, H)). Returns (oh NCHW, oq (N, C, W, H) or None)."""
+    if y1.device.type == "cpu":
+        return fused_mlp_dual_plain(y1, y2, res, pk, emit_q)
+    if y1.device.type != "cuda":
+        raise RuntimeError(f"fused_mlp_dual runs on cuda or cpu, not "
+                           f"{y1.device}")
+    _check_dual(y1, y2, res, pk)
+    if y1.dtype not in _DTYPES:
+        raise TypeError(f"fused_mlp_dual takes float32 or bfloat16, not "
+                        f"{y1.dtype}")
+    if pk.w1.dtype != y1.dtype or pk.w2.dtype != y1.dtype:
+        raise TypeError("weights packed for another dtype")
+    tensors = [y1, y2, res, pk.w1, pk.w2, pk.b1, pk.vec]
+    if any(t.device != y1.device for t in tensors):
+        raise ValueError("fused_mlp_dual: tensors on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fused_mlp_dual needs contiguous tensors")
+    n, c, h, w = y1.shape
+    fp, cp = pk.w1.shape
+    dt = _DTYPES[y1.dtype]
+    ws_fn, _ = _entries()
+    nbytes = ws_fn(dt, n * h * w, cp, fp)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=y1.device) \
+        if nbytes else None
+    oh = torch.empty_like(y1)
+    oq = torch.empty_like(y2) if emit_q else None
+    err = _dual_entry()(
+        dt, y1.data_ptr(), y2.data_ptr(), res.data_ptr(), oh.data_ptr(),
+        None if oq is None else oq.data_ptr(), pk.w1.data_ptr(),
+        pk.w2.data_ptr(), pk.b1.data_ptr(), pk.vec.data_ptr(), n, c, h, w,
+        cp, fp, None if ws is None else ws.data_ptr(),
+        torch.cuda.current_stream(y1.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_dual kernel launch failed: cudaError "
+                           f"{err}")
+    global dual_launch_count
+    dual_launch_count += 1
+    return oh, oq
 
 
 def fused_mlp_bwd_plain(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,

@@ -20,13 +20,13 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import statistics
 import subprocess
 
 import torch
 
 from slak_tpu_torch.ops import _build
 from slak_tpu_torch.ops.mlp import pack_mlp, token_strides
+from slak_tpu_torch.tools.timing import device_line, require_cuda, time_ms
 
 # phase -> [(text in mlp.cu, replacement), ...]
 EDITS = {
@@ -94,29 +94,12 @@ def build_variants():
     return libs
 
 
-def time_ms(fn, reps=20, rounds=5):
-    """Device ms a call: events around `reps` back-to-back calls, median of
-    `rounds`."""
-    for _ in range(3):
-        fn()
-    ts = []
-    for _ in range(rounds):
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b) / reps)
-    return statistics.median(ts)
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=64)
     args = ap.parse_args()
+    dev = require_cuda("probe_mlp")
     libs = build_variants()
-    dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     for stage, (C, H) in enumerate(((124, 56), (249, 28), (499, 14),
                                     (998, 7)), 1):
@@ -146,8 +129,9 @@ def main():
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: cudaError {err}")
-            row.append(f"{name} {time_ms(call):.3f}")
+            row.append(f"{name} {time_ms(call, reps=20, warmup=3):.3f}")
         print(" | ".join(row) + "  (ms)", flush=True)
+    print(device_line())
 
 
 if __name__ == "__main__":
