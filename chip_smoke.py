@@ -5,15 +5,17 @@
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,erf_kernels,erf
     python3 chip_smoke.py --phases build,dual_kernels,dual,dual_timing,probes
+    python3 chip_smoke.py --phases build,mlp_ab --base PARENT_CHECKOUT
 
 Phases (any failure exits non-zero):
   build    nvcc-build every kernel under slak_tpu_torch/ops/csrc/.
   kernels  each kernel against its plain PyTorch version on the card at the
            flagship's shapes (SLaK-T 51x51 w1.3, the main path's batch): the
            dwconv pair at the four stages' (K,5)/(5,K) taps, the fused MLP
-           in NCHW, NHWC and (C, M) strides, bf16 and fp32; times with CUDA
-           events (median), the bound, the plain version's time and the
-           library yardstick's.
+           in NCHW, NHWC and (C, M) strides, bf16 and fp32, also without
+           the residual and at the ragged batches 1 and 3; times with CUDA
+           events (median), the bound, achieved TFLOP/s and share of the
+           bound, the plain version's time and the library yardstick's.
   forward  the main path: create_model + make_eval_step on a few batches of
            synthetic labels, bf16 and fp32, with the launch counters set to 0
            just before and read just after; logits held against the same
@@ -59,7 +61,8 @@ Phases (any failure exits non-zero):
            their plain versions at the flagship's four stage shapes (bf16
            and fp32, batch 64): K10 (the one-pass pair) in its four modes
            summed and in the two dual-out modes raw, K12 (the dual tail)
-           with and without the q output, K11 (the tap-stacked banded
+           with and without the q output (also at the ragged batches 1 and
+           3), K11 (the tap-stacked banded
            conv) and K13 (K1 with 0, 1 and all 5 tap columns); K10's modes
            also at 256^2 in fp32 (row tiles); times, bound, plain and
            library (or unfused) times.
@@ -78,6 +81,11 @@ Phases (any failure exits non-zero):
   profile  (not in the default run) one eval forward and one train step
            under torch.profiler: device time by kernel, idle share, traces
            in chiprun_out/.
+  mlp_ab   (not in the default run; needs --base) the fused MLP of another
+           checkout (the parent commit, unpacked into a git-ignored
+           directory) against this tree's in one process, in turns base,
+           change, change, base: K2/K3 and K12 at the four stage shapes,
+           K2 in fp32 at the 1024^2 ERF shapes, the bs256 bf16 eval.
 
 Prints the card's name and power limit, then a {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}. TF32 is off for cuDNN and
@@ -136,6 +144,7 @@ MLP_BWD_NAMES = ("dy", "dW1", "dW2", "db1", "db2", "dgamma", "dln_scale",
                  "dln_bias")
 PAIR_MODES = ("kernel", "input", "dualout", "dualboth")
 PAIR_BIG = 256                              # K10's row-tiled maps (fp32)
+RAGGED = (1, 3)                             # the fused MLP's ragged batches
 
 
 class PhaseError(RuntimeError):
@@ -190,6 +199,50 @@ def bounds(byts, flops, dtype):
     """(ms to move `byts` at the HBM rate, ms for `flops` at the peak of
     `dtype`): the bound is the larger."""
     return (byts / PEAK_BYTES_PER_S * 1e3, flops / peak_flops(dtype) * 1e3)
+
+
+def rate(flops, ms, bound_ms):
+    """Achieved TFLOP/s of a launch and its share of the bound."""
+    return dict(tflops=flops / ms * 1e-9, bound_share=bound_ms / ms)
+
+
+def mlp_layouts(y, res):
+    """(layout, y, res, channel_dim) of an NCHW pair in the three layouts
+    the fused MLP serves: NCHW, NHWC and (C, M)."""
+    C = y.shape[1]
+    return (("NCHW", y, res, 1),
+            ("NHWC", y.permute(0, 2, 3, 1).contiguous(),
+             res.permute(0, 2, 3, 1).contiguous(), 3),
+            ("CM", y.transpose(0, 1).reshape(C, -1).contiguous(),
+             res.transpose(0, 1).reshape(C, -1).contiguous(), 0))
+
+
+def check_mlp_variants(K2, y, res, pk, cd, layout, stage, dn, batch):
+    """The fused MLP against its plain version without the residual, and
+    at the ragged batches RAGGED (tiles that end mid-tile and, at P = 49
+    and 196, cross images) with and without it. Returns {case: rel err}."""
+    import torch
+    errs = {}
+    for nb in (None,) + RAGGED:
+        if nb is None:
+            yy, rr = y, res
+        elif layout == "CM":                # (C, M): the first nb images
+            per = y.shape[1] // batch
+            yy = y[:, :nb * per].contiguous()
+            rr = res[:, :nb * per].contiguous()
+        else:
+            yy, rr = y[:nb].contiguous(), res[:nb].contiguous()
+        for add in ((False,) if nb is None else (True, False)):
+            want = K2.fused_mlp_plain(yy, rr, pk, cd, add)
+            got = K2.fused_mlp(yy, rr if add else None, pk, cd, add)
+            torch.cuda.synchronize()
+            _, r = rel_err(got, want)
+            tag = ("full" if nb is None else f"batch{nb}") + (
+                "" if add else "_no_residual")
+            errs[tag] = r
+            _check(r <= TOL_MLP[dn], f"fused_mlp stage {stage + 1} {layout} "
+                   f"{dn} {tag}: rel err {r:.3g} > {TOL_MLP[dn]}")
+    return errs
 
 
 def dwconv_macs(N, C, H, W, kh, kw) -> int:
@@ -379,12 +432,7 @@ def phase_kernels(cfg, batch):
             res = torch.randn(batch, C, H, H, generator=g, device=dev
                               ).to(dtype)
             pk = random_pack(C, g, dtype)
-            for layout, yy, rr, cd in (
-                    ("NCHW", y, res, 1),
-                    ("NHWC", y.permute(0, 2, 3, 1).contiguous(),
-                     res.permute(0, 2, 3, 1).contiguous(), 3),
-                    ("CM", y.transpose(0, 1).reshape(C, -1).contiguous(),
-                     res.transpose(0, 1).reshape(C, -1).contiguous(), 0)):
+            for layout, yy, rr, cd in mlp_layouts(y, res):
                 want = K2.fused_mlp_plain(yy, rr, pk, cd)
                 got = K2.fused_mlp(yy, rr, pk, cd)
                 torch.cuda.synchronize()
@@ -394,7 +442,9 @@ def phase_kernels(cfg, batch):
                        f"{r:.3g} > {TOL_MLP[dn]}")
                 row = dict(kernel="fused_mlp", dtype=dn, stage=i + 1, C=C,
                            layout=layout, batch=batch, max_abs_err=d,
-                           rel_err=r, tol=TOL_MLP[dn])
+                           rel_err=r, tol=TOL_MLP[dn],
+                           ragged_and_no_residual=check_mlp_variants(
+                               K2, yy, rr, pk, cd, layout, i, dn, batch))
                 if layout == "NCHW":
                     T = batch * H * H
                     ms = time_ms(lambda: K2.fused_mlp(y, res, pk, 1))
@@ -419,7 +469,8 @@ def phase_kernels(cfg, batch):
                     row.update(ms=ms, plain_ms=plain_ms,
                                unfused_torch_ms=unf_ms,
                                bound_ms=max(b_ms, o_ms),
-                               launches_per_forward=depth)
+                               launches_per_forward=depth,
+                               **rate(4 * T * C * F4, ms, max(b_ms, o_ms)))
                     if dtype == torch.bfloat16:
                         t = totals["fused_mlp"]
                         for k in ("ms", "plain_ms", "unfused_torch_ms",
@@ -1177,7 +1228,9 @@ _GROUPS = (("mlp_bwd.cu (K8)", ("mlp_bwd_", "sum_partials")),
            ("dwconv.cu (K1/K4)", ("dwconv_kernel", "dwconv_tiled",
                                   "dwconv_stats_reduce")),
            ("dwconv_wgrad.cu (K5/K7)", ("wgrad_",)),
-           ("mlp.cu (K2/K3)", ("mlp_rf_", "mlp_tc_", "mlp_simt_")),
+           ("mlp.cu (K2/K3)", ("mlp_fused_kernel", "gemm_kernel<",
+                               "ln_bf16_kernel", "simt_ln_kernel",
+                               "simt_gemm_kernel", "simt_out_kernel")),
            ("GEMM (cuBLAS/CUTLASS)", ("gemm", "cutlass")),
            ("stock conv (cuDNN/ATen)", ("conv_depthwise", "cudnn",
                                         "implicit_convolve", "nchwToNhwc",
@@ -1419,15 +1472,19 @@ def phase_dual_kernels(cfg, batch):
                               ).to(dtype)
             pk = random_pack(C, g, dtype)
             d_max, errs = 0.0, {}
-            for emit in (True, False):
-                got = K2.fused_mlp_dual(y1, y2, res, pk, emit)
-                want = K2.fused_mlp_dual_plain(y1, y2, res, pk, emit)
-                d, r = check_all(
-                    f"fused_mlp_dual emit_q={emit} stage {i + 1} {dn}",
-                    got if emit else got[0], want if emit else want[0],
-                    TOL_MLP[dn])
-                errs[f"emit_q={emit}"] = r
-                d_max = max(d_max, d)
+            for nb in (batch,) + RAGGED:         # and the ragged batches
+                for emit in (True, False):
+                    args = (y1[:nb], y2[:nb], res[:nb], pk, emit)
+                    got = K2.fused_mlp_dual(*args)
+                    want = K2.fused_mlp_dual_plain(*args)
+                    d, r = check_all(
+                        f"fused_mlp_dual emit_q={emit} batch {nb} stage "
+                        f"{i + 1} {dn}", got if emit else got[0],
+                        want if emit else want[0], TOL_MLP[dn])
+                    errs[f"emit_q={emit}" + (
+                        "" if nb == batch else f" batch{nb}")] = r
+                    if nb == batch:
+                        d_max = max(d_max, d)
             ln_s, ln_b, b2, gam, pre = pk.vec
             w1d = pk.w1[:F4, :C].contiguous()
             w2d = pk.w2[:C, :F4].contiguous()
@@ -1460,7 +1517,8 @@ def phase_dual_kernels(cfg, batch):
                               4 * T * C * F4, dtype)
             row.update(bound_ms=max(b_q, o_q),
                        bound_ms_without_q=max(b_n, o_n),
-                       launches_per_forward=depth)
+                       launches_per_forward=depth,
+                       **rate(4 * T * C * F4, row["ms"], max(b_q, o_q)))
             print("[dual_kernels] " + json.dumps(row), flush=True)
             if bf16:
                 t = totals["fused_mlp_dual"]
@@ -1585,6 +1643,76 @@ def phase_dual_timing(batch):
     return by
 
 
+def phase_mlp_ab(cfg, base: str):
+    """The fused MLP of another checkout (``base``: the parent commit
+    unpacked into a git-ignored directory) against this tree's, in one
+    process, in turns base, change, change, base: K2/K3 (NCHW bf16) and K12
+    (with oq) at the four stage shapes at the main batch, K2 in fp32 at the
+    1024^2 ERF shapes, and the bs256 bf16 eval forward. The base's
+    ``csrc/mlp.cu`` is built here; both libraries serve the same wrappers
+    (``ops/mlp.py``), swapped by their entry points. Returns the rows."""
+    import ctypes
+    import torch
+    from slak_tpu_torch.models import apply, create_model
+    from slak_tpu_torch.ops import _build
+    from slak_tpu_torch.ops import mlp as K2
+    src = os.path.join(base, "slak_tpu_torch", "ops", "csrc", "mlp.cu")
+    _check(os.path.exists(src), f"mlp_ab: no {src}")
+    so = os.path.join(_build.BUILD_DIR, "ab", "libmlp_base.so")
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    t0 = time.perf_counter()
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
+                       capture_output=True, text=True)
+    _check(r.returncode == 0, f"mlp_ab: {src} does not build:\n"
+           f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    print(f"[mlp_ab] {src} built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    routes = {"base": K2.bind(ctypes.CDLL(so)), "change": K2._entries()}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(40)
+    cases = []                               # (name, fn)
+    for i, C, H, _, _, _ in stage_shapes(cfg):
+        y, y2, res = (torch.randn(MAIN_BATCH, C, H, H, generator=g,
+                                  device=dev).to(torch.bfloat16)
+                      for _ in range(3))
+        pk = random_pack(C, g, torch.bfloat16)
+        cases.append((f"k2_stage{i + 1}_ms",
+                      lambda y=y, res=res, pk=pk: K2.fused_mlp(y, res, pk, 1)))
+        cases.append((f"k12_stage{i + 1}_ms",
+                      lambda y=y, y2=y2, res=res, pk=pk: K2.fused_mlp_dual(
+                          y, y2, res, pk, True)))
+    for i, C, H, _, _, _ in stage_shapes(cfg, ERF_SIZE):
+        y, res = (torch.randn(1, C, H, H, generator=g, device=dev)
+                  for _ in range(2))
+        pk = random_pack(C, g, torch.float32)
+        cases.append((f"k2_fp32_{ERF_SIZE}_stage{i + 1}_ms",
+                      lambda y=y, res=res, pk=pk: K2.fused_mlp(y, res, pk, 1)))
+    model = create_model("SLaK_tiny", dtype=torch.bfloat16, seed=0,
+                         **MODEL_KW)
+    x = torch.randn(TIMING_BATCH, 224, 224, 3, device=dev, generator=g
+                    ).to(torch.bfloat16)
+    cases.append(("eval_bs%d_ms" % TIMING_BATCH, lambda: apply(model, x)))
+    order = ("base", "change", "change", "base")
+    rows = {name: [] for name, _ in cases}
+    own = K2._entries
+    try:
+        for route in order:
+            K2._entries = lambda e=routes[route]: e
+            for name, fn in cases:
+                rows[name].append(time_ms(fn))
+    finally:
+        K2._entries = own
+    out = dict(order=order, **rows, eval_img_per_s=[
+        TIMING_BATCH / ms * 1e3 for ms in rows["eval_bs%d_ms" % TIMING_BATCH]])
+    for name, ms in rows.items():
+        print(f"[mlp_ab] {name}: " + " / ".join(f"{v:.4f}" for v in ms)
+              + "  (" + ", ".join(order) + ")", flush=True)
+    print("[mlp_ab] " + json.dumps(out), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_probes():
     """The four kernel probes with the launch counters set to 0 just before
     and read just after; returns {probe: counts}."""
@@ -1623,6 +1751,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="build,kernels,forward,timing,"
                     "train_kernels,train,train_timing,erf_kernels,erf,"
                     "dual_kernels,dual,dual_timing,probes")
+    ap.add_argument("--base", help="mlp_ab: another checkout of the "
+                    "repository (e.g. the parent commit from git archive, "
+                    "in a git-ignored directory)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     try:
@@ -1691,6 +1822,9 @@ def main(argv=None) -> int:
             dual_by = phase_dual_timing(TIMING_BATCH)
         if "probes" in phases:
             probe_counts = phase_probes()
+        if "mlp_ab" in phases:
+            _check(args.base is not None, "mlp_ab needs --base")
+            phase_mlp_ab(cfg, args.base)
     except Exception as e:                      # report and fail the run
         import traceback
         traceback.print_exc()

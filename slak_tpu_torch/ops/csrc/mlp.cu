@@ -4,39 +4,34 @@
 // before each product, and fp32 accumulation.
 //
 // Replaces slak_tpu/ops/pallas_mlp.py: _mlp_fused_2d (_mlp_kernel, the
-// tokens-major fused_mlp) and _mlp_cmajor_2d (_mlp_cmajor_kernel, the
-// channel-major fused_mlp_cmajor). One kernel covers both and the NCHW
+// tokens-major fused_mlp), _mlp_cmajor_2d (_mlp_cmajor_kernel, the
+// channel-major fused_mlp_cmajor) and, as slak_fused_mlp_dual (K12),
+// fused_mlp_cmajor_dual_raw. One family covers all three and the NCHW
 // layout of this port: the activation is addressed through strides,
 // element (token t, channel c) at n*sN + c*sC + p*sP with t = n*P + p.
 //
 // The TPU kernel keeps both weight matrices resident in VMEM. An SM has
 // 227 KB of shared memory and stage 4's weights alone are 15.9 MB in bf16,
 // so here the weights stream from global memory (and the 50 MB L2, where
-// every block of a launch reads the same matrices) one hidden chunk at a
-// time, while a tile of BT tokens stays on the SM throughout:
-//   1. the tile y + pre_bias (fp32) and its LayerNorm h (compute dtype);
-//   2. for each chunk of FC hidden units: a = h @ W1[:, chunk] -> + b1 ->
-//      exact-erf GELU -> g (compute dtype) -> acc += g @ W2[chunk, :];
-//   3. out = res + gamma * (acc + b2).
-// The 4C-wide hidden activations never reach device memory. W1 and W2 are
-// repacked once per model by the wrapper (ops/mlp.py) transposed, as
-// nn.Linear stores them: W1^T (Fp, Cp) and W2^T (Cp, Fp), zero-padded to
-// Cp = C rounded up to 16 and Fp = 4C rounded up to 64, so the tensor-core
-// tiles never see a ragged edge and each product's B operand is read along
-// its reduction axis (col_major fragments); the ragged C of the
-// activations is masked on load and store.
+// every block of a launch reads the same matrices). W1 and W2 are repacked
+// once per model by the wrapper (ops/mlp.py) transposed, as nn.Linear
+// stores them: W1^T (Fp, Cp) and W2^T (Cp, Fp), zero-padded to Cp = C
+// rounded up to 16 and Fp = 4C rounded up to 64, so that each product's B
+// operand is K-major; the ragged C of the activations is masked on load
+// and store.
 //
-// Three kernels, picked by dtype and width (launch_tc, launch_simt):
-// - bf16, C <= 512 (mlp_rf_kernel): both products on tensor cores through
-//   raw mma.sync m16n8k16 + ldmatrix. A warp owns 16 tokens and all (or,
-//   above 256 channels, half) of the output channels in registers; at
-//   C <= 256 the first product's accumulators become the second's A
-//   fragments in registers, so g never leaves the warp.
-// - bf16, wider (mlp_tc_kernel, stage 4's C = 998): WMMA 16x16x16, the
-//   output accumulator spread over the warps' registers, g through shared
-//   memory.
-//   Both bf16 kernels copy each hidden chunk's W1^T rows and W2^T columns
-//   into shared memory with cp.async, overlapped with the products.
+// Routes, by dtype and width:
+// - bf16: a LayerNorm launch (ln_bf16_kernel) writes h = LN(y + pre_bias)
+//   into a bf16 workspace, tokens-major; then
+//   - Cp <= 256 (mlp_fused_kernel): the rest of the tail in one
+//     persistent, warp-specialised kernel; TMA brings the tile's h and
+//     each hidden chunk's W1^T rows and W2^T columns, wgmma computes both
+//     products, and the chunk's GELU output feeds product 2 from
+//     registers, so g never leaves the SM;
+//   - wider (stages 3-4): one TMA + wgmma GEMM kernel twice, g = GELU(h
+//     W1^T^T + b1) into the workspace, then the residual epilogue from
+//     g W2^T^T. A 128-token fp32 accumulator of Cp = 1008 channels does
+//     not fit a block.
 // - float32 (the differentiated eval's ERF path): plain fp32 FMAs (no
 //   TF32), matching the JAX kernels' Precision.HIGHEST, in four launches
 //   over f32 scratch: the LayerNorm, the two products as tiled GEMMs (the
@@ -47,29 +42,31 @@
 //
 // What bounds it on an H100: the two products, 4*T*C*4C operations, at
 // 989 TFLOP/s dense bf16 at best; the bytes (y, res, out and the two
-// weight matrices once) take far less. mma.sync fed from shared memory
-// reaches a fraction of that rate, and at C = 998 every 32-token tile
-// streams all 15.9 MB of weights; wgmma with TMA-fed weight tiles is the
-// next step.
+// weight matrices once) take far less. wgmma is the only way to that
+// rate: a warpgroup's asynchronous products from shared memory (and
+// registers), fed by TMA so that no thread spends instructions on the
+// weight copies. What the bf16 kernels do not yet hide is CUDA-core work:
+// T*4C exact-erf GELUs (~26 instructions each, the fused kernel's main
+// loop at C <= 256) and the epilogues' residual loads and stores.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include <initializer_list>
 #include <type_traits>
 
 #include "simt_tile.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;           // row padding of the shared tiles
 constexpr float kLnEps = 1e-6f;
 constexpr size_t kSmemMax = 227 * 1024;
 
@@ -96,18 +93,6 @@ __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
 struct Args {
   const void* y;
   const void* res;
@@ -120,7 +105,7 @@ struct Args {
   long long P;
   long long sN, sC, sP;
   int C, Cp, Fp;
-  int BT, FC, KS;      // token tile, hidden chunk, split of product 1
+  int BT;              // tokens a block of the per-token kernels
   int add_residual;
 };
 
@@ -304,334 +289,6 @@ __device__ void store_out(const A& a, const long long* tok,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, tensor cores, C > 512: WMMA
-//
-// Warp w owns row tile w % WM and every WN-th column tile of the (BT, Cp)
-// output in registers; when the first product has fewer tiles than warps,
-// its reduction dimension is split across warps (KS).
-//
-// Shared layout (LDA = Cp + kPad, LDF = FC + kPad):
-//   hs [BT][LDA] bf16 | as [KS][BT][LDF] f32 | gs [BT][LDF] bf16 |
-//   tok [BT] i64 | B
-// where region B holds either w1s [FC][LDA] + w2s [Cp][LDF] (bf16, the
-// chunk's rows of W1^T and columns of W2^T) or, before and after the chunk
-// loop, the fp32 staging tile [BT][LDA].
-// ---------------------------------------------------------------------------
-
-size_t smem_tc(int BT, int Cp, int FC, int KS) {
-  const size_t LDA = Cp + kPad, LDF = FC + kPad;
-  const size_t w = (Cp * LDF + FC * LDA) * sizeof(bf16);
-  const size_t st = BT * LDA * sizeof(float);
-  return BT * LDA * sizeof(bf16) + KS * BT * LDF * sizeof(float) +
-         BT * LDF * sizeof(bf16) + BT * sizeof(long long) + (w > st ? w : st);
-}
-
-// w1s [FC][LDA] <- W1^T rows f0 .. f0+FC (16-byte pieces)
-template <int FC>
-__device__ void load_weights_w1(const Args& a, int f0, bf16* w1s, int LDA) {
-  const bf16* w1 = static_cast<const bf16*>(a.w1);
-  const int per_row = a.Cp / 8;
-  for (int i = threadIdx.x; i < FC * per_row; i += kThreads) {
-    const int f = i / per_row, v = i - f * per_row;
-    cp_async16(w1s + f * LDA + v * 8, w1 + (size_t)(f0 + f) * a.Cp + v * 8);
-  }
-}
-
-// w2s [Cp][LDF] <- W2^T columns f0 .. f0+FC
-template <int FC>
-__device__ void load_weights_w2(const Args& a, int f0, bf16* w2s, int LDF) {
-  const bf16* w2 = static_cast<const bf16*>(a.w2);
-  constexpr int per_row = FC / 8;
-  for (int i = threadIdx.x; i < a.Cp * per_row; i += kThreads) {
-    const int c = i / per_row, v = i - c * per_row;
-    cp_async16(w2s + c * LDF + v * 8, w2 + (size_t)c * a.Fp + f0 + v * 8);
-  }
-}
-
-template <int NFRAG, int FC, typename A>
-__global__ void __launch_bounds__(kThreads) mlp_tc_kernel(A a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int BT = a.BT, Cp = a.Cp, Fp = a.Fp, KS = a.KS;
-  const int LDA = Cp + kPad;
-  constexpr int LDF = FC + kPad;
-  bf16* hs = reinterpret_cast<bf16*>(smem_raw);
-  float* as = reinterpret_cast<float*>(hs + BT * LDA);
-  bf16* gs = reinterpret_cast<bf16*>(as + KS * BT * LDF);
-  long long* tok = reinterpret_cast<long long*>(gs + BT * LDF);
-  bf16* w1s = reinterpret_cast<bf16*>(tok + BT);
-  bf16* w2s = w1s + FC * LDA;
-  float* stage = reinterpret_cast<float*>(w1s);
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  token_offsets(a, (long long)blockIdx.x * BT, tok);
-  load_layernorm<bf16>(a, tok, stage, LDA, hs, LDA);
-
-  load_weights_w1<FC>(a, 0, w1s, LDA);
-  cp_async_commit();
-  load_weights_w2<FC>(a, 0, w2s, LDF);
-  cp_async_commit();
-
-  const int WM = BT / 16, WN = kWarps / WM;
-  const int tiles_c = Cp / 16;
-  const int tm2 = warp % WM, tn2 = warp / WM;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NFRAG];
-#pragma unroll
-  for (int i = 0; i < NFRAG; ++i) wmma::fill_fragment(acc[i], 0.f);
-
-  // product 1: tiles_1 output tiles, each reduced over KS slices of Cp
-  constexpr int tiles_f = FC / 16;
-  const int tiles_1 = WM * tiles_f;
-  const int kslice = ((Cp / 16 + KS - 1) / KS) * 16;
-
-  for (int f0 = 0; f0 < Fp; f0 += FC) {
-    cp_async_wait<1>();                 // W1 of this chunk has landed
-    __syncthreads();
-    for (int job = warp; job < tiles_1 * KS; job += kWarps) {
-      const int tile = job % tiles_1, ks = job / tiles_1;
-      const int tm = tile / tiles_f, tn = tile % tiles_f;
-      const int k_lo = ks * kslice;
-      const int k_hi = min(Cp, k_lo + kslice);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
-      wmma::fill_fragment(cf, 0.f);
-      for (int k = k_lo; k < k_hi; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bf;
-        wmma::load_matrix_sync(af, hs + tm * 16 * LDA + k, LDA);
-        wmma::load_matrix_sync(bf, w1s + tn * 16 * LDA + k, LDA);
-        wmma::mma_sync(cf, af, bf, cf);
-      }
-      wmma::store_matrix_sync(as + (ks * BT + tm * 16) * LDF + tn * 16, cf,
-                              LDF, wmma::mem_row_major);
-    }
-    __syncthreads();
-    if (f0 + FC < Fp) load_weights_w1<FC>(a, f0 + FC, w1s, LDA);
-    cp_async_commit();
-#pragma unroll 4
-    for (int i = tid; i < BT * FC; i += kThreads) {
-      const int t = i / FC, f = i - t * FC;
-      float v = a.b1[f0 + f];
-      for (int ks = 0; ks < KS; ++ks) v += as[(ks * BT + t) * LDF + f];
-      gs[t * LDF + f] = from_f<bf16>(gelu(v));
-    }
-    cp_async_wait<1>();                 // W2 of this chunk has landed
-    __syncthreads();
-    for (int k = 0; k < FC; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, gs + tm2 * 16 * LDF + k, LDF);
-#pragma unroll
-      for (int i = 0; i < NFRAG; ++i) {
-        const int tn = tn2 + WN * i;
-        if (tn < tiles_c) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-              bf;
-          wmma::load_matrix_sync(bf, w2s + tn * 16 * LDF + k, LDF);
-          wmma::mma_sync(acc[i], af, bf, acc[i]);
-        }
-      }
-    }
-    __syncthreads();
-    if (f0 + FC < Fp) load_weights_w2<FC>(a, f0 + FC, w2s, LDF);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < NFRAG; ++i) {
-    const int tn = tn2 + WN * i;
-    if (tn < tiles_c)
-      wmma::store_matrix_sync(stage + tm2 * 16 * LDA + tn * 16, acc[i], LDA,
-                              wmma::mem_row_major);
-  }
-  __syncthreads();
-  store_out<bf16>(a, tok, stage, LDA);
-}
-
-// ---------------------------------------------------------------------------
-// bf16, tensor cores, C <= 512: raw mma.sync with the hidden chunk on chip
-//
-// A warp owns 16 tokens and 1/WN of the Cp output channels (NT n8 tiles);
-// the WN warps of a token group split each hidden chunk's first product
-// between them. With WN = 1 the first product's m16n8 accumulators, plus
-// b1 and GELU, are exactly the A fragments of the second product (raw
-// mma.sync m16n8k16 and ldmatrix, whose register layouts PTX fixes), so g
-// never leaves the registers; with WN = 2 each warp writes its half of g
-// to shared memory and the pair meets at a named barrier. A block is 8
-// warps, BT = 128 / WN tokens; per chunk of FC hidden units it waits once
-// for the chunk's weights (double-buffered cp.async).
-//
-// Shared layout (LDA = Cp + kPad, LDF = FC + kPad, LDS = Cp + 1):
-//   hs [BT][LDA] bf16 | gs [BT][LDF] bf16 (WN > 1) | tok [BT] i64 | B
-// where region B holds two weight buffers, each W1^T rows [FC][LDA] and
-// W2^T columns [Cp][LDF], or, before and after the chunk loop, the fp32
-// staging tile [BT][LDS].
-// ---------------------------------------------------------------------------
-
-size_t smem_rf(int Cp, int WN, int FC) {
-  const size_t BT = 16 * kWarps / WN;
-  const size_t LDA = Cp + kPad, LDF = FC + kPad;
-  const size_t w = 2 * (FC * LDA + Cp * LDF) * sizeof(bf16);
-  const size_t st = BT * (Cp + 1) * sizeof(float);
-  return BT * LDA * sizeof(bf16) + (WN > 1 ? BT * LDF * sizeof(bf16) : 0) +
-         BT * sizeof(long long) + (w > st ? w : st);
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_16816(float* d, const unsigned* a,
-                                          unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// NT: output n8 tiles a warp holds (Cp <= 8 * NT * WN)
-template <int NT, int WN, int FC, typename A>
-__global__ void __launch_bounds__(kThreads) mlp_rf_kernel(A a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int BT = 16 * kWarps / WN, LDF = FC + kPad;
-  constexpr int HT = FC / 8 / WN;                 // n8 tiles of product 1
-  static_assert(HT % 2 == 0, "product 1 runs in n8 tile pairs");
-  const int Cp = a.Cp, Fp = a.Fp, LDA = Cp + kPad, LDS = Cp + 1;
-  bf16* hs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* gs = hs + BT * LDA;
-  long long* tok = reinterpret_cast<long long*>(gs + (WN > 1 ? BT * LDF : 0));
-  bf16* wbuf = reinterpret_cast<bf16*>(tok + BT);
-  const int wstride = FC * LDA + Cp * LDF;        // one weight buffer
-  float* stage = reinterpret_cast<float*>(wbuf);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int tg = warp / WN, cg = warp % WN;       // token, channel group
-  const int t0 = tg * 16;
-  // this warp's output n8 tiles: [j0, j1), an even count
-  const int j0 = cg * NT, j1 = min(Cp / 8, j0 + NT);
-  token_offsets(a, (long long)blockIdx.x * BT, tok);
-  load_layernorm<bf16>(a, tok, stage, LDS, hs, LDA);
-
-  load_weights_w1<FC>(a, 0, wbuf, LDA);
-  load_weights_w2<FC>(a, 0, wbuf + FC * LDA, LDF);
-  cp_async_commit();
-
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  // ldmatrix lane addresses: A, a 16 x 16 block (rows x k); B, a pair of
-  // n8 tiles (16 rows of W^T x 16 k)
-  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3);
-  const int b_col = ((lane >> 3) & 1) * 8;
-  const unsigned hs_a = smem_u32(hs + (t0 + a_row) * LDA + a_col);
-  const unsigned gs_a = smem_u32(gs + (t0 + a_row) * LDF + a_col);
-  const int g_row = t0 + (lane >> 2), c_lane = 2 * (lane & 3);
-
-  const int n_chunks = Fp / FC;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    cp_async_wait<0>();
-    __syncthreads();              // chunk ch landed; chunk ch-1 all read
-    const bf16* w1s = wbuf + (ch & 1) * wstride;
-    const bf16* w2s = w1s + FC * LDA;
-    if (ch + 1 < n_chunks) {
-      bf16* nxt = wbuf + ((ch + 1) & 1) * wstride;
-      load_weights_w1<FC>(a, (ch + 1) * FC, nxt, LDA);
-      load_weights_w2<FC>(a, (ch + 1) * FC, nxt + FC * LDA, LDF);
-    }
-    cp_async_commit();
-
-    // product 1: h (16 x Cp) . W1^T rows [cg*HT*8, (cg+1)*HT*8) of the chunk
-    float h1[HT][4];
-#pragma unroll
-    for (int j = 0; j < HT; ++j) h1[j][0] = h1[j][1] = h1[j][2] = h1[j][3] = 0.f;
-    const unsigned w1_b = smem_u32(w1s + (cg * HT * 8 + b_row) * LDA + b_col);
-    for (int k = 0; k < Cp; k += 16) {
-      unsigned af[4];
-      ldsm_x4(hs_a + k * 2, af);
-#pragma unroll
-      for (int jp = 0; jp < HT / 2; ++jp) {
-        unsigned b[4];
-        ldsm_x4(w1_b + (jp * 16 * LDA + k) * 2, b);
-        mma_16816(h1[2 * jp], af, b[0], b[1]);
-        mma_16816(h1[2 * jp + 1], af, b[2], b[3]);
-      }
-    }
-    // + b1, GELU, round to bf16
-    unsigned gf[HT][2];
-#pragma unroll
-    for (int j = 0; j < HT; ++j) {
-      const float2 bb = *reinterpret_cast<const float2*>(
-          a.b1 + ch * FC + (cg * HT + j) * 8 + c_lane);
-      gf[j][0] = pack_bf16x2(gelu(h1[j][0] + bb.x), gelu(h1[j][1] + bb.y));
-      gf[j][1] = pack_bf16x2(gelu(h1[j][2] + bb.x), gelu(h1[j][3] + bb.y));
-    }
-    if (WN > 1) {
-      // share this warp's hidden tiles with the token group's other warps
-#pragma unroll
-      for (int j = 0; j < HT; ++j) {
-        const int c = (cg * HT + j) * 8 + c_lane;
-        *reinterpret_cast<unsigned*>(gs + g_row * LDF + c) = gf[j][0];
-        *reinterpret_cast<unsigned*>(gs + (g_row + 8) * LDF + c) = gf[j][1];
-      }
-      asm volatile("bar.sync %0, %1;\n" :: "r"(1 + tg), "r"(32 * WN));
-    }
-    // product 2: g (16 x FC) . W2^T columns -> this warp's output tiles
-    const unsigned w2_b = smem_u32(w2s + (j0 * 8 + b_row) * LDF + b_col);
-#pragma unroll
-    for (int kk = 0; kk < FC / 16; ++kk) {
-      unsigned af[4];
-      if (WN > 1) {
-        ldsm_x4(gs_a + kk * 16 * 2, af);
-      } else {                    // the accumulator layout is the A layout
-        af[0] = gf[2 * kk][0];
-        af[1] = gf[2 * kk][1];
-        af[2] = gf[2 * kk + 1][0];
-        af[3] = gf[2 * kk + 1][1];
-      }
-#pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp) {
-        if (j0 + 2 * jp < j1) {
-          unsigned b[4];
-          ldsm_x4(w2_b + (jp * 16 * LDF + kk * 16) * 2, b);
-          mma_16816(acc[2 * jp], af, b[0], b[1]);
-          mma_16816(acc[2 * jp + 1], af, b[2], b[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  // accumulators -> stage (fp32) -> out
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (j0 + j < j1) {
-      const int c = 8 * (j0 + j) + c_lane;
-      stage[g_row * LDS + c] = acc[j][0];
-      stage[g_row * LDS + c + 1] = acc[j][1];
-      stage[(g_row + 8) * LDS + c] = acc[j][2];
-      stage[(g_row + 8) * LDS + c + 1] = acc[j][3];
-    }
-  }
-  __syncthreads();
-  store_out<bf16>(a, tok, stage, LDS);
-}
-
-// ---------------------------------------------------------------------------
 // float32, CUDA cores, in four launches over f32 scratch (the workspace):
 //  1. simt_ln_kernel, kSimtBT tokens a block: y + pre_bias, the LayerNorm
 //     -> hs (Tp, Cp);
@@ -725,6 +382,727 @@ simt_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
 }
 
 // ---------------------------------------------------------------------------
+// bf16, Hopper tensor cores: TMA-fed wgmma.
+//
+// Both products run as wgmma.mma_async on tiles that TMA
+// (cp.async.bulk.tensor) brings into shared memory in the 128-byte swizzle,
+// behind a ring of mbarrier pairs (full: the bytes landed; empty: every
+// consumer warp is done with the stage). A block is three warpgroups:
+// warpgroups 0 and 1 consume (64 tokens each, the accumulators in
+// registers, setmaxnreg 232), one thread of warpgroup 2 produces (the TMA
+// loads, setmaxnreg 40). Blocks are persistent: one a SM, walking tiles
+// blockIdx.x, + gridDim.x, ..., so the producer loads the next tile's
+// operands while the consumers finish this one. Weights are read through
+// tensor maps of the packed W1^T (Fp, Cp) and W2^T (Cp, Fp); TMA's
+// out-of-bounds zero fill pads a K of Cp = 1008 to the 64-wide box.
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 128;                 // tokens a tile (64 a consumer)
+constexpr int kBK = 64;                  // K of a TMA box (128 bytes)
+constexpr int kBoxBytes = 64 * 128;      // a 64-row box
+constexpr int kHopperThreads = 384;      // 2 consumer + 1 producer group
+constexpr int kConsumerWarps = 8;
+constexpr unsigned long long kHangNs = 10000000000ull;   // 10 s
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, int parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// Wait for the phase of the given parity to complete. A wait that lasts
+// kHangNs traps (the launch then fails) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t b = smem_u32(bar);
+  if (mbar_try(b, parity)) return;
+  unsigned long long t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
+  while (!mbar_try(b, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    if (t - t0 > kHangNs) __trap();
+  }
+}
+
+// The box at element (col, row) of a 2-D tensor map into shared memory,
+// completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// The shared-memory box at src to element (col, row) of a 2-D tensor map;
+// then bulk_commit, and bulk_wait_read<N> before src is written again.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int col,
+                                          long long row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(col), "r"((int)row)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Shared-memory writes of this thread visible to TMA (the async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier of the 128 threads of consumer warpgroup wg.
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The dynamic shared memory, 1024-byte aligned (the swizzle's period).
+__device__ __forceinline__ unsigned char* smem_1k() {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+}
+
+// Token t's offset n*sN + p*sP (-1 past the end); K12 also its offset in
+// the q orientation, n*sN + w*H + h.
+template <typename A>
+__device__ __forceinline__ long long token_offset(const A& a, long long t,
+                                                  long long* q) {
+  *q = -1;
+  if (t >= a.n_outer * a.P) return -1;
+  const long long n = t / a.P, p = t - n * a.P;
+  if constexpr (kDual<A>) {
+    const int h = (int)p / a.qW;
+    *q = n * a.sN + (long long)((int)p - h * a.qW) * a.qH + h;
+  }
+  return n * a.sN + p * a.sP;
+}
+
+// ---- the consumers' residual epilogue ---------------------------------------
+//
+// A consumer warpgroup's 64 x (8 NJ) accumulator tile sits in wgmma's
+// fragment layout: warp w holds rows 16 w + lane / 4 and + 8, n8 group j
+// columns 8 j + 2 (lane % 4) + {0, 1}, in acc[4 j .. 4 j + 3]. Stored from
+// there, a warp would write 8 rows x 4 columns of 2 bytes. So the epilogue
+// goes in passes of kEpiCols columns: gamma (acc + b2) into the
+// warpgroup's fp32 staging tile [64][kEpiCols + 1], then out = res + that
+// with neighbouring lanes on neighbouring addresses -- down the rows
+// (tokens) where those are contiguous in memory (NCHW, (C, M)), else along
+// the columns -- through a ResidualSink (a pass's residual loads of a
+// thread are in flight together). b2 and gamma of the tile's columns come
+// from shared memory.
+
+constexpr int kEpiCols = 32;                       // columns a pass
+constexpr int kEpiLd = kEpiCols + 1;               // rows on 32 banks
+constexpr int kStageFloats = 64 * kEpiLd;          // a consumer's staging
+constexpr int kEpiPer = 64 * kEpiCols / 128;       // elements a thread a pass
+
+// A consumer warpgroup's residual tile (64 tokens x NP channels, bf16) in
+// its half of the fused kernel's h buffer: channel c's 64 tokens at
+// [c / 64][wg half][c % 64][64] (the h buffer's k-blocks are 128 rows of
+// 128 bytes, the warpgroup's 64 rows one 8 KB half).
+__device__ __forceinline__ int res_at(int row, int c) {
+  return (c >> 6) * (kBM * 64) + (c & 63) * 64 + row;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// Start the copies of the warpgroup's residual tile into rsm (res_at),
+// token pairs as 4-byte cp.async: the caller checked that pairs are
+// contiguous and 4-byte aligned (tokens contiguous, P and the tile start
+// even). Completes at cp_async_wait_all.
+template <typename A>
+__device__ __forceinline__ void prefetch_residual(const A& a,
+                                                  const long long* tok,
+                                                  bf16* rsm) {
+  const bf16* res = static_cast<const bf16*>(a.res);
+  const int wt = threadIdx.x & 127;
+  for (int i = wt; i < 32 * a.C; i += 128) {
+    const int r = 2 * (i & 31), c = i >> 5;
+    const long long o = tok[r];
+    if (o >= 0) cp_async4(rsm + res_at(r, c), res + o + c * a.sC);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The residual epilogue's loads and stores at channel c0 + c: res from
+// device memory through the strides, or from rsm (prefetch_residual);
+// out <- res + v through the strides, rows by the warpgroup's token
+// offsets tok (K12: and outq at qtok).
+template <typename A> struct ResidualSink {
+  const bf16* res;
+  bf16* out;
+  bf16* outq;
+  const long long* tok;
+  const long long* qtok;
+  long long sC;
+  int C, c0, add_residual;
+  const bf16* rsm;     // the residual already in shared memory, or null
+  __device__ __forceinline__ float load(int row, int c) const {
+    c += c0;
+    if (rsm != nullptr) return c < C ? to_f<bf16>(rsm[res_at(row, c)]) : 0.f;
+    const long long o = tok[row];
+    return o >= 0 && c < C && add_residual ? to_f<bf16>(res[o + c * sC])
+                                           : 0.f;
+  }
+  __device__ __forceinline__ void put(int row, int c, float v) const {
+    c += c0;
+    const long long o = tok[row];
+    if (o < 0 || c >= C) return;
+    const bf16 x = from_f<bf16>(v);
+    out[o + c * sC] = x;
+    if constexpr (kDual<A>)
+      if (outq != nullptr) outq[qtok[row] + c * sC] = x;
+  }
+};
+
+template <typename A>
+__device__ __forceinline__ ResidualSink<A> residual_sink(
+    const A& a, const long long* tok, const long long* qtok, int c0,
+    const bf16* rsm = nullptr) {
+  bf16* outq = nullptr;
+  if constexpr (kDual<A>) outq = static_cast<bf16*>(a.outq);
+  return ResidualSink<A>{static_cast<const bf16*>(a.res),
+                         static_cast<bf16*>(a.out), outq, tok, qtok, a.sC,
+                         a.C, c0, a.add_residual, rsm};
+}
+
+template <int NJ, typename A>
+__device__ __forceinline__ void residual_epilogue(const float* acc,
+                                                  float* stg, int wg,
+                                                  int ncols,
+                                                  const float* b2,
+                                                  const float* gamma,
+                                                  bool rows_contig,
+                                                  const ResidualSink<A>& sink) {
+  constexpr int kPasses = NJ * 8 / kEpiCols;
+  const int wt = threadIdx.x & 127, lane = wt & 31, warp = wt >> 5;
+  const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  // the read side: rows_contig, row wt % 64 and columns wt / 64 + 2 k;
+  // else column lane and rows warp + 4 k
+  const int row0 = rows_contig ? wt & 63 : warp;
+  const int col0 = rows_contig ? wt >> 6 : lane;
+  const int drow = rows_contig ? 0 : 4, dcol = rows_contig ? 2 : 0;
+#pragma unroll
+  for (int p = 0; p < kPasses; ++p) {
+    if (p * kEpiCols >= ncols) break;
+    float r[kEpiPer];
+#pragma unroll
+    for (int k = 0; k < kEpiPer; ++k)
+      r[k] = sink.load(row0 + k * drow, p * kEpiCols + col0 + k * dcol);
+    wg_sync(wg);
+#pragma unroll
+    for (int j = 0; j < kEpiCols / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + c0 + e, c = p * kEpiCols + col;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          stg[(r0 + 8 * h) * kEpiLd + col] =
+              (acc[4 * (p * kEpiCols / 8 + j) + 2 * h + e] + b2[c]) * gamma[c];
+      }
+    wg_sync(wg);
+#pragma unroll
+    for (int k = 0; k < kEpiPer; ++k) {
+      const int row = row0 + k * drow, col = col0 + k * dcol;
+      sink.put(row, p * kEpiCols + col, stg[row * kEpiLd + col] + r[k]);
+    }
+  }
+}
+
+// The first GEMM's epilogue: g (row-major) <- bf16(GELU(acc + b1)) for
+// the warpgroup's 64 x (8 NJ) tile at (row m0, column n0), in passes of 32
+// columns: the thread's fragment values, GELU'd and rounded, into a bf16
+// [64][32] tile in shared memory (two, alternating), then one TMA store
+// of the tile (map_g: boxes of 32 columns x 64 rows; it clips rows past M
+// and columns past N). b1: the tile's columns of b1 in shared memory.
+template <int NJ>
+__device__ __forceinline__ void gelu_epilogue(const float* acc, bf16* gst,
+                                              int wg, int ncols,
+                                              const float* b1,
+                                              const CUtensorMap* map_g,
+                                              int n0, long long m0) {
+  constexpr int kPasses = NJ * 8 / 32;
+  const int wt = threadIdx.x & 127, lane = wt & 31, warp = wt >> 5;
+  const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int p = 0; p < kPasses; ++p) {
+    if (p * 32 >= ncols) continue;
+    bf16* buf = gst + (p & 1) * 64 * 32;
+    if (p >= 2) {                      // the store of pass p - 2 read buf
+      if (wt == 0) bulk_wait_read<1>();
+      wg_sync(wg);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 8 * j + c0;
+      const float2 bb = *reinterpret_cast<const float2*>(b1 + p * 32 + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* v = acc + 4 * (p * 4 + j) + 2 * h;
+        *reinterpret_cast<uint32_t*>(buf + (r0 + 8 * h) * 32 + col) =
+            pack_bf16x2(gelu(v[0] + bb.x), gelu(v[1] + bb.y));
+      }
+    }
+    fence_async_smem();
+    wg_sync(wg);
+    if (wt == 0) {
+      tma_store(map_g, buf, n0 + p * 32, m0);
+      bulk_commit();
+    }
+  }
+  if (wt == 0) bulk_wait_read<0>();    // buf free for the next tile
+}
+
+// ---- C <= 256: the fused kernel --------------------------------------------
+//
+// The tail after the LayerNorm in one pass; the 4C-wide hidden activations
+// stay on chip. The producer TMA-loads each tile's h (128 tokens x Cp, from
+// ln_bf16_kernel) once, and for each chunk of kFC hidden units the chunk's
+// W1^T rows and W2^T columns, each into a ring of kStages. A consumer
+// warpgroup owns 64 of the tokens; its batch ch of products is product 2
+// of chunk ch - 1 and product 1 of chunk ch:
+//   a = h W1_chunk^T (wgmma m64n64k16, A and B from shared memory);
+//   acc += g W2_chunk (wgmma m64nNPk16, A from registers: the m64n64
+//   accumulator layout is the A-fragment layout);
+// after which a + b1 goes through the exact-erf GELU, rounded to bf16 and
+// packed as the next batch's g. Then out = res + gamma (acc + b2) through
+// the strides (residual_epilogue); where token pairs are contiguous
+// (NCHW, (C, M) at an even map size) the warpgroup first copies its
+// residual tile into its half of h with cp.async, which takes the
+// epilogue's wait for device memory off the critical path. A W1 stage is
+// free after its batch, a W2 stage one batch later, so the two rings let
+// the producer run two batches ahead at NP = 256 as well. NP = Cp rounded up to 128 or 256
+// (product 2's N); KB = the 64-wide k-blocks of Cp. Shared memory:
+// h [NP / 64][128][64] | W1 ring [kStages][NP / 64][64][64] | W2 ring
+// [kStages][NP][64] | staging [2][64][33] fp32 | token and q offsets
+// [2][2][64] | b1 [4 NP] | b2, gamma [2][NP] | barriers.
+// ---------------------------------------------------------------------------
+
+constexpr int kFC = 64;                  // hidden units a chunk
+constexpr int kHBox = kBM * 128;         // h: a 64-wide k-block of a tile
+
+template <int NP> struct Fused {
+  static constexpr int kKB = NP / 64;
+  static constexpr int kStages = NP > 128 ? 2 : 4;
+  static constexpr int kW1Bytes = kKB * kBoxBytes;    // kFC rows of W1^T
+  static constexpr int kW2Bytes = NP * 128;           // NP rows of W2^T
+  static constexpr size_t kRing1 = (size_t)kKB * kHBox;
+  static constexpr size_t kRing2 = kRing1 + (size_t)kStages * kW1Bytes;
+  static constexpr size_t kStg = kRing2 + (size_t)kStages * kW2Bytes;
+  static constexpr size_t kTok = kStg + 2 * kStageFloats * sizeof(float);
+  static constexpr size_t kB1 = kTok + 4 * 64 * sizeof(long long);
+  static constexpr size_t kCv = kB1 + 4 * NP * sizeof(float);
+  static constexpr size_t kBar = kCv + 2 * NP * sizeof(float);
+  static constexpr size_t kSmem =
+      1024 + kBar + (4 * kStages + 2) * sizeof(uint64_t);
+  static_assert(kSmem <= kSmemMax, "fits a block's shared memory");
+};
+
+template <int NP, typename A>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+mlp_fused_kernel(const __grid_constant__ CUtensorMap map_h,
+                 const __grid_constant__ CUtensorMap map_w1,
+                 const __grid_constant__ CUtensorMap map_w2, const A a) {
+  using L = Fused<NP>;
+  constexpr int S = L::kStages;
+  unsigned char* sm = smem_1k();
+  uint64_t* full1 = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty1 = full1 + S;
+  uint64_t* full2 = empty1 + S;
+  uint64_t* empty2 = full2 + S;
+  uint64_t* hfull = empty2 + S;
+  uint64_t* hempty = hfull + 1;
+  const long long T = a.n_outer * a.P;
+  const int n_tiles = (int)((T + kBM - 1) / kBM);
+  const int KB = (a.Cp + 63) / 64, n_chunks = a.Fp / kFC;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full1[s], 1);
+      mbar_init(&empty1[s], kConsumerWarps);
+      mbar_init(&full2[s], 1);
+      mbar_init(&empty2[s], kConsumerWarps);
+    }
+    mbar_init(hfull, 1);
+    mbar_init(hempty, kConsumerWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {                      // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int s1 = 0, ph1 = 0, s2 = 0, ph2 = 0, hph = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        mbar_wait(hempty, hph ^ 1);
+        mbar_expect_tx(hfull, KB * kHBox);
+        for (int kb = 0; kb < KB; ++kb)
+          tma_load(sm + kb * kHBox, &map_h, hfull, kb * kBK, tile * kBM);
+        hph ^= 1;
+        for (int ch = 0; ch < n_chunks; ++ch) {
+          mbar_wait(&empty1[s1], ph1 ^ 1);
+          unsigned char* w1 = sm + L::kRing1 + s1 * L::kW1Bytes;
+          mbar_expect_tx(&full1[s1], KB * kBoxBytes);
+          for (int kb = 0; kb < KB; ++kb)
+            tma_load(w1 + kb * kBoxBytes, &map_w1, &full1[s1], kb * kBK,
+                     ch * kFC);
+          if (++s1 == S) { s1 = 0; ph1 ^= 1; }
+          mbar_wait(&empty2[s2], ph2 ^ 1);
+          mbar_expect_tx(&full2[s2], L::kW2Bytes);
+          tma_load(sm + L::kRing2 + s2 * L::kW2Bytes, &map_w2, &full2[s2],
+                   ch * kFC, 0);
+          if (++s2 == S) { s2 = 0; ph2 ^= 1; }
+        }
+      }
+    }
+  } else {                                       // consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
+    const int lane = threadIdx.x & 31;
+    float* stg = reinterpret_cast<float*>(sm + L::kStg) + wg * kStageFloats;
+    long long* tok = reinterpret_cast<long long*>(sm + L::kTok) + wg * 128;
+    long long* qtok = tok + 64;
+    float* b1s = reinterpret_cast<float*>(sm + L::kB1);
+    float* cv = reinterpret_cast<float*>(sm + L::kCv);
+    for (int i = threadIdx.x; i < a.Fp; i += 256) b1s[i] = a.b1[i];
+    for (int i = threadIdx.x; i < NP; i += 256) {
+      cv[i] = i < a.C ? a.vec[2 * a.C + i] : 0.f;
+      cv[NP + i] = i < a.C ? a.vec[3 * a.C + i] : 0.f;
+    }
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");   // both consumers
+    const uint64_t h_desc = wgmma::desc_sw128(sm + wg * (kHBox / 2));
+    int s1 = 0, ph1 = 0, s2 = 0, ph2 = 0, hph = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      wg_sync(wg);                     // the last tile's epilogue is done
+      if (wt < 64)
+        tok[wt] = token_offset(a, (long long)tile * kBM + wg * 64 + wt,
+                               &qtok[wt]);
+      float acc[NP / 2], a1[kFC / 2];
+      uint32_t g[4][4];
+#pragma unroll
+      for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
+      mbar_wait(hfull, hph);
+      hph ^= 1;
+      for (int ch = 0; ch <= n_chunks; ++ch) {
+        const bool p1 = ch < n_chunks, p2 = ch > 0;
+        if (p2) mbar_wait(&full2[s2], ph2);
+        if (p1) mbar_wait(&full1[s1], ph1);
+        wgmma::fence();
+        if (p2) {
+          const uint64_t dw2 =
+              wgmma::desc_sw128(sm + L::kRing2 + s2 * L::kW2Bytes);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma::rs<NP>(acc, g[kk], dw2 + 2 * kk, 1);
+        }
+        if (p1) {
+          const unsigned char* w1 = sm + L::kRing1 + s1 * L::kW1Bytes;
+          for (int kb = 0; kb < KB; ++kb) {
+            const uint64_t da = h_desc + kb * (kHBox >> 4);
+            const uint64_t db = wgmma::desc_sw128(w1 + kb * kBoxBytes);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma::ss<kFC>(a1, da + 2 * kk, db + 2 * kk, kb | kk);
+          }
+        }
+        wgmma::commit();
+        wgmma::wait<0>();
+        wgmma::fence_operands<kFC / 2>(a1);
+        wgmma::fence_operands<NP / 2>(acc);
+        if (p2) {
+          if (lane == 0) mbar_arrive(&empty2[s2]);
+          if (++s2 == S) { s2 = 0; ph2 ^= 1; }
+        }
+        if (!p1) break;
+        if (lane == 0) mbar_arrive(&empty1[s1]);
+        if (++s1 == S) { s1 = 0; ph1 ^= 1; }
+        // + b1, GELU, bf16: the A fragments of the next product 2
+        const float* b1 = b1s + ch * kFC + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < kFC / 8; ++j) {
+          const float2 bb = *reinterpret_cast<const float2*>(b1 + 8 * j);
+          g[j >> 1][(j & 1) * 2] =
+              pack_bf16x2(gelu(a1[4 * j] + bb.x), gelu(a1[4 * j + 1] + bb.y));
+          g[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(
+              gelu(a1[4 * j + 2] + bb.x), gelu(a1[4 * j + 3] + bb.y));
+        }
+      }
+      // the residual into this warpgroup's half of h (its products are
+      // done), where token pairs are contiguous: the NCHW and (C, M) main
+      // path at an even map size
+      bf16* rsm = nullptr;
+      if (a.add_residual && a.sP == 1 && a.sC % 2 == 0 && a.P % 2 == 0) {
+        rsm = reinterpret_cast<bf16*>(sm + wg * (kHBox / 2));
+        wg_sync(wg);                   // tok of every row is written
+        prefetch_residual(a, tok, rsm);
+        cp_async_wait_all();
+        wg_sync(wg);                   // every thread's copies landed
+      }
+      residual_epilogue<NP / 8>(acc, stg, wg, a.C, cv, cv + NP, a.sC != 1,
+                                residual_sink(a, tok, qtok, 0, rsm));
+      if (lane == 0) mbar_arrive(hempty);
+    }
+  }
+}
+
+// ---- C > 256: two GEMMs on the bf16 workspace ------------------------------
+//
+// A 128 x Cp fp32 accumulator does not fit a block above Cp = 256 (516 KB
+// at Cp = 1008), and splitting the output channels across blocks would
+// recompute product 1 for each split. So after ln_bf16_kernel the call
+// runs one TMA + wgmma GEMM kernel twice:
+//  1. gemm_kernel<GELU>: g (Tp, Fp) = bf16(GELU(h W1^T^T + b1));
+//  2. gemm_kernel<residual>: out = res + gamma (g W2^T^T + b2) through the
+//     strides (K12: and outq).
+// The same arithmetic as the fused kernel (JAX rounds g to bf16 before
+// product 2 too); g's round trip through device memory costs 2 T Fp bytes
+// each way. The GEMM: C (M x N) = A (M x K) B^T, A and B K-major bf16,
+// tiles of 128 x BN (BN picked per call so that the last wave is not
+// mostly idle), K in 64-wide boxes through a ring of kStages, the tile
+// index n fastest (the blocks of a wave share A's rows and B stays in L2).
+// ---------------------------------------------------------------------------
+
+struct Gemm {
+  int N, K;             // output columns, reduction
+  int n_tiles;          // column tiles
+  long long tiles;      // all tiles (row tiles x n_tiles)
+};
+
+template <int BN> struct GemmCfg {
+  static constexpr int kABytes = kBM * 128;
+  static constexpr int kBBytes = BN * 128;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages =
+      (200 * 1024) / kStageBytes > 6 ? 6 : (200 * 1024) / kStageBytes;
+  static constexpr size_t kStg = (size_t)kStages * kStageBytes;
+  static constexpr size_t kTok = kStg + 2 * kStageFloats * sizeof(float);
+  static constexpr size_t kCv = kTok + 4 * 64 * sizeof(long long);
+  static constexpr size_t kBar = kCv + 2 * 2 * BN * sizeof(float);
+  static constexpr size_t kSmem = 1024 + kBar + 2 * kStages * sizeof(uint64_t);
+  static_assert(kSmem <= kSmemMax, "fits a block's shared memory");
+};
+
+template <int BN, bool GELU, typename A>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+            const __grid_constant__ CUtensorMap map_b,
+            const __grid_constant__ CUtensorMap map_g, const Gemm gm,
+            const A a) {
+  using L = GemmCfg<BN>;
+  constexpr int S = L::kStages;
+  unsigned char* sm = smem_1k();
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + S;
+  const int KB = (gm.K + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {                      // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int s = 0, ph = 0;
+      for (long long tile = blockIdx.x; tile < gm.tiles; tile += gridDim.x) {
+        const int m0 = (int)(tile / gm.n_tiles) * kBM;
+        const int n0 = (int)(tile % gm.n_tiles) * BN;
+        for (int kb = 0; kb < KB; ++kb) {
+          mbar_wait(&empty[s], ph ^ 1);
+          unsigned char* st = sm + s * L::kStageBytes;
+          mbar_expect_tx(&full[s], L::kStageBytes);
+          tma_load(st, &map_a, &full[s], kb * kBK, m0);
+          tma_load(st + L::kABytes, &map_b, &full[s], kb * kBK, n0);
+          if (++s == S) { s = 0; ph ^= 1; }
+        }
+      }
+    }
+  } else {                                       // consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
+    const int lane = threadIdx.x & 31;
+    float* stg = reinterpret_cast<float*>(sm + L::kStg) + wg * kStageFloats;
+    long long* tok = reinterpret_cast<long long*>(sm + L::kTok) + wg * 128;
+    long long* qtok = tok + 64;
+    float* cv = reinterpret_cast<float*>(sm + L::kCv) + wg * 2 * BN;
+    int s = 0, ph = 0;
+    for (long long tile = blockIdx.x; tile < gm.tiles; tile += gridDim.x) {
+      const long long m0 = (tile / gm.n_tiles) * kBM + wg * 64;
+      const int n0 = (int)(tile % gm.n_tiles) * BN;
+      wg_sync(wg);                     // the last tile's epilogue is done
+      // the tile's columns: b1 (GELU), or b2 and gamma; its token offsets
+      for (int i = wt; i < BN; i += 128) {
+        const int c = n0 + i;
+        if (GELU) {
+          cv[i] = c < gm.N ? a.b1[c] : 0.f;
+        } else {
+          cv[i] = c < a.C ? a.vec[2 * a.C + c] : 0.f;
+          cv[BN + i] = c < a.C ? a.vec[3 * a.C + c] : 0.f;
+        }
+      }
+      if (!GELU && wt < 64) tok[wt] = token_offset(a, m0 + wt, &qtok[wt]);
+      float acc[BN / 2];
+      int prev = -1;
+      for (int kb = 0; kb < KB; ++kb) {
+        mbar_wait(&full[s], ph);
+        const unsigned char* st = sm + s * L::kStageBytes;
+        const uint64_t da = wgmma::desc_sw128(st + wg * (kBoxBytes));
+        const uint64_t db = wgmma::desc_sw128(st + L::kABytes);
+        wgmma::fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma::ss<BN>(acc, da + 2 * kk, db + 2 * kk, kb | kk);
+        wgmma::commit();
+        wgmma::wait<1>();              // the previous stage's products
+        wgmma::fence_operands<BN / 2>(acc);
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        if (++s == S) { s = 0; ph ^= 1; }
+      }
+      wgmma::wait<0>();
+      wgmma::fence_operands<BN / 2>(acc);
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      if constexpr (GELU)
+        gelu_epilogue<BN / 8>(acc, reinterpret_cast<bf16*>(stg), wg,
+                              gm.N - n0, cv, &map_g, n0, m0);
+      else
+        residual_epilogue<BN / 8>(acc, stg, wg, a.C - n0, cv, cv + BN,
+                                  a.sC != 1, residual_sink(a, tok, qtok, n0));
+    }
+  }
+}
+
+// ---- the bf16 LayerNorm -------------------------------------------------------
+//
+// h (Tp, Cp) bf16 tokens-major = LN(y + pre_bias) (K12: y = bf16(y1 +
+// y2^T)), zero past C, kLnBT tokens a block: the tile's y (bf16, exact)
+// staged in shared memory through for_tile (neighbouring lanes on
+// neighbouring addresses, 16 loads in flight a thread), then a warp a
+// token, fp32 statistics, h stored along the channels.
+// ---------------------------------------------------------------------------
+
+constexpr int kLnBT = 32;                // tokens a block (4 a warp)
+
+size_t smem_ln_bf16(int Cp) {
+  return ((size_t)kLnBT * (Cp + 2) * sizeof(bf16) + 15) / 16 * 16 +
+         kLnBT * sizeof(long long);
+}
+
+template <typename A>
+__global__ void __launch_bounds__(kThreads)
+ln_bf16_kernel(A a, bf16* __restrict__ h) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int LD = a.Cp + 2;               // odd in words: rows on 32 banks
+  bf16* st = reinterpret_cast<bf16*>(smem_raw);
+  long long* tok = reinterpret_cast<long long*>(
+      smem_raw + ((size_t)kLnBT * LD * sizeof(bf16) + 15) / 16 * 16);
+  const long long t0 = (long long)blockIdx.x * kLnBT;
+  token_offsets(a, t0, tok);
+  const bf16* __restrict__ y = static_cast<const bf16*>(a.y);
+  for_tile<16>(
+      a, tok,
+      [&](long long off) { return off >= 0 ? to_f<bf16>(y[off]) : 0.f; },
+      [&](int t, int c, long long off, float v) {
+        if constexpr (kDual<A>) {
+          const bf16* y2 = static_cast<const bf16*>(a.y2);
+          if (off >= 0)
+            v = to_f<bf16>(from_f<bf16>(v + to_f<bf16>(y2[q_tokens(a)[t] +
+                                                          c * a.sC])));
+        }
+        st[t * LD + c] = from_f<bf16>(v);
+      });
+  __syncthreads();
+  const float* __restrict__ ln_s = a.vec;
+  const float* __restrict__ ln_b = a.vec + a.C;
+  const float* __restrict__ pre = a.vec + 4 * a.C;
+  constexpr int R = kLnBT / kWarps;
+  const int lane = threadIdx.x & 31, t0r = (threadIdx.x >> 5) * R;
+  float mean[R], inv[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) mean[r] = 0.f;
+  for (int c = lane; c < a.C; c += 32) {
+    const float pb = pre[c];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      mean[r] += to_f<bf16>(st[(t0r + r) * LD + c]) + pb;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    mean[r] = warp_sum(mean[r]) / a.C;
+    inv[r] = 0.f;
+  }
+  for (int c = lane; c < a.C; c += 32) {
+    const float pb = pre[c];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float d = to_f<bf16>(st[(t0r + r) * LD + c]) + pb - mean[r];
+      inv[r] += d * d;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    inv[r] = rsqrtf(warp_sum(inv[r]) / a.C + kLnEps);
+  for (int c = lane; c < a.Cp; c += 32) {
+    const bool in = c < a.C;
+    const float sc = in ? ln_s[c] : 0.f, bi = in ? ln_b[c] : 0.f;
+    const float pb = in ? pre[c] : 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      h[(t0 + t0r + r) * a.Cp + c] = from_f<bf16>(
+          in ? (to_f<bf16>(st[(t0r + r) * LD + c]) + pb - mean[r]) * inv[r] *
+                       sc + bi
+             : 0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
 
 // Raise a kernel's dynamic shared-memory limit to the most a block may
 // have, once a kernel, not at every launch.
@@ -740,78 +1118,11 @@ cudaError_t allow_smem(const void* kernel) {
 }
 
 // K12's q token offsets go after a kernel's own shared layout: the
-// dynamic shared memory with them (a.q_off set), and what the layout may
-// use so that they still fit.
+// dynamic shared memory with them (a.q_off set).
 size_t with_q_tokens(const Args&, size_t smem) { return smem; }
 size_t with_q_tokens(DualArgs& a, size_t smem) {
   a.q_off = (int)((smem + 15) / 16 * 16);
   return a.q_off + (size_t)a.BT * sizeof(long long);
-}
-
-template <typename A>
-constexpr size_t smem_budget() {
-  return kDual<A> ? kSmemMax - 16 - 128 * sizeof(long long) : kSmemMax;
-}
-
-template <typename K, typename A>
-cudaError_t run(K kernel, A a, size_t smem, cudaStream_t stream) {
-  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel));
-  if (e != cudaSuccess) return e;
-  smem = with_q_tokens(a, smem);
-  const long long tokens = a.n_outer * a.P;
-  const long long blocks = (tokens + a.BT - 1) / a.BT;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int FC, typename A>
-cudaError_t run_tc(int nfrag, const A& a, size_t smem,
-                   cudaStream_t stream) {
-  if (nfrag <= 4) return run(mlp_tc_kernel<4, FC, A>, a, smem, stream);
-  if (nfrag <= 8) return run(mlp_tc_kernel<8, FC, A>, a, smem, stream);
-  return run(mlp_tc_kernel<16, FC, A>, a, smem, stream);
-}
-
-// Token tile, hidden chunk and product-1 split for bf16: the largest tile
-// whose register accumulator (NFRAG fragments a warp) and shared memory
-// fit, with the larger hidden chunk where both fit. (A smaller tile that
-// fills more SMs when tokens are few measured slower at stage 4: every
-// tile streams the whole weight matrices.)
-template <typename A>
-cudaError_t launch_tc(A a, cudaStream_t stream) {
-  if (a.Cp <= 512) {
-    a.KS = 1;
-    a.FC = a.Cp <= 256 ? 64 : 32;
-    const int WN = a.Cp <= 256 ? 1 : 2;
-    a.BT = 16 * kWarps / WN;
-    const size_t smem = smem_rf(a.Cp, WN, a.FC);
-    if (smem <= smem_budget<A>()) {
-      if (a.Cp <= 128)
-        return run(mlp_rf_kernel<16, 1, 64, A>, a, smem, stream);
-      if (a.Cp <= 256)
-        return run(mlp_rf_kernel<32, 1, 64, A>, a, smem, stream);
-      return run(mlp_rf_kernel<32, 2, 32, A>, a, smem, stream);
-    }
-  }
-  const int tiles_c = a.Cp / 16;
-  for (int BT : {64, 32, 16}) {
-    for (int FC : {64, 32}) {
-      if (a.Fp % FC) continue;
-      const int WM = BT / 16, WN = kWarps / WM;
-      const int nfrag = (tiles_c + WN - 1) / WN;
-      if (nfrag > 16) continue;
-      const int tiles_1 = WM * (FC / 16);
-      const int KS = tiles_1 >= kWarps ? 1 : kWarps / tiles_1;
-      const size_t smem = smem_tc(BT, a.Cp, FC, KS);
-      if (smem > smem_budget<A>()) continue;
-      a.BT = BT;
-      a.FC = FC;
-      a.KS = KS;
-      return FC == 64 ? run_tc<64>(nfrag, a, smem, stream)
-                      : run_tc<32>(nfrag, a, smem, stream);
-    }
-  }
-  return cudaErrorInvalidConfiguration;
 }
 
 long long simt_tokens(const Args& a) {
@@ -821,7 +1132,6 @@ long long simt_tokens(const Args& a) {
 template <typename A>
 cudaError_t launch_simt(A a, void* ws, cudaStream_t stream) {
   a.BT = kSimtBT;
-  a.FC = a.KS = 1;
   const size_t smem = with_q_tokens(a, smem_simt_tile(a.Cp));
   if (ws == nullptr || smem > kSmemMax) return cudaErrorInvalidConfiguration;
   const long long Tp = simt_tokens(a);
@@ -854,20 +1164,181 @@ cudaError_t launch_simt(A a, void* ws, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- bf16 host side ---------------------------------------------------------
+
+constexpr int kFusedCpMax = 256;         // the fused kernel's widest Cp
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from libcuda.so.1, which the CUDA runtime
+// has loaded (no link against libcuda).
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(
+                                          dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// A tensor map of the row-major bf16 matrix (rows, cols) at base: boxes of
+// box_cols columns x box_rows rows, in the 128-byte swizzle (wgmma's
+// operands) or plain; loads fill zeros outside, stores clip.
+bool tensor_map(CUtensorMap* map, const void* base, long long rows,
+                int cols, int box_rows, int box_cols = kBK,
+                bool swizzle = true) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+template <int NP, typename A>
+cudaError_t run_fused(const CUtensorMap& mh, const A& a, int sms,
+                      cudaStream_t stream) {
+  CUtensorMap m1, m2;
+  if (!tensor_map(&m1, a.w1, a.Fp, a.Cp, kFC) ||
+      !tensor_map(&m2, a.w2, a.Cp, a.Fp, NP))
+    return cudaErrorInvalidValue;
+  const auto kernel = mlp_fused_kernel<NP, A>;
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel));
+  if (e != cudaSuccess) return e;
+  const long long tiles = (a.n_outer * a.P + kBM - 1) / kBM;
+  kernel<<<(unsigned)(tiles < sms ? tiles : sms), kHopperThreads,
+           Fused<NP>::kSmem, stream>>>(mh, m1, m2, a);
+  return cudaGetLastError();
+}
+
+// The bf16 workspace: h (Tp, Cp), then (Cp > kFusedCpMax) g (Tp, Fp).
+struct Bf16Layout {
+  size_t g, total;
+};
+
+Bf16Layout bf16_layout(long long tokens, int Cp, int Fp) {
+  auto al = [](size_t n) { return (n + 255) / 256 * 256; };
+  const size_t Tp = (size_t)((tokens + kBM - 1) / kBM * kBM);
+  Bf16Layout L;
+  L.g = al(Tp * Cp * sizeof(bf16));
+  L.total = L.g + (Cp > kFusedCpMax ? al(Tp * Fp * sizeof(bf16)) : 0);
+  return L;
+}
+
+// The GEMM's column tile: the BN whose waves of tiles (persistent blocks,
+// one an SM) take the least time, a tile's time taken as BN + 64 (its
+// share of A's loads and its epilogue, in units of B columns).
+int pick_bn(long long m_tiles, int N, int sms, std::initializer_list<int> bns) {
+  int best = 0;
+  long long best_cost = 0;
+  for (int bn : bns) {
+    const long long tiles = m_tiles * ((N + bn - 1) / bn);
+    const long long cost = (tiles + sms - 1) / sms * (bn + 64);
+    if (best == 0 || cost < best_cost) {
+      best = bn;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int BN, bool GELU, typename A>
+cudaError_t run_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
+                     const CUtensorMap& mg, const Gemm& gm, const A& a,
+                     int sms, cudaStream_t stream) {
+  const auto kernel = gemm_kernel<BN, GELU, A>;
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel));
+  if (e != cudaSuccess) return e;
+  const int grid = (int)(gm.tiles < sms ? gm.tiles : sms);
+  kernel<<<grid, kHopperThreads, GemmCfg<BN>::kSmem, stream>>>(ma, mb, mg,
+                                                                  gm, a);
+  return cudaGetLastError();
+}
+
+// bf16: the LayerNorm into h, then the fused kernel (Cp <= kFusedCpMax)
+// or the two GEMMs through g.
+template <typename A>
+cudaError_t launch_bf16(A a, void* ws, cudaStream_t stream) {
+  const long long T = a.n_outer * a.P;
+  if (T == 0) return cudaSuccess;
+  if (ws == nullptr) return cudaErrorInvalidConfiguration;
+  const Bf16Layout L = bf16_layout(T, a.Cp, a.Fp);
+  bf16* h = static_cast<bf16*>(ws);
+  bf16* g = reinterpret_cast<bf16*>(static_cast<unsigned char*>(ws) + L.g);
+  const long long m_tiles = (T + kBM - 1) / kBM;
+  const int sms = sm_count();
+
+  a.BT = kLnBT;
+  const size_t smem = with_q_tokens(a, smem_ln_bf16(a.Cp));
+  cudaError_t e =
+      allow_smem(reinterpret_cast<const void*>(ln_bf16_kernel<A>));
+  if (e != cudaSuccess) return e;
+  ln_bf16_kernel<A><<<(unsigned)(m_tiles * kBM / kLnBT), kThreads, smem,
+                      stream>>>(a, h);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  CUtensorMap ma, mb;
+  if (!tensor_map(&ma, h, T, a.Cp, kBM)) return cudaErrorInvalidValue;
+  if (a.Cp <= 128) return run_fused<128>(ma, a, sms, stream);
+  if (a.Cp <= kFusedCpMax) return run_fused<256>(ma, a, sms, stream);
+
+  // g = GELU(h W1^T^T + b1)
+  CUtensorMap mg;
+  const int bn1 = pick_bn(m_tiles, a.Fp, sms, {128, 192, 256});
+  if (!tensor_map(&mb, a.w1, a.Fp, a.Cp, bn1) ||
+      !tensor_map(&mg, g, T, a.Fp, 64, 32, false))
+    return cudaErrorInvalidValue;
+  const int n1 = (a.Fp + bn1 - 1) / bn1;
+  const Gemm g1{a.Fp, a.Cp, n1, m_tiles * n1};
+  const Args& base = a;
+  e = bn1 == 128   ? run_gemm<128, true>(ma, mb, mg, g1, base, sms, stream)
+      : bn1 == 192 ? run_gemm<192, true>(ma, mb, mg, g1, base, sms, stream)
+                   : run_gemm<256, true>(ma, mb, mg, g1, base, sms, stream);
+  if (e != cudaSuccess) return e;
+
+  // out = res + gamma (g W2^T^T + b2)
+  const int bn2 = pick_bn(m_tiles, a.Cp, sms, {128, 256});
+  if (!tensor_map(&ma, g, T, a.Fp, kBM) ||
+      !tensor_map(&mb, a.w2, a.Cp, a.Fp, bn2))
+    return cudaErrorInvalidValue;
+  const int n2 = (a.Cp + bn2 - 1) / bn2;
+  const Gemm g2{a.Cp, a.Fp, n2, m_tiles * n2};
+  return bn2 == 128 ? run_gemm<128, false>(ma, mb, mg, g2, a, sms, stream)
+                    : run_gemm<256, false>(ma, mb, mg, g2, a, sms, stream);
+}
+
 }  // namespace
 
-// The bytes of scratch slak_fused_mlp needs for dtype at this many tokens
-// (the float32 path's hs, gs and os; none for bfloat16).
+// The bytes of scratch slak_fused_mlp needs for dtype at this many tokens:
+// the float32 path's hs, gs and os; bfloat16's h and, above Cp = 256, g.
 extern "C" long long slak_fused_mlp_workspace(int dtype, long long tokens,
                                               int Cp, int Fp) {
-  if (dtype != 0) return 0;
-  return (long long)simt_layout((tokens + kGM - 1) / kGM * kGM, Cp, Fp).total;
+  if (dtype == 0)
+    return (long long)simt_layout((tokens + kGM - 1) / kGM * kGM, Cp, Fp)
+        .total;
+  return (long long)bf16_layout(tokens, Cp, Fp).total;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. y, res, out: strided activations (see
 // the header); W1^T (Fp, Cp), W2^T (Cp, Fp) in the compute dtype with Cp a
 // multiple of 16 and Fp of 64; b1 (Fp) and vec (5, C) float32; ws:
-// slak_fused_mlp_workspace bytes (may be null for bfloat16).
+// slak_fused_mlp_workspace bytes.
 // Returns the cudaError_t of the launches.
 extern "C" int slak_fused_mlp(int dtype, const void* y, const void* res,
                               void* out, const void* w1, const void* w2,
@@ -878,10 +1349,10 @@ extern "C" int slak_fused_mlp(int dtype, const void* y, const void* res,
                               void* stream) {
   if (Cp % 16 || Fp % 64 || C > Cp) return (int)cudaErrorInvalidValue;
   Args a{y, res, out, w1, w2, b1, vec, n_outer, P, sN, sC, sP,
-         C, Cp, Fp, 0, 0, 0, add_residual};
+         C, Cp, Fp, 0, add_residual};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_simt(a, ws, s);
-  if (dtype == 1) return (int)launch_tc(a, s);
+  if (dtype == 1) return (int)launch_bf16(a, ws, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -901,10 +1372,10 @@ extern "C" int slak_fused_mlp_dual(int dtype, const void* y1, const void* y2,
   if (Cp % 16 || Fp % 64 || C > Cp) return (int)cudaErrorInvalidValue;
   const long long P = (long long)H * W;
   DualArgs a{{y1, res, out, w1, w2, b1, vec, N, P, C * P, P, 1, C, Cp, Fp,
-              0, 0, 0, 1},
+              0, 1},
              y2, outq, W, H, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_simt(a, ws, s);
-  if (dtype == 1) return (int)launch_tc(a, s);
+  if (dtype == 1) return (int)launch_bf16(a, ws, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,13 @@ tensors. :class:`FusedMlp` is the autograd Function of ``fused_mlp``'s
 custom VJP: K2 forward, K8 backward at C <= 256 and K9 above, as
 ``_vjp_bwd`` picks.
 
+In bf16, ``mlp.cu`` first writes h = LN(y + pre_bias) into a workspace
+(the wrapper allocates ``slak_fused_mlp_workspace`` bytes), then runs the
+rest as one TMA + wgmma kernel up to 256 channels, or as two TMA + wgmma
+GEMMs through g above. :func:`mlp_ln_plain`, :func:`mlp_gelu_gemm_plain`
+and :func:`mlp_residual_gemm_plain` are those launches' plain versions;
+:func:`fused_mlp_plain` is their composition.
+
 K12 (``slak_fused_mlp_dual`` in ``csrc/mlp.cu``, replaces
 ``fused_mlp_cmajor_dual_raw``) is a variant of the K2/K3 kernel family, as
 K3 is: :func:`fused_mlp_dual` runs the tail on ``y1 + y2^T`` (the raw pair
@@ -94,24 +101,52 @@ def pack_mlp(ln_scale, ln_bias, w1, b1, w2, b2, gamma=None, pre_bias=None,
     return MlpWeights(w1p, w2p, b1p, vec.contiguous(), c, f)
 
 
+def mlp_ln_plain(y: torch.Tensor, pk: MlpWeights,
+                 channel_dim: int = -1) -> torch.Tensor:
+    """Plain version of the bf16 route's LayerNorm launch
+    (``ln_bf16_kernel``): h = LN(y + pre_bias), tokens-major (T, C), fp32
+    statistics, rounded to y's dtype."""
+    ln_s, ln_b, _, _, pre = pk.vec
+    yf = y.movedim(channel_dim, -1).reshape(-1, pk.c).float() + pre
+    mu = yf.mean(-1, keepdim=True)
+    var = (yf - mu).square().mean(-1, keepdim=True)
+    return ((yf - mu) * torch.rsqrt(var + LN_EPS) * ln_s + ln_b).to(y.dtype)
+
+
+def mlp_gelu_gemm_plain(h: torch.Tensor, pk: MlpWeights) -> torch.Tensor:
+    """Plain version of the first GEMM (``gemm_kernel<GELU>``): g =
+    GELU(h W1 + b1) (T, 4C), products of h's dtype summed in fp32, exact
+    erf, rounded to h's dtype."""
+    a = h.float() @ pk.w1[:pk.f, :pk.c].float().t() + pk.b1[:pk.f]
+    return F.gelu(a).to(h.dtype)
+
+
+def mlp_residual_gemm_plain(g: torch.Tensor, res: Optional[torch.Tensor],
+                            pk: MlpWeights, shape, channel_dim: int = -1,
+                            add_residual: bool = True) -> torch.Tensor:
+    """Plain version of the second GEMM (``gemm_kernel<residual>``) and of
+    the fused kernel's epilogue: out = res + gamma (g W2 + b2), one
+    rounding, shaped ``shape`` with the channels on ``channel_dim``."""
+    _, _, b2, gamma, _ = pk.vec
+    o = (g.float() @ pk.w2[:pk.c, :pk.f].float().t() + b2) * gamma
+    shape = list(shape)
+    tl_shape = shape[:channel_dim % len(shape)] + \
+        shape[channel_dim % len(shape) + 1:] + [pk.c]
+    o = o.reshape(tl_shape)
+    if add_residual:
+        o = res.movedim(channel_dim, -1).float() + o
+    return o.to(g.dtype).movedim(-1, channel_dim).contiguous()
+
+
 def fused_mlp_plain(y: torch.Tensor, res: torch.Tensor, pk: MlpWeights,
                     channel_dim: int = -1,
                     add_residual: bool = True) -> torch.Tensor:
-    """Plain version, the composition of ``_reference_mlp``; products of
-    compute-dtype values summed in fp32."""
-    c, f = pk.c, pk.f
-    ln_s, ln_b, b2, gamma, pre = pk.vec
-    yl = y.movedim(channel_dim, -1)
-    yf = yl.float() + pre
-    mu = yf.mean(-1, keepdim=True)
-    var = (yf - mu).square().mean(-1, keepdim=True)
-    h = ((yf - mu) * torch.rsqrt(var + LN_EPS) * ln_s + ln_b).to(y.dtype)
-    a = h.float() @ pk.w1[:f, :c].float().t() + pk.b1[:f]
-    g = F.gelu(a).to(y.dtype)
-    o = (g.float() @ pk.w2[:c, :f].float().t() + b2) * gamma
-    if add_residual:
-        o = res.movedim(channel_dim, -1).float() + o
-    return o.to(y.dtype).movedim(-1, channel_dim).contiguous()
+    """Plain version, the composition of ``_reference_mlp``: the LayerNorm,
+    the GELU GEMM and the residual GEMM (the bf16 route's three launches
+    above 256 channels; the fused kernel computes the same below)."""
+    g = mlp_gelu_gemm_plain(mlp_ln_plain(y, pk, channel_dim), pk)
+    return mlp_residual_gemm_plain(g, res, pk, y.shape, channel_dim,
+                                   add_residual)
 
 
 def token_strides(shape, channel_dim: int) -> Tuple[int, int, int, int, int]:
@@ -128,10 +163,9 @@ def token_strides(shape, channel_dim: int) -> Tuple[int, int, int, int, int]:
     return n_outer, p, c * p, p, 1
 
 
-@functools.lru_cache(maxsize=None)
-def _entries():
-    from slak_tpu_torch.ops._build import load
-    lib = load("mlp")
+def bind(lib: ctypes.CDLL):
+    """The typed C entry points of a loaded ``csrc/mlp.cu`` library:
+    (slak_fused_mlp_workspace, slak_fused_mlp, slak_fused_mlp_dual)."""
     ws = lib.slak_fused_mlp_workspace
     ws.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int]
@@ -141,7 +175,18 @@ def _entries():
                    + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
-    return ws, fn
+    dual = lib.slak_fused_mlp_dual
+    dual.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                     + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p] * 2)
+    dual.restype = ctypes.c_int
+    return ws, fn, dual
+
+
+@functools.lru_cache(maxsize=None)
+def _entries():
+    from slak_tpu_torch.ops._build import load
+    return bind(load("mlp"))
 
 
 def fused_mlp(y: torch.Tensor, res: Optional[torch.Tensor], pk: MlpWeights,
@@ -171,7 +216,7 @@ def fused_mlp(y: torch.Tensor, res: Optional[torch.Tensor], pk: MlpWeights,
     n_outer, p, s_n, s_c, s_p = token_strides(y.shape, channel_dim)
     fp, cp = pk.w1.shape
     dt = _DTYPES[y.dtype]
-    ws_fn, fn = _entries()
+    ws_fn, fn, _ = _entries()
     nbytes = ws_fn(dt, n_outer * p, cp, fp)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=y.device) \
         if nbytes else None
@@ -213,17 +258,6 @@ def fused_mlp_dual_plain(y1: torch.Tensor, y2: torch.Tensor,
     return oh, (oh.transpose(2, 3).contiguous() if emit_q else None)
 
 
-@functools.lru_cache(maxsize=None)
-def _dual_entry():
-    from slak_tpu_torch.ops._build import load
-    fn = load("mlp").slak_fused_mlp_dual
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def fused_mlp_dual(y1: torch.Tensor, y2: torch.Tensor, res: torch.Tensor,
                    pk: MlpWeights, emit_q: bool = True):
     """K12: the tail on ``y1 + y2^T`` with the shortcut res (y1, res NCHW,
@@ -247,13 +281,13 @@ def fused_mlp_dual(y1: torch.Tensor, y2: torch.Tensor, res: torch.Tensor,
     n, c, h, w = y1.shape
     fp, cp = pk.w1.shape
     dt = _DTYPES[y1.dtype]
-    ws_fn, _ = _entries()
+    ws_fn, _, dual = _entries()
     nbytes = ws_fn(dt, n * h * w, cp, fp)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=y1.device) \
         if nbytes else None
     oh = torch.empty_like(y1)
     oq = torch.empty_like(y2) if emit_q else None
-    err = _dual_entry()(
+    err = dual(
         dt, y1.data_ptr(), y2.data_ptr(), res.data_ptr(), oh.data_ptr(),
         None if oq is None else oq.data_ptr(), pk.w1.data_ptr(),
         pk.w2.data_ptr(), pk.b1.data_ptr(), pk.vec.data_ptr(), n, c, h, w,
