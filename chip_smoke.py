@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,erf_kernels,erf
     python3 chip_smoke.py --phases build,dual_kernels,dual,dual_timing,probes
     python3 chip_smoke.py --phases build,mlp_ab --base PARENT_CHECKOUT
+    python3 chip_smoke.py --phases build,mlp_bwd_ab --base PARENT_CHECKOUT
 
 Phases (any failure exits non-zero):
   build    nvcc-build every kernel under slak_tpu_torch/ops/csrc/.
@@ -25,26 +26,28 @@ Phases (any failure exits non-zero):
            the train kernels against their plain versions at the train
            shapes (batch 128): the stats-fused conv (K4), the weight
            gradient (K5/K7) and K1 as the dgrad (flipped taps) at the four
-           stages' (K,5)/(5,K) taps, the fused MLP backward (K8) at C = 124
-           and 249 in NCHW; bf16 and fp32; times, bound, plain and library
-           (or unfused) times.
+           stages' (K,5)/(5,K) taps, the fused MLP backward in NCHW, K8 at
+           C = 124 and 249 and K9 at C = 499 and 998 (also at the ragged
+           batches 1 and 3; two launches must give the same bits); bf16
+           and fp32; times, bound, plain and library (or unfused) times.
   train    the train path: create_model (drop-path 0.1) +
            create_train_state (SNIP masks at 40% sparsity, random growth,
            refresh every 2 steps, EMA) + make_train_step, 4 bf16 steps at
            batch 128 with the launch counters set to 0 just before and read
-           just after; DST refreshes, mask counts and masked weights
-           checked; one step from the same state held against the plain
-           route (bf16 at 128, fp32 at 32): loss, every gradient, BN stats.
+           just after (K8 on stages 1-2; K2 + K9 on stages 3-4 where
+           TRAIN_WIDE_MLP_BWD routes them); DST refreshes, mask counts and
+           masked weights checked; one step from the same state held
+           against the plain route (bf16 at 128, fp32 at 32): loss, every
+           gradient, BN stats.
   train_timing
            the bf16 batch-128 train step, kernel route and plain route.
   erf_kernels
-           the ERF path's kernels against their plain versions: K9 (the
-           wide-channel fused MLP backward) at the ERF shapes in fp32 (batch
-           1 at 1024^2: stage 3 T = 4096, C = 499; stage 4 T = 1024, C = 998)
-           and in bf16 at batch 128, 224^2 (T = 25088 and 6272), all eight
-           outputs; K1 (forward and flipped-tap dgrad), K2/K3 and K8 in fp32
-           at the four 1024^2 stage shapes; times, bound, plain and unfused
-           (or library) times.
+           the ERF path's kernels against their plain versions in fp32 at
+           the four 1024^2 stage shapes (batch 1): K9 (the wide-channel
+           fused MLP backward, stage 3 T = 4096, C = 499; stage 4 T = 1024,
+           C = 998; all eight outputs), K1 (forward and flipped-tap dgrad),
+           K2/K3 and K8; times, bound, plain and unfused (or library)
+           times.
   erf      the ERF analysis through its CLI (analysis/visualize_erf.main):
            the flagship (random weights from a seed, given as --weights),
            fp32, 1024^2, 4 images, parameters frozen, launch counters set to
@@ -86,6 +89,14 @@ Phases (any failure exits non-zero):
            directory) against this tree's in one process, in turns base,
            change, change, base: K2/K3 and K12 at the four stage shapes,
            K2 in fp32 at the 1024^2 ERF shapes, the bs256 bf16 eval.
+  mlp_bwd_ab
+           (not in the default run; needs --base) the MLP backward (K8, K9)
+           of another checkout against this tree's in one process, in turns
+           base, change, change, base: K8 at stages 1-2 and K9 at stages
+           3-4 in bf16 at batch 128, both in fp32 at the 1024^2 ERF shapes,
+           the bf16 batch-128 train step (each tree's kernels and route);
+           then this tree's route alone, TRAIN_WIDE_MLP_BWD False against
+           True.
 
 Prints the card's name and power limit, then a {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}. TF32 is off for cuDNN and
@@ -135,7 +146,6 @@ TOL_STEP = {"float32": dict(loss=1e-4, grad=1e-3, bn=1e-4),
 ERF_SIZE = 1024                             # the reference's ERF protocol
 ERF_IMAGES = 4
 ERF_GRAD_BATCH = 8                          # eval-mode parameter gradients
-K9_BF16_BATCH = 128
 # the fp32 ERF map, kernel route vs plain route: max |diff| / max |plain|;
 # the same fp32 math with sums in another order through 18 blocks' forward
 # and backward (each kernel within 1e-5 - 1e-4 of its plain version)
@@ -313,15 +323,22 @@ def check_mlp_bwd(bwd, plain, y, dout, pk, tol, tag):
 
 
 def mlp_bwd_row(tag, name, bwd, plain, y, dout, pk, dtype, **extra):
-    """Check a fused backward kernel (``check_mlp_bwd``), time it, its plain
-    version and the unfused autograd backward, and print its row: (row,
-    bytes ms, operations ms) of its bound."""
+    """Check a fused backward kernel (``check_mlp_bwd``) and that two
+    launches give the same bits, time it, its plain version and the unfused
+    autograd backward, and print its row: (row, bytes ms, operations ms) of
+    its bound."""
     import torch
     dn = str(dtype).split(".")[1]
     item = torch.tensor([], dtype=dtype).element_size()
     tol = TOL_MLP_BWD[dn]
     errs, d_max = check_mlp_bwd(bwd, plain, y, dout, pk, tol,
                                 f"{name} {extra} {dn}")
+    # no atomics: two launches on the same inputs give the same bits
+    first, second = bwd(y, dout, pk, 1), bwd(y, dout, pk, 1)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(first, second)),
+           f"{name} {extra} {dn}: two launches differ")
+    del first, second
     C, F4 = pk.c, pk.f
     T = y.numel() // C
     dy_item = 4 if name == "mlp_bwd_wide" else item      # K9's dy is fp32
@@ -329,7 +346,8 @@ def mlp_bwd_row(tag, name, bwd, plain, y, dout, pk, dtype, **extra):
                         + 2 * C * F4 * item + 4 * (2 * C * F4 + F4 + 4 * C),
                         12 * T * C * F4, dtype)
     row = dict(kernel=name, dtype=dn, C=C, T=T, **extra, max_abs_err=d_max,
-               rel_err=errs, tol=tol, ms=time_ms(lambda: bwd(y, dout, pk, 1)),
+               rel_err=errs, tol=tol, deterministic=True,
+               ms=time_ms(lambda: bwd(y, dout, pk, 1)),
                plain_ms=time_ms(lambda: plain(y, dout, pk, 1), 3, warmup=1),
                library_ms=None,
                unfused_torch_ms=unfused_bwd_ms(y, dout, pk, dtype),
@@ -583,11 +601,13 @@ def dead_taps(K: int, L: int):
 
 
 def phase_train_kernels(cfg, batch):
-    """K4, the weight gradient, the K1 dgrad and K8 against their plain
-    versions at the train shapes; returns per-train-step totals (bf16) for
-    the JSON line."""
+    """K4, the weight gradient, the K1 dgrad, K8 (stages 1-2) and K9
+    (stages 3-4) against their plain versions at the train shapes, K8 and
+    K9 also at the ragged batches RAGGED; returns per-train-step totals
+    (bf16) for the JSON line and K9's bf16 rows."""
     import torch
     import torch.nn.functional as F
+    from slak_tpu_torch.models import slak as S
     from slak_tpu_torch.ops import dwconv as K1
     from slak_tpu_torch.ops import dwconv_wgrad as KW
     from slak_tpu_torch.ops import mlp as K2
@@ -597,15 +617,17 @@ def phase_train_kernels(cfg, batch):
             "ops_ms")
     totals = {n: dict({k: 0.0 for k in keys}, err=0.0)
               for n in ("dwconv_stats", "dwconv_wgrad", "dwconv_dgrad",
-                        "mlp_bwd")}
+                        "mlp_bwd", "mlp_bwd_wide")}
     # the 7x7 maps' share (stage 4: the TPU's K6 forward/dgrad and K7)
-    on_7x7 = {n: dict.fromkeys(keys[:4], 0.0) for n in totals}
+    on_7x7 = {n: dict.fromkeys(keys[:4], 0.0) for n in totals
+              if n.startswith("dwconv")}
+    k9_bf16 = []
 
     def add(name, row, depth, b_ms, o_ms):
         t = totals[name]
         for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
             t[k] += depth * row[k]
-            if row.get("H") == 7:
+            if row.get("H") == 7 and name in on_7x7:
                 on_7x7[name][k] += depth * row[k]
         t["bytes_ms"] += depth * b_ms
         t["ops_ms"] += depth * o_ms
@@ -734,34 +756,48 @@ def phase_train_kernels(cfg, batch):
                 add("dwconv_dgrad", row, depth, b_ms, o_ms)
             del x, dy
 
-            if C > K2.BWD_C_MAX:
-                continue
-            # K8 at this stage's width, NCHW
+            # K8 (C <= 256) or K9 at this stage's width, NCHW; K9 runs in
+            # the step where S.TRAIN_WIDE_MLP_BWD routes the wide tails
+            # through FusedMlp
+            wide = C > K2.BWD_C_MAX
+            name, bwd, plain = (
+                ("mlp_bwd_wide", K2.fused_mlp_bwd_wide,
+                 K2.fused_mlp_bwd_wide_plain) if wide else
+                ("mlp_bwd", K2.fused_mlp_bwd, K2.fused_mlp_bwd_plain))
             y = torch.randn(batch, C, H, H, generator=g, device=dev).to(dtype)
             dout = (torch.randn(batch, C, H, H, generator=g, device=dev)
                     * 0.1).to(dtype)
             pk = random_pack(C, g, dtype)
+            for nb in RAGGED:               # tiles that end mid-tile
+                errs, _ = check_mlp_bwd(
+                    bwd, plain, y[:nb].contiguous(), dout[:nb].contiguous(),
+                    pk, TOL_MLP_BWD[dn], f"{name} stage {i + 1} batch {nb}")
+                print(f"[train_kernels] {name} stage {i + 1} {dn} batch {nb}"
+                      f" (T = {nb * H * H}): rel err " + json.dumps(errs),
+                      flush=True)
             row, b_ms, o_ms = mlp_bwd_row(
-                "train_kernels", "mlp_bwd", K2.fused_mlp_bwd,
-                K2.fused_mlp_bwd_plain, y, dout, pk, dtype, stage=i + 1,
-                layout="NCHW", batch=batch, launches_per_step=depth)
+                "train_kernels", name, bwd, plain, y, dout, pk, dtype,
+                stage=i + 1, layout="NCHW", batch=batch,
+                launches_per_step=depth if not wide or S.TRAIN_WIDE_MLP_BWD
+                else 0)
             if dtype == torch.bfloat16:
                 row = dict(row, library_ms=row["unfused_torch_ms"])
-                add("mlp_bwd", row, depth, b_ms, o_ms)
+                add(name, row, depth, b_ms, o_ms)
+                if wide:
+                    k9_bf16.append(row)
             del y, dout, pk
             torch.cuda.empty_cache()
     print("[train_kernels] per bf16 step, of which on the 7x7 maps: "
           + json.dumps({n: {k: round(v, 4) for k, v in t.items()}
                         for n, t in on_7x7.items() if t["ms"]}), flush=True)
-    return totals
+    return totals, k9_bf16
 
 
 def phase_erf_kernels(cfg):
-    """The ERF path's kernels against their plain versions: K9 at the ERF
-    shapes (fp32, batch 1 at 1024^2: stages 3-4) and at batch 128, 224^2
-    (bf16); K1 (forward and flipped-tap dgrad), K2/K3 and K8 in fp32 at
-    the four 1024^2 stage shapes. Returns per-image totals (fp32, batch 1,
-    1024^2) for the JSON line, and K9's bf16 rows."""
+    """The ERF path's kernels against their plain versions in fp32 at the
+    four 1024^2 stage shapes (batch 1): K1 (forward and flipped-tap
+    dgrad), K2/K3, K8 (stages 1-2) and K9 (stages 3-4). Returns per-image
+    totals for the JSON line (K9 in bf16: ``phase_train_kernels``)."""
     import torch
     import torch.nn.functional as F
     from slak_tpu_torch.ops import dwconv as K1
@@ -781,25 +817,6 @@ def phase_erf_kernels(cfg):
         t["bytes_ms"] += n * b_ms
         t["ops_ms"] += n * o_ms
         t["err"] = max(t["err"], row["max_abs_err"])
-
-    # K9 in bf16 at batch 128, 224^2 (stage 3 is the JAX docstring's shape)
-    k9_bf16 = []
-    for i, C, H, K, s, depth in stage_shapes(cfg):
-        if C <= K2.BWD_C_MAX:
-            continue
-        dt = torch.bfloat16
-        y = torch.randn(K9_BF16_BATCH, C, H, H, generator=g, device=dev
-                        ).to(dt)
-        dout = (torch.randn(K9_BF16_BATCH, C, H, H, generator=g, device=dev)
-                * 0.1).to(dt)
-        row, _, _ = mlp_bwd_row("erf_kernels", "mlp_bwd_wide",
-                                K2.fused_mlp_bwd_wide,
-                                K2.fused_mlp_bwd_wide_plain, y, dout,
-                                random_pack(C, g, dt), dt, stage=i + 1,
-                                batch=K9_BF16_BATCH, size=224)
-        k9_bf16.append(row)
-        del y, dout
-        torch.cuda.empty_cache()
 
     # fp32, batch 1, 1024^2: every kernel of the ERF path
     dt = torch.float32
@@ -877,7 +894,7 @@ def phase_erf_kernels(cfg):
     print("[erf_kernels] per fp32 1024^2 image: " + json.dumps(
         {n: {k: round(v, 4) for k, v in t.items()}
          for n, t in totals.items()}), flush=True)
-    return totals, k9_bf16
+    return totals
 
 
 def _counters():
@@ -960,6 +977,7 @@ def phase_train(batch):
     """The train path; returns the launch counts of its bf16 steps."""
     import copy
     import torch
+    from slak_tpu_torch.models import slak as S
     from slak_tpu_torch.train.engine import make_train_step
     dtype = torch.bfloat16
     t0 = time.perf_counter()
@@ -1002,15 +1020,19 @@ def phase_train(batch):
     counts = read_counts()
     sec = time.perf_counter() - t0
     n_blocks = sum(model.cfg.depths)
-    fused = sum(d for d, c in zip(model.cfg.depths, model.cfg.widened_dims)
-                if c <= 256)
+    narrow = sum(d for d, c in zip(model.cfg.depths, model.cfg.widened_dims)
+                 if c <= 256)
+    # the wide tails run FusedMlp (K2 + K9) where the route says so
+    wide = (n_blocks - narrow) if S.TRAIN_WIDE_MLP_BWD else 0
     want = {"dwconv": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_stats": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_wgrad": 2 * n_blocks * TRAIN_STEPS,
-            "fused_mlp": fused * TRAIN_STEPS,
-            "mlp_bwd": fused * TRAIN_STEPS, "mlp_bwd_wide": 0}
+            "fused_mlp": (narrow + wide) * TRAIN_STEPS,
+            "mlp_bwd": narrow * TRAIN_STEPS,
+            "mlp_bwd_wide": wide * TRAIN_STEPS}
     print(f"[train] {TRAIN_STEPS} bf16 steps at batch {batch} in {sec:.2f} s;"
-          f" launches {counts}; refreshes {n_refresh}", flush=True)
+          f" launches {counts}; refreshes {n_refresh}; TRAIN_WIDE_MLP_BWD "
+          f"{S.TRAIN_WIDE_MLP_BWD}", flush=True)
     _check(counts == want, f"launch counts {counts}, want {want}")
     _check(n_refresh == TRAIN_STEPS // mc.update_frequency,
            f"{n_refresh} DST refreshes, want "
@@ -1223,8 +1245,11 @@ def _profile_rows(prof):
 
 # kernel name -> share of the device time: the port's kernels by source,
 # then what stock PyTorch runs (first match wins: mlp_bwd.cu's kernels
-# before the wgrad group's "wgrad_")
-_GROUPS = (("mlp_bwd.cu (K8)", ("mlp_bwd_", "sum_partials")),
+# before the wgrad group's "wgrad_" and the GEMM group's "gemm")
+_GROUPS = (("mlp_bwd.cu (K8/K9)", ("bwd_gemm_kernel", "wide_prep_kernel",
+                                   "wide_lnb_kernel", "wide_simt_kernel",
+                                   "mlp_bwd_gemm_f32", "dgamma_kernel",
+                                   "sum_chunks", "sum_partials")),
            ("dwconv.cu (K1/K4)", ("dwconv_kernel", "dwconv_tiled",
                                   "dwconv_stats_reduce")),
            ("dwconv_wgrad.cu (K5/K7)", ("wgrad_",)),
@@ -1713,6 +1738,114 @@ def phase_mlp_ab(cfg, base: str):
     return out
 
 
+def base_mlp_bwd(base: str):
+    """The MLP backward of another checkout (``base``: the parent commit
+    unpacked into a git-ignored directory): its ``csrc/mlp_bwd.cu`` built
+    here and bound by that checkout's own ``ops/mlp.py``, loaded as a
+    module of its own whose entry-point loaders are pointed at that
+    library. Returns the module (its ``fused_mlp_bwd`` and
+    ``fused_mlp_bwd_wide`` launch the base's kernels)."""
+    import ctypes
+    import importlib.util
+    from slak_tpu_torch.ops import _build
+    root = os.path.join(base, "slak_tpu_torch", "ops")
+    src = os.path.join(root, "csrc", "mlp_bwd.cu")
+    _check(os.path.exists(src), f"mlp_bwd_ab: no {src}")
+    so = os.path.join(_build.BUILD_DIR, "ab", "libmlp_bwd_base.so")
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    t0 = time.perf_counter()
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
+                       capture_output=True, text=True)
+    _check(r.returncode == 0, f"mlp_bwd_ab: {src} does not build:\n"
+           f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    print(f"[mlp_bwd_ab] {src} built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    spec = importlib.util.spec_from_file_location(
+        "base_mlp", os.path.join(root, "mlp.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib, own = ctypes.CDLL(so), _build.load
+    _build.load = lambda name: lib if name == "mlp_bwd" else own(name)
+    try:                                # bind (lru-cached) to the base's
+        for loader in ("_bwd_entries", "_wide_entries"):
+            if hasattr(mod, loader):
+                getattr(mod, loader)()
+    finally:
+        _build.load = own
+    return mod
+
+
+def phase_mlp_bwd_ab(cfg, base: str):
+    """The MLP backward (K8, K9) of another checkout against this tree's,
+    in one process, in turns base, change, change, base: K8 at stages 1-2
+    and K9 at stages 3-4 in bf16 at the train batch, K8 and K9 in fp32 at
+    the 1024^2 ERF shapes, and the bf16 train step (base: the base's
+    kernels with the stage 3-4 tails on the unfused composition, as the
+    base routes them; change: this tree's kernels and route). Then the
+    route alone, this tree's kernels: the step with TRAIN_WIDE_MLP_BWD
+    False (base) and True (change). Returns the rows."""
+    import torch
+    from slak_tpu_torch.models import slak as S
+    from slak_tpu_torch.ops import mlp as K2
+    from slak_tpu_torch.train.engine import make_train_step
+    mod = base_mlp_bwd(base)
+    kernels = {"base": (mod.fused_mlp_bwd, mod.fused_mlp_bwd_wide),
+               "change": (K2.fused_mlp_bwd, K2.fused_mlp_bwd_wide)}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(50)
+    cases = []                               # (name, wide, y, dout, pk)
+    for dt, size, batch in ((torch.bfloat16, 224, TRAIN_BATCH),
+                            (torch.float32, ERF_SIZE, 1)):
+        dn = str(dt).split(".")[1]
+        for i, C, H, _, _, _ in stage_shapes(cfg, size):
+            y = torch.randn(batch, C, H, H, generator=g, device=dev).to(dt)
+            dout = (torch.randn(batch, C, H, H, generator=g, device=dev)
+                    * 0.1).to(dt)
+            wide = C > K2.BWD_C_MAX
+            cases.append((f"{'k9' if wide else 'k8'}_{dn}_{size}_stage"
+                          f"{i + 1}_ms", wide, y, dout,
+                          random_pack(C, g, dt)))
+    order = ("base", "change", "change", "base")
+    rows = {c[0]: [] for c in cases}
+    for route in order:
+        k8, k9 = kernels[route]
+        for name, wide, y, dout, pk in cases:
+            fn = k9 if wide else k8
+            rows[name].append(time_ms(lambda: fn(y, dout, pk, 1)))
+    del cases
+    torch.cuda.empty_cache()
+    model, state, tc, mc, lr, batches = train_setup(
+        TRAIN_BATCH, torch.bfloat16, dict(TRAIN_MASK, sparse_init="ERK",
+                                          update_frequency=100), snip=False)
+    step = make_train_step(model, tc, mc, lr)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    own = (K2.fused_mlp_bwd, K2.fused_mlp_bwd_wide, S.TRAIN_WIDE_MLP_BWD)
+    step_ms, route_ms = [], []
+    try:
+        for route in order:
+            K2.fused_mlp_bwd, K2.fused_mlp_bwd_wide = kernels[route]
+            S.TRAIN_WIDE_MLP_BWD = own[2] if route == "change" else False
+            step_ms.append(time_ms(lambda: step(state, batches[0], gen),
+                                   5, 2, 3))
+        K2.fused_mlp_bwd, K2.fused_mlp_bwd_wide = own[:2]
+        for route in order:
+            S.TRAIN_WIDE_MLP_BWD = route == "change"
+            route_ms.append(time_ms(lambda: step(state, batches[0], gen),
+                                    5, 2, 3))
+    finally:
+        K2.fused_mlp_bwd, K2.fused_mlp_bwd_wide, S.TRAIN_WIDE_MLP_BWD = own
+    rows["train_step_bs%d_ms" % TRAIN_BATCH] = step_ms
+    rows["train_step_route_false_true_ms"] = route_ms
+    for name, ms in rows.items():
+        print(f"[mlp_bwd_ab] {name}: " + " / ".join(f"{v:.4f}" for v in ms)
+              + "  (" + ", ".join(order) + ")", flush=True)
+    out = dict(order=order, train_wide_mlp_bwd=own[2], **rows)
+    print("[mlp_bwd_ab] " + json.dumps(out), flush=True)
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_probes():
     """The four kernel probes with the launch counters set to 0 just before
     and read just after; returns {probe: counts}."""
@@ -1751,9 +1884,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="build,kernels,forward,timing,"
                     "train_kernels,train,train_timing,erf_kernels,erf,"
                     "dual_kernels,dual,dual_timing,probes")
-    ap.add_argument("--base", help="mlp_ab: another checkout of the "
-                    "repository (e.g. the parent commit from git archive, "
-                    "in a git-ignored directory)")
+    ap.add_argument("--base", help="mlp_ab, mlp_bwd_ab: another checkout "
+                    "of the repository (e.g. the parent commit from git "
+                    "archive, in a git-ignored directory)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     try:
@@ -1803,7 +1936,7 @@ def main(argv=None) -> int:
         del model
         torch.cuda.empty_cache()
         if "train_kernels" in phases:
-            train_totals = phase_train_kernels(cfg, TRAIN_BATCH)
+            train_totals, k9_bf16 = phase_train_kernels(cfg, TRAIN_BATCH)
         if "train" in phases:
             train_counts = phase_train(TRAIN_BATCH)
         if "train_timing" in phases:
@@ -1811,7 +1944,7 @@ def main(argv=None) -> int:
         if "profile" in phases:
             phase_profile_train(TRAIN_BATCH)
         if "erf_kernels" in phases:
-            erf_totals, k9_bf16 = phase_erf_kernels(cfg)
+            erf_totals = phase_erf_kernels(cfg)
         if "erf" in phases:
             erf_run = phase_erf()
         if "dual_kernels" in phases:
@@ -1825,6 +1958,9 @@ def main(argv=None) -> int:
         if "mlp_ab" in phases:
             _check(args.base is not None, "mlp_ab needs --base")
             phase_mlp_ab(cfg, args.base)
+        if "mlp_bwd_ab" in phases:
+            _check(args.base is not None, "mlp_bwd_ab needs --base")
+            phase_mlp_bwd_ab(cfg, args.base)
     except Exception as e:                      # report and fail the run
         import traceback
         traceback.print_exc()
@@ -1914,11 +2050,25 @@ def main(argv=None) -> int:
             times_per="one float32 ERF image at %d^2 (9 launches at T=4096 "
             "C=499, 3 at T=1024 C=998)" % ERF_SIZE,
             launches_in="the ERF path: %d float32 images at %d^2"
-            % (ERF_IMAGES, ERF_SIZE),
-            bf16_batch128={"stage%d" % r["stage"]: {
-                k: r[k] for k in ("T", "C", "ms", "plain_ms",
-                                  "unfused_torch_ms", "bound_ms",
-                                  "max_abs_err")} for r in k9_bf16}))
+            % (ERF_IMAGES, ERF_SIZE)))
+        if train_totals is not None:
+            # K9 in the bf16 train step (stages 3-4, batch TRAIN_BATCH),
+            # launched there as TRAIN_WIDE_MLP_BWD says
+            t = train_totals["mlp_bwd_wide"]
+            kernels[-1].update(
+                {"train_" + k: t[k] for k in ("ms", "plain_ms", "bound_ms")},
+                train_unfused_torch_ms=t["library_ms"],
+                train_max_abs_err=t["err"],
+                train_launches=None if train_counts is None
+                else train_counts["mlp_bwd_wide"],
+                train_times_per="the stage 3-4 tails of one bf16 train step "
+                "at batch %d (9 launches at T=25088 C=499, 3 at T=6272 "
+                "C=998)" % TRAIN_BATCH,
+                bf16_batch128={"stage%d" % r["stage"]: {
+                    k: r[k] for k in ("T", "C", "ms", "plain_ms",
+                                      "unfused_torch_ms", "bound_ms",
+                                      "max_abs_err", "launches_per_step")}
+                    for r in k9_bf16})
         # the ERF path's share of the older kernels; the yardstick is the
         # library call (K1), none (K2/K3), the unfused autograd (K8)
         for name, lib in (("dwconv", "erf_library_ms"), ("fused_mlp", None),

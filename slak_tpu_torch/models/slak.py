@@ -41,10 +41,11 @@ and LoRA2 each run the stats-fused conv (K4, with the K1 dgrad and the
 wgrad kernel in its backward) and their own BN from the kernel's sums;
 the small branch runs ``F.conv2d`` + train BN; the three outputs are
 summed. The tail runs :class:`~slak_tpu_torch.ops.mlp.FusedMlp` (K2
-forward, K8 backward) where C <= 256 (stages 1-2 of SLaK-T), and the plain
-composition under torch autograd above that, as the JAX route does
-(``TRAIN_WIDE_MLP_BWD = False``). BN running stats update the module
-buffers in place.
+forward, K8 backward) where C <= 256 (stages 1-2 of SLaK-T); above that
+(stages 3-4) :data:`TRAIN_WIDE_MLP_BWD` picks ``FusedMlp`` with the K9
+backward (True) or the plain composition under torch autograd (False, the
+JAX route's value). BN running stats update the module buffers in
+place.
 
 The compute dtype is the input's: parameters stay float32 and are rounded
 to it where they are used, as in ``slak_tpu``, so autograd returns float32
@@ -73,6 +74,15 @@ from slak_tpu_torch.ops.mlp import (BWD_C_MAX, FusedMlp, fused_mlp,
                                     fused_mlp_plain, pack_mlp)
 
 EVAL_LAYOUTS = ("auto", "cmajor", "dual", "nhwc")
+
+# The train tails wider than BWD_C_MAX (SLaK-T's stages 3-4): True runs
+# them through FusedMlp (K2 forward, K9 backward), False through the
+# unfused composition under torch autograd. The counterpart of slak_tpu's
+# TRAIN_WIDE_MLP_BWD (models/slak.py:342-352), False there by a v5e
+# measurement that does not carry over; set here by an in-call A/B of the
+# bf16 batch-128 train step on the H100 (chip_smoke.py phase mlp_bwd_ab,
+# PERF.md section 6).
+TRAIN_WIDE_MLP_BWD = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,13 +299,14 @@ class Block(nn.Module):
 
     def _train_forward(self, x, plain, generator):
         """``_block_forward(train=True)``: the branches, then the fused tail
-        (C <= 256) or the plain composition in the same rounding order
+        (C <= 256, or wider with :data:`TRAIN_WIDE_MLP_BWD`) or the plain
+        composition in the same rounding order
         (slak_tpu/models/slak.py:702-715); drop-path multiplies the branch
         outside the fused tail."""
         y = self.large_kernel.train_forward(x, plain)
         rate = self.drop_path_rate
         gamma = getattr(self, "gamma", None)
-        if x.shape[1] <= BWD_C_MAX:
+        if x.shape[1] <= BWD_C_MAX or TRAIN_WIDE_MLP_BWD:
             if gamma is None:
                 gamma = torch.ones_like(self.norm.weight)
             args = (y, x, self.norm.weight, self.norm.bias,

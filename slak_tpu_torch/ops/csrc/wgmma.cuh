@@ -2,12 +2,15 @@
 // N / 2 registers a thread) += A (64 x 16, bf16) * B (16 x N, bf16), B read
 // from shared memory through a matrix descriptor, A from shared memory
 // (wgmma::ss) or from registers (wgmma::rs: four b32 registers a thread,
-// the m16n8k16 A-fragment layout of the warp's 16 rows). Both operands
-// K-major (no transpose). scale_d = 0 overwrites D, 1 accumulates into it.
-// Every N has its own instruction, so the register lists are spelled out
-// below, one specialisation an N, the same text at every N; mlp.cu uses
-// ss at N = 64 (the fused kernel's first product) and 128, 192, 256 (the
-// GEMMs), rs at N = 128, 256 (the fused kernel's second product).
+// the m16n8k16 A-fragment layout of the warp's 16 rows). Shared-memory
+// operands are K-major, or MN-major where ss's TA / TB say so (the
+// transposed forms, bf16 only); the register A of rs is K-major and its B
+// K-major. scale_d = 0 overwrites D, 1 accumulates into it. Every N has
+// its own instruction, so the register lists are spelled out below, one
+// specialisation an N, the same text at every N; mlp.cu uses ss at N = 64
+// (the fused kernel's first product) and 128, 192, 256 (the GEMMs), rs at
+// N = 128, 256 (the fused kernel's second product); mlp_bwd.cu ss at N =
+// 128 and 256 in all three orientations (K-major, B MN-major, both).
 #pragma once
 
 #include <stdint.h>
@@ -39,10 +42,24 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* smem) {
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
+// The same swizzle with the tile MN-major (wgmma's transposed operand,
+// 16-bit types only): 128-byte rows of 64 consecutive M (or N) elements,
+// one row a k, as TMA writes a box of 64 columns along M or N; 8-k groups
+// 1024 bytes apart (the stride byte offset), 64-wide M or N blocks `lbo`
+// bytes apart (the leading byte offset). The k-th 16-element step starts
+// 2048 k bytes further (desc + 128 k).
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* smem,
+                                                  uint32_t lbo) {
+  const uint64_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
 template <int N> struct Ss;
 template <int N> struct Rs;
 
 template <> struct Ss<64> {
+  template <int TA, int TB>
   static __device__ __forceinline__ void run(float* d, uint64_t da,
                                              uint64_t db, int scale_d) {
     asm volatile(
@@ -52,7 +69,7 @@ template <> struct Ss<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23,"
         "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -61,11 +78,12 @@ template <> struct Ss<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
 template <> struct Ss<128> {
+  template <int TA, int TB>
   static __device__ __forceinline__ void run(float* d, uint64_t da,
                                              uint64_t db, int scale_d) {
     asm volatile(
@@ -79,7 +97,7 @@ template <> struct Ss<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47,"
         "%48, %49, %50, %51, %52, %53, %54, %55,"
         "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -96,11 +114,12 @@ template <> struct Ss<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
 template <> struct Ss<192> {
+  template <int TA, int TB>
   static __device__ __forceinline__ void run(float* d, uint64_t da,
                                              uint64_t db, int scale_d) {
     asm volatile(
@@ -118,7 +137,7 @@ template <> struct Ss<192> {
         "%72, %73, %74, %75, %76, %77, %78, %79,"
         "%80, %81, %82, %83, %84, %85, %86, %87,"
         "%88, %89, %90, %91, %92, %93, %94, %95}, "
-        "%96, %97, p, 1, 1, 0, 0;\n}\n"
+        "%96, %97, p, 1, 1, %99, %100;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -143,11 +162,12 @@ template <> struct Ss<192> {
           "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
           "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
           "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
 template <> struct Ss<256> {
+  template <int TA, int TB>
   static __device__ __forceinline__ void run(float* d, uint64_t da,
                                              uint64_t db, int scale_d) {
     asm volatile(
@@ -169,7 +189,7 @@ template <> struct Ss<256> {
         "%104, %105, %106, %107, %108, %109, %110, %111,"
         "%112, %113, %114, %115, %116, %117, %118, %119,"
         "%120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, p, 1, 1, 0, 0;\n}\n"
+        "%128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -202,7 +222,7 @@ template <> struct Ss<256> {
           "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
@@ -302,11 +322,12 @@ template <> struct Rs<256> {
   }
 };
 
-// d (64 x N) (+)= A (64 x 16) * B (16 x N), A and B in shared memory
-template <int N>
+// d (64 x N) (+)= A (64 x 16) * B (16 x N), A and B in shared memory,
+// each K-major (TA, TB = 0: desc_sw128) or MN-major (1: desc_sw128_mn)
+template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db,
                                    int scale_d) {
-  Ss<N>::run(d, da, db, scale_d);
+  Ss<N>::template run<TA, TB>(d, da, db, scale_d);
 }
 
 // d (64 x N) (+)= A (64 x 16, registers) * B (16 x N, shared memory)

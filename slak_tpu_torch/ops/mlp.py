@@ -4,14 +4,23 @@ backward, and its dual-orientation variant.
 
 Kernels: ``csrc/mlp.cu`` (replaces ``slak_tpu/ops/pallas_mlp.py``
 ``_mlp_fused_2d`` and ``_mlp_cmajor_2d``) and ``csrc/mlp_bwd.cu``, two
-entry points: ``slak_mlp_bwd`` (K8, replaces ``_mlp_bwd_2d``, C <= 256)
-and ``slak_mlp_bwd_wide`` (K9, replaces ``_mlp_bwd_chunked_2d``, any C).
+entry points over one launch sequence: ``slak_mlp_bwd`` (K8, replaces
+``_mlp_bwd_2d``, C <= 256, dy in y's dtype) and ``slak_mlp_bwd_wide``
+(K9, replaces ``_mlp_bwd_chunked_2d``, any C, dy in float32).
 :func:`fused_mlp`, :func:`fused_mlp_bwd` and :func:`fused_mlp_bwd_wide`
 launch them for CUDA tensors and run :func:`fused_mlp_plain`,
 :func:`fused_mlp_bwd_plain` and :func:`fused_mlp_bwd_wide_plain` for CPU
 tensors. :class:`FusedMlp` is the autograd Function of ``fused_mlp``'s
 custom VJP: K2 forward, K8 backward at C <= 256 and K9 above, as
 ``_vjp_bwd`` picks.
+
+The backward's launches (the LayerNorm prep, the GELU product, dh, the
+LayerNorm backward, the token reductions and dgamma; in bf16 the products
+run as TMA-fed ``wgmma``) have plain versions :func:`mlp_bwd_prep_plain`,
+:func:`mlp_bwd_act_plain`, :func:`mlp_bwd_dh_plain`,
+:func:`mlp_bwd_lnb_plain` and :func:`mlp_bwd_wgrad_plain`;
+:func:`fused_mlp_bwd_launches_plain` is their composition (the CPU tests
+hold it to the kernels' plain versions and to the Pallas kernels).
 
 In bf16, ``mlp.cu`` first writes h = LN(y + pre_bias) into a workspace
 (the wrapper allocates ``slak_fused_mlp_workspace`` bytes), then runs the
@@ -63,7 +72,7 @@ _INV_SQRT_2PI = 0.3989422804014327
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F_ALIGN = 64               # the hidden width is padded to this (mlp.cu)
-_WIDE_TILE = 128            # K9 pads the tokens to this (mlp_bwd.cu)
+_BWD_TILE = 128             # K8/K9 pad the tokens to this (mlp_bwd.cu)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -349,30 +358,126 @@ def fused_mlp_bwd_plain(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
             dgamma, dlns, dlnb)
 
 
+def mlp_bwd_prep_plain(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
+                       channel_dim: int = -1):
+    """Plain version of the backward's first launch (``wide_prep_kernel``):
+    (h, do, mean, inv, db2, sum_t dout): h = LN(y + pre_bias) and do =
+    dout * gamma rounded to y's dtype, tokens-major (T, C); each token's
+    fp32 statistics (T, 1); the fp32 column sums of the unrounded do and of
+    dout."""
+    ln_s, ln_b, _, gamma, pre = pk.vec
+    yf = y.movedim(channel_dim, -1).reshape(-1, pk.c).float() + pre
+    dl = dout.movedim(channel_dim, -1).reshape(-1, pk.c).float()
+    mu = yf.mean(-1, keepdim=True)
+    inv = torch.rsqrt((yf - mu).square().mean(-1, keepdim=True) + LN_EPS)
+    h = ((yf - mu) * inv * ln_s + ln_b).to(y.dtype)
+    do = dl * gamma
+    return h, do.to(y.dtype), mu, inv, do.sum(0), dl.sum(0)
+
+
+def mlp_bwd_act_plain(h: torch.Tensor, do: torch.Tensor, pk: MlpWeights):
+    """Plain version of the GELU product launch (``bwd_gemm_kernel`` with
+    its GELU epilogue in bf16, ``wide_simt_kernel<true>`` in fp32): a = h
+    W1^T + b1 and dg = do W2 summed in fp32, then (g, da, db1): g = GELU(a)
+    and da = dg gelu'(a) rounded to h's dtype (T, 4C), exact erf, and db1 =
+    the fp32 column sums of the unrounded da."""
+    c, f = pk.c, pk.f
+    a = h.float() @ pk.w1[:f, :c].float().t() + pk.b1[:f]
+    erf_a = torch.erf(a * _INV_SQRT2)
+    g = 0.5 * a * (1.0 + erf_a)
+    gp = 0.5 * (1.0 + erf_a) + a * _INV_SQRT_2PI * torch.exp(-0.5 * a * a)
+    da = (do.float() @ pk.w2[:c, :f].float()) * gp
+    return g.to(h.dtype), da.to(h.dtype), da.sum(0)
+
+
+def mlp_bwd_dh_plain(da: torch.Tensor, pk: MlpWeights) -> torch.Tensor:
+    """Plain version of the dh product launch: dh = da W1 (T, C), fp32."""
+    return da.float() @ pk.w1[:pk.f, :pk.c].float()
+
+
+def mlp_bwd_lnb_plain(y: torch.Tensor, dh: torch.Tensor, mu: torch.Tensor,
+                      inv: torch.Tensor, pk: MlpWeights,
+                      channel_dim: int = -1, dy_dtype=torch.float32):
+    """Plain version of the LayerNorm-backward launch (``wide_lnb_kernel``):
+    xhat from y and the prep launch's statistics, then (dy, dln_scale,
+    dln_bias): dy = inv (dxh - mean_c dxh - xhat mean_c(dxh xhat)) with
+    dxh = dh ln_scale, in ``dy_dtype`` and y's layout; the fp32 column sums
+    of dh xhat and of dh."""
+    ln_s, pre = pk.vec[0], pk.vec[4]
+    yl = y.movedim(channel_dim, -1)
+    xhat = (yl.reshape(-1, pk.c).float() + pre - mu) * inv
+    dxh = dh * ln_s
+    m1 = dxh.mean(-1, keepdim=True)
+    m2 = (dxh * xhat).mean(-1, keepdim=True)
+    dy = (inv * (dxh - m1 - xhat * m2)).to(dy_dtype).reshape(yl.shape)
+    return (dy.movedim(-1, channel_dim).contiguous(), (dh * xhat).sum(0),
+            dh.sum(0))
+
+
+def mlp_bwd_wgrad_plain(h, do, dout, g, da, sum_dout, pk: MlpWeights,
+                        channel_dim: int = -1):
+    """Plain version of the token-reduction launches and ``dgamma_kernel``:
+    (dW1 (4C, C), dW2 (C, 4C), dgamma): dW1 = da^T h and dW2 = do^T g
+    summed in fp32, and dgamma = sum_f W2^T M + b2 sum_t dout with M =
+    dout^T g (the per-token g W2^T is never formed)."""
+    dl = dout.movedim(channel_dim, -1).reshape(-1, pk.c).float()
+    gf = g.float()
+    m = dl.t() @ gf
+    w2 = pk.w2[:pk.c, :pk.f].float()
+    return (da.float().t() @ h.float(), do.float().t() @ gf,
+            (w2 * m).sum(1) + pk.vec[2] * sum_dout)
+
+
+def fused_mlp_bwd_launches_plain(y: torch.Tensor, dout: torch.Tensor,
+                                 pk: MlpWeights, channel_dim: int = -1,
+                                 dy_dtype=None):
+    """The composition of the backward's launches' plain versions, in the
+    kernels' order: prep, the GELU product, dh, the LayerNorm backward, the
+    token reductions and dgamma. Returns what :func:`fused_mlp_bwd_plain`
+    returns, dy in ``dy_dtype`` (y's dtype by default: K8; K9 gives
+    float32)."""
+    h, do, mu, inv, db2, sum_dout = mlp_bwd_prep_plain(y, dout, pk,
+                                                       channel_dim)
+    g, da, db1 = mlp_bwd_act_plain(h, do, pk)
+    dy, dlns, dlnb = mlp_bwd_lnb_plain(y, mlp_bwd_dh_plain(da, pk), mu, inv,
+                                       pk, channel_dim, dy_dtype or y.dtype)
+    dw1, dw2, dgamma = mlp_bwd_wgrad_plain(h, do, dout, g, da, sum_dout, pk,
+                                           channel_dim)
+    return dy, dw1, dw2, db1, db2, dgamma, dlns, dlnb
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_entries():
+    """The typed C entry points of ``csrc/mlp_bwd.cu``:
+    (slak_mlp_bwd_workspace, slak_mlp_bwd (K8), slak_mlp_bwd_wide (K9))."""
     from slak_tpu_torch.ops._build import load
     lib = load("mlp_bwd")
-    tile = lib.slak_mlp_bwd_tile
-    tile.argtypes = [ctypes.c_int] * 3
-    tile.restype = ctypes.c_int
-    fn = lib.slak_mlp_bwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 19
-                   + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return tile, fn
+    ws = lib.slak_mlp_bwd_workspace
+    ws.argtypes = [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
+    ws.restype = ctypes.c_longlong
+    out = [ws]
+    for fn in (lib.slak_mlp_bwd, lib.slak_mlp_bwd_wide):
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                       + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        out.append(fn)
+    return tuple(out)
 
 
 def _gemm_splits(tp: int, fp: int, cp: int, dtype: torch.dtype, sms: int):
-    """Token splits of the two weight-gradient GEMMs (Fp x Cp and
-    2 Cp x Fp outputs): about two blocks an SM, at least 128 tokens a
-    split."""
-    tile = 128 if dtype == torch.bfloat16 else 64
-
-    def splits(m, n):
-        tiles = -(-m // tile) * -(-n // tile)
-        return max(1, min(-(-tp // 128), -(-2 * sms // tiles)))
+    """Token splits of the two weight-gradient products (Fp x Cp and
+    2 Cp x Fp outputs). bf16: 128 x 128 tiles on persistent blocks, one an
+    SM, so as many splits as fill the SMs in one wave; fp32: 64 x 64 tiles,
+    about two blocks an SM, at least 128 tokens a split."""
+    if dtype == torch.bfloat16:
+        def splits(m, n):
+            tiles = -(-m // 128) * -(-n // 128)
+            return max(1, min(tp // 64, sms // tiles))
+    else:
+        def splits(m, n):
+            tiles = -(-m // 64) * -(-n // 64)
+            return max(1, min(-(-tp // 128), -(-2 * sms // tiles)))
     return splits(fp, cp), splits(2 * cp, fp)
 
 
@@ -396,9 +501,8 @@ def fused_mlp_bwd(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
     """K8: the tail's backward from its input y and output cotangent dout
     (channels on ``channel_dim``); returns what
     :func:`fused_mlp_bwd_plain` returns. C <= 256 on every device (wider
-    tails are :func:`fused_mlp_bwd_wide`'s). bf16 runs K8's tensor-core
-    kernels; fp32 runs K9's kernels (``slak_mlp_bwd_wide``), which take
-    any width."""
+    tails are :func:`fused_mlp_bwd_wide`'s). One launch sequence serves K8
+    and K9 (``slak_mlp_bwd``: dy in y's dtype)."""
     if pk.c > BWD_C_MAX:
         raise ValueError(f"fused_mlp_bwd: C = {pk.c} > {BWD_C_MAX} "
                          f"(fused_mlp_bwd_wide covers it)")
@@ -408,54 +512,10 @@ def fused_mlp_bwd(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
         raise RuntimeError(f"fused_mlp_bwd runs on cuda or cpu, not "
                            f"{y.device}")
     _check_bwd("fused_mlp_bwd", y, dout, pk, channel_dim)
+    out = _launch_bwd(y, dout, pk, channel_dim, wide=False)
     global bwd_launch_count
-    if y.dtype == torch.float32:              # K9's kernels serve fp32
-        out = _launch_wide(y, dout, pk, channel_dim)
-        bwd_launch_count += 1
-        return out
-    dt = _DTYPES[y.dtype]
-    fp, cp = pk.w1.shape
-    tile_fn, fn = _bwd_entries()
-    bt = tile_fn(dt, cp, fp)              # the kernels' token tile
-    if bt < 0:
-        raise ValueError(f"fused_mlp_bwd: C = {pk.c} does not fit a block")
-    n_outer, p, s_n, s_c, s_p = token_strides(y.shape, channel_dim)
-    tokens = n_outer * p
-    tp = _round_up(tokens, bt)
-    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
-    grid = min(tp // bt, sms)
-    s1, s2 = _gemm_splits(tp, fp, cp, y.dtype, sms)
-    dev, f32 = y.device, torch.float32
-    dy = torch.empty_like(y)
-    hs = torch.empty(tp, cp, dtype=y.dtype, device=dev)
-    dd = torch.empty(tp, 2 * cp, dtype=y.dtype, device=dev)
-    gs = torch.empty(tp, fp, dtype=y.dtype, device=dev)
-    das = torch.empty_like(gs)
-    stats = torch.empty(tp, 2, dtype=f32, device=dev)
-    vpart_a = torch.empty(grid, fp + 2 * cp, dtype=f32, device=dev)
-    vpart_b = torch.empty(grid, 2 * cp, dtype=f32, device=dev)
-    wpart1 = torch.empty(s1, fp, cp, dtype=f32, device=dev)
-    wpart2 = torch.empty(s2, 2 * cp, fp, dtype=f32, device=dev)
-    dw1 = torch.empty(fp, cp, dtype=f32, device=dev)
-    dw2 = torch.empty(2 * cp, fp, dtype=f32, device=dev)
-    dvec = torch.empty(fp + 5 * cp, dtype=f32, device=dev)
-    err = fn(dt, y.data_ptr(), dout.data_ptr(), dy.data_ptr(),
-             pk.w1.data_ptr(), pk.w2.data_ptr(), pk.b1.data_ptr(),
-             pk.vec.data_ptr(), hs.data_ptr(), dd.data_ptr(), gs.data_ptr(),
-             das.data_ptr(), stats.data_ptr(), vpart_a.data_ptr(),
-             vpart_b.data_ptr(), wpart1.data_ptr(), wpart2.data_ptr(),
-             dw1.data_ptr(), dw2.data_ptr(), dvec.data_ptr(), n_outer, p,
-             s_n, s_c, s_p, pk.c, cp, fp, bt, grid, s1, s2,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_bwd kernel launch failed: cudaError "
-                           f"{err}")
     bwd_launch_count += 1
-    c, f = pk.c, pk.f
-    # dvec: db1 (fp) | db2 | sum_t dout | dlns | dlnb | dgamma (cp each)
-    db2, _, dlns, dlnb, dgamma = dvec[fp:].view(5, cp)[:, :c]
-    return (dy, dw1[:f, :c], dw2[:c, :f], dvec[:f], db2, dgamma, dlns,
-            dlnb)
+    return out
 
 
 def pick_fc(c4: int, itemsize: int) -> int:
@@ -521,21 +581,6 @@ def fused_mlp_bwd_wide_plain(y: torch.Tensor, dout: torch.Tensor,
             torch.cat(dw2, 1), torch.cat(db1), db2, dgamma, dlns, dlnb)
 
 
-@functools.lru_cache(maxsize=None)
-def _wide_entries():
-    from slak_tpu_torch.ops._build import load
-    lib = load("mlp_bwd")
-    ws = lib.slak_mlp_bwd_wide_workspace
-    ws.argtypes = [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
-    ws.restype = ctypes.c_longlong
-    fn = lib.slak_mlp_bwd_wide
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
-                   + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return ws, fn
-
-
 def fused_mlp_bwd_wide(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
                        channel_dim: int = -1):
     """K9: the tail's backward at any width (the kernel of the wide stages,
@@ -547,37 +592,40 @@ def fused_mlp_bwd_wide(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
         raise RuntimeError(f"fused_mlp_bwd_wide runs on cuda or cpu, not "
                            f"{y.device}")
     _check_bwd("fused_mlp_bwd_wide", y, dout, pk, channel_dim)
-    out = _launch_wide(y, dout, pk, channel_dim)
+    out = _launch_bwd(y, dout, pk, channel_dim, wide=True)
     global wide_bwd_launch_count
     wide_bwd_launch_count += 1
     return out
 
 
-def _launch_wide(y, dout, pk, channel_dim):
-    """One launch of ``slak_mlp_bwd_wide`` on checked CUDA tensors."""
+def _launch_bwd(y, dout, pk, channel_dim, wide):
+    """One launch of ``slak_mlp_bwd`` (dy in y's dtype) or, ``wide``,
+    ``slak_mlp_bwd_wide`` (dy in float32) on checked CUDA tensors."""
     dt = _DTYPES[y.dtype]
     fp, cp = pk.w1.shape
     n_outer, p, s_n, s_c, s_p = token_strides(y.shape, channel_dim)
-    tp = _round_up(n_outer * p, _WIDE_TILE)
+    tp = _round_up(n_outer * p, _BWD_TILE)
     dev, f32 = y.device, torch.float32
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     s1, s2 = _gemm_splits(tp, fp, cp, y.dtype, sms)
-    ws_fn, fn = _wide_entries()
+    ws_fn, k8, k9 = _bwd_entries()
     ws = torch.empty(ws_fn(dt, tp, cp, fp, s1, s2), dtype=torch.uint8,
                      device=dev)
-    dy = torch.empty(y.shape, dtype=f32, device=dev)
+    dy = torch.empty(y.shape, dtype=f32 if wide else y.dtype, device=dev)
     dw1 = torch.empty(fp, cp, dtype=f32, device=dev)
     dw2 = torch.empty(2 * cp, fp, dtype=f32, device=dev)
     dvec = torch.empty(fp + 5 * cp, dtype=f32, device=dev)
-    err = fn(dt, y.data_ptr(), dout.data_ptr(), dy.data_ptr(),
-             pk.w1.data_ptr(), pk.w2.data_ptr(), pk.b1.data_ptr(),
-             pk.vec.data_ptr(), ws.data_ptr(), dw1.data_ptr(),
-             dw2.data_ptr(), dvec.data_ptr(), n_outer, p, s_n, s_c, s_p,
-             pk.c, cp, fp, s1, s2, torch.cuda.current_stream(dev).cuda_stream)
+    err = (k9 if wide else k8)(
+        dt, y.data_ptr(), dout.data_ptr(), dy.data_ptr(), pk.w1.data_ptr(),
+        pk.w2.data_ptr(), pk.b1.data_ptr(), pk.vec.data_ptr(), ws.data_ptr(),
+        dw1.data_ptr(), dw2.data_ptr(), dvec.data_ptr(), n_outer, p, s_n,
+        s_c, s_p, pk.c, cp, fp, s1, s2,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fused_mlp_bwd_wide kernel launch failed: "
-                           f"cudaError {err}")
+        name = "fused_mlp_bwd_wide" if wide else "fused_mlp_bwd"
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     c, f = pk.c, pk.f
+    # dvec: db1 (fp) | db2 | sum_t dout | dlns | dlnb | dgamma (cp each)
     db2, _, dlns, dlnb, dgamma = dvec[fp:].view(5, cp)[:, :c]
     return (dy, dw1[:f, :c], dw2[:c, :f], dvec[:f], db2, dgamma, dlns,
             dlnb)
