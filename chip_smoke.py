@@ -46,13 +46,17 @@ Phases (any failure exits non-zero):
            the four 1024^2 stage shapes (batch 1): K9 (the wide-channel
            fused MLP backward, stage 3 T = 4096, C = 499; stage 4 T = 1024,
            C = 998; all eight outputs), K1 (forward and flipped-tap dgrad),
-           K2/K3 and K8; times, bound, plain and unfused (or library)
-           times.
+           K2/K3 and K8; K8 and K9 in the full mode and in dy-only mode
+           (dy alone, as the ERF calls them; its dy must have the full
+           mode's bits), the fp32 MLP backward within 2e-5 (3xTF32); times,
+           bound (fp32 products: the lesser of 3xTF32 at 495 TFLOP/s and
+           FFMA at 67), plain and unfused (or library) times.
   erf      the ERF analysis through its CLI (analysis/visualize_erf.main):
            the flagship (random weights from a seed, given as --weights),
            fp32, 1024^2, 4 images, parameters frozen, launch counters set to
            0 just before and read just after (per image 36 K1 forward + 36
-           dgrad, 18 K2/K3, 6 K8, 12 K9, no weight-gradient or K4 launch);
+           dgrad, 18 K2/K3, 6 K8, 12 K9, K8 and K9 all in dy-only mode, no
+           weight-gradient or K4 launch);
            every image's map finite (all 4 averaged), the map nonzero and
            largest at the centre; one image on
            each route, maps within 1e-3; then one eval-mode backward (bf16,
@@ -93,8 +97,10 @@ Phases (any failure exits non-zero):
            (not in the default run; needs --base) the MLP backward (K8, K9)
            of another checkout against this tree's in one process, in turns
            base, change, change, base: K8 at stages 1-2 and K9 at stages
-           3-4 in bf16 at batch 128, both in fp32 at the 1024^2 ERF shapes,
-           the bf16 batch-128 train step (each tree's kernels and route);
+           3-4 in bf16 at batch 128, both in fp32 at the 1024^2 ERF shapes
+           in the full mode and as the ERF calls them (dy-only), one fp32
+           ERF image at 1024^2 (each tree's K8/K9), the bf16 batch-128
+           train step (each tree's kernels and route);
            then this tree's route alone, TRAIN_WIDE_MLP_BWD False against
            True.
 
@@ -136,8 +142,10 @@ TOL_SUMS = {"float32": 1e-5, "bfloat16": 1e-3}
 # N*H*W products in another order
 TOL_WGRAD = {"float32": 1e-4, "bfloat16": 1e-4}
 # the MLP backward: each output's max |kernel - plain| / max |plain|; in
-# bf16 a rounding flip of g or da moves the products by an ulp of bf16
-TOL_MLP_BWD = {"float32": 1e-3, "bfloat16": 2e-2}
+# bf16 a rounding flip of g or da moves the products by an ulp of bf16; in
+# fp32 the products are 3xTF32, as close as fp32 FFMA (the CUDA-core
+# kernels read 2.7e-6), while one TF32 pass reads about 3e-4
+TOL_MLP_BWD = {"float32": 2e-5, "bfloat16": 2e-2}
 # one train step, kernel route vs plain route from the same state: loss
 # (relative), each gradient (relative norm error), BN running stats
 # (max |diff| / max |plain|)
@@ -203,6 +211,9 @@ def peak_flops(dtype) -> float:
     import torch
     # H100 SXM peak: 989 TFLOP/s dense bf16, 67 fp32 (no TF32)
     return 989e12 if dtype == torch.bfloat16 else 67e12
+
+
+PEAK_TF32 = 495e12                          # H100 SXM dense TF32
 
 
 def bounds(byts, flops, dtype):
@@ -288,15 +299,16 @@ def random_pack(C, g, dtype, gamma=(0.1, 0.5)):
                        vec(0.1, 0.0), vec(*gamma), vec(0.1, 0.0), dtype)
 
 
-def unfused_bwd_ms(y, dout, pk, dtype):
+def unfused_bwd_ms(y, dout, pk, dtype, dy_only=False):
     """The autograd backward of the unfused torch composition (LN, two
     nn.Linear products, GELU, gamma) on NCHW y: the yardstick of the fused
-    backward kernels (one call of it does not exist)."""
+    backward kernels (one call of it does not exist); ``dy_only``: the
+    gradient of y alone, the parameters frozen."""
     import torch
     import torch.nn.functional as F
     C, F4 = pk.c, pk.f
     ln_s, ln_b, b2, gam, _ = pk.vec
-    leaves = [t.to(dtype).detach().requires_grad_() for t in (
+    leaves = [t.to(dtype).detach().requires_grad_(not dy_only) for t in (
         ln_s, ln_b, pk.w1[:F4, :C], pk.b1[:F4], pk.w2[:C, :F4], b2, gam)]
     yl = y.detach().requires_grad_()
     z = yl.permute(0, 2, 3, 1)
@@ -305,55 +317,94 @@ def unfused_bwd_ms(y, dout, pk, dtype):
                  leaves[5])
     out = (leaves[6] * z).permute(0, 3, 1, 2)
     return time_ms(lambda: torch.autograd.grad(
-        out, [yl] + leaves, dout, retain_graph=True), 3, warmup=1)
+        out, [yl] + ([] if dy_only else leaves), dout, retain_graph=True), 3,
+        warmup=1)
 
 
-def check_mlp_bwd(bwd, plain, y, dout, pk, tol, tag):
-    """Every output of a fused backward kernel against its plain version:
-    ({name: rel err}, max abs err)."""
+def check_mlp_bwd(bwd, plain, y, dout, pk, tol, tag, dy_only=False):
+    """Every output of a fused backward kernel against its plain version
+    (``dy_only``: dy, and no parameter gradient): ({name: rel err}, max
+    abs err)."""
     import torch
-    got, want = bwd(y, dout, pk, 1), plain(y, dout, pk, 1)
+    got = bwd(y, dout, pk, 1, dy_only=dy_only)
+    want = plain(y, dout, pk, 1, dy_only=dy_only)
     torch.cuda.synchronize()
     errs, d_max = {}, 0.0
     for nm, a, b in zip(MLP_BWD_NAMES, got, want):
+        if dy_only and nm != "dy":
+            _check(a is None and b is None, f"{tag}: dy-only gave {nm}")
+            continue
         d, r = rel_err(a, b)
         errs[nm], d_max = r, max(d_max, d)
         _check(r <= tol, f"{tag}: {nm} rel err {r:.3g} > {tol}")
     return errs, d_max
 
 
-def mlp_bwd_row(tag, name, bwd, plain, y, dout, pk, dtype, **extra):
-    """Check a fused backward kernel (``check_mlp_bwd``) and that two
-    launches give the same bits, time it, its plain version and the unfused
-    autograd backward, and print its row: (row, bytes ms, operations ms) of
-    its bound."""
+def mlp_bwd_bounds(name, T, C, F4, dtype, dy_only):
+    """(bytes ms, operations ms, {the operations bounds}) of a fused
+    backward launch: each input read once, each output written once; the
+    products the mode runs (six, 12 T C 4C operations; dy-only three). In
+    fp32 the operations bound is the lesser of 3xTF32 on the tensor cores
+    (three passes at 495 TFLOP/s) and FFMA (67 TFLOP/s)."""
+    import torch
+    item = torch.tensor([], dtype=dtype).element_size()
+    dy_item = 4 if name == "mlp_bwd_wide" else item      # K9's dy is fp32
+    outs = 4 * (F4 + 5 * C) if dy_only else 4 * (2 * C * F4 + F4 + 4 * C)
+    ops = (6 if dy_only else 12) * T * C * F4
+    b_ms, o_ms = bounds(2 * T * C * item + T * C * dy_item + 2 * C * F4 * item
+                        + outs, ops, dtype)
+    more = {}
+    if dtype == torch.float32:
+        tf32_ms = 3 * ops / PEAK_TF32 * 1e3
+        more = dict(ops_ms_3xtf32=tf32_ms, ops_ms_ffma=o_ms)
+        o_ms = min(o_ms, tf32_ms)
+    return b_ms, o_ms, more
+
+
+def mlp_bwd_rows(tag, name, bwd, plain, y, dout, pk, dtype,
+                 modes=("full",), **extra):
+    """Check a fused backward kernel in each of ``modes`` ("full",
+    "dy_only") against its plain version (``check_mlp_bwd``), that two
+    launches give the same bits and that dy-only's dy has the full mode's
+    bits, then time each mode, its plain version and the unfused autograd
+    backward and print its row: {mode: (row, bytes ms, operations ms)}."""
     import torch
     dn = str(dtype).split(".")[1]
-    item = torch.tensor([], dtype=dtype).element_size()
     tol = TOL_MLP_BWD[dn]
-    errs, d_max = check_mlp_bwd(bwd, plain, y, dout, pk, tol,
-                                f"{name} {extra} {dn}")
-    # no atomics: two launches on the same inputs give the same bits
-    first, second = bwd(y, dout, pk, 1), bwd(y, dout, pk, 1)
-    torch.cuda.synchronize()
-    _check(all(torch.equal(a, b) for a, b in zip(first, second)),
-           f"{name} {extra} {dn}: two launches differ")
-    del first, second
     C, F4 = pk.c, pk.f
     T = y.numel() // C
-    dy_item = 4 if name == "mlp_bwd_wide" else item      # K9's dy is fp32
-    b_ms, o_ms = bounds(2 * T * C * item + T * C * dy_item
-                        + 2 * C * F4 * item + 4 * (2 * C * F4 + F4 + 4 * C),
-                        12 * T * C * F4, dtype)
-    row = dict(kernel=name, dtype=dn, C=C, T=T, **extra, max_abs_err=d_max,
-               rel_err=errs, tol=tol, deterministic=True,
-               ms=time_ms(lambda: bwd(y, dout, pk, 1)),
-               plain_ms=time_ms(lambda: plain(y, dout, pk, 1), 3, warmup=1),
-               library_ms=None,
-               unfused_torch_ms=unfused_bwd_ms(y, dout, pk, dtype),
-               bound_ms=max(b_ms, o_ms))
-    print(f"[{tag}] " + json.dumps(row), flush=True)
-    return row, b_ms, o_ms
+    dys, out = {}, {}
+    for only in (False, True):
+        mode = "dy_only" if only else "full"
+        errs, d_max = check_mlp_bwd(bwd, plain, y, dout, pk, tol,
+                                    f"{name} {extra} {dn} {mode}", only)
+        # no atomics: two launches on the same inputs give the same bits
+        first = bwd(y, dout, pk, 1, dy_only=only)
+        second = bwd(y, dout, pk, 1, dy_only=only)
+        torch.cuda.synchronize()
+        _check(all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(first, second)),
+               f"{name} {extra} {dn} {mode}: two launches differ")
+        dys[mode] = first[0]
+        del first, second
+        if mode not in modes:
+            continue
+        b_ms, o_ms, more = mlp_bwd_bounds(name, T, C, F4, dtype, only)
+        row = dict(kernel=name, dtype=dn, mode=mode, C=C, T=T, **extra,
+                   max_abs_err=d_max, rel_err=errs, tol=tol,
+                   deterministic=True,
+                   ms=time_ms(lambda: bwd(y, dout, pk, 1, dy_only=only)),
+                   plain_ms=time_ms(lambda: plain(y, dout, pk, 1,
+                                                  dy_only=only), 3, warmup=1),
+                   library_ms=None,
+                   unfused_torch_ms=unfused_bwd_ms(y, dout, pk, dtype, only),
+                   bound_ms=max(b_ms, o_ms), bytes_ms=b_ms, ops_ms=o_ms,
+                   **more)
+        print(f"[{tag}] " + json.dumps(row), flush=True)
+        out[mode] = (row, b_ms, o_ms)
+    _check(torch.equal(dys["full"], dys["dy_only"]),
+           f"{name} {extra} {dn}: dy-only's dy differs from the full mode's")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -775,11 +826,11 @@ def phase_train_kernels(cfg, batch):
                 print(f"[train_kernels] {name} stage {i + 1} {dn} batch {nb}"
                       f" (T = {nb * H * H}): rel err " + json.dumps(errs),
                       flush=True)
-            row, b_ms, o_ms = mlp_bwd_row(
+            row, b_ms, o_ms = mlp_bwd_rows(
                 "train_kernels", name, bwd, plain, y, dout, pk, dtype,
                 stage=i + 1, layout="NCHW", batch=batch,
                 launches_per_step=depth if not wide or S.TRAIN_WIDE_MLP_BWD
-                else 0)
+                else 0)["full"]
             if dtype == torch.bfloat16:
                 row = dict(row, library_ms=row["unfused_torch_ms"])
                 add(name, row, depth, b_ms, o_ms)
@@ -796,8 +847,11 @@ def phase_train_kernels(cfg, batch):
 def phase_erf_kernels(cfg):
     """The ERF path's kernels against their plain versions in fp32 at the
     four 1024^2 stage shapes (batch 1): K1 (forward and flipped-tap
-    dgrad), K2/K3, K8 (stages 1-2) and K9 (stages 3-4). Returns per-image
-    totals for the JSON line (K9 in bf16: ``phase_train_kernels``)."""
+    dgrad), K2/K3, K8 (stages 1-2) and K9 (stages 3-4), K8 and K9 in both
+    modes (the ERF runs dy-only). Returns per-image totals for the JSON
+    line, K8/K9's in dy-only mode and, as mlp_bwd_full and
+    mlp_bwd_wide_full, in the full mode (K9 in bf16:
+    ``phase_train_kernels``)."""
     import torch
     import torch.nn.functional as F
     from slak_tpu_torch.ops import dwconv as K1
@@ -808,7 +862,7 @@ def phase_erf_kernels(cfg):
             "ops_ms")
     totals = {n: dict({k: 0.0 for k in keys}, err=0.0)
               for n in ("dwconv", "dwconv_dgrad", "fused_mlp", "mlp_bwd",
-                        "mlp_bwd_wide")}
+                        "mlp_bwd_wide", "mlp_bwd_full", "mlp_bwd_wide_full")}
 
     def add(name, row, n, b_ms, o_ms):
         t = totals[name]
@@ -884,11 +938,13 @@ def phase_erf_kernels(cfg):
         else:
             name, bwd, plain = ("mlp_bwd_wide", K2.fused_mlp_bwd_wide,
                                 K2.fused_mlp_bwd_wide_plain)
-        row, b_ms, o_ms = mlp_bwd_row("erf_kernels", name, bwd, plain, y,
-                                      dout, pk, dt, stage=i + 1, batch=1,
-                                      size=ERF_SIZE)
-        add(name, dict(row, library_ms=row["unfused_torch_ms"]), depth,
-            b_ms, o_ms)
+        rows = mlp_bwd_rows("erf_kernels", name, bwd, plain, y, dout, pk, dt,
+                            ("full", "dy_only"), stage=i + 1, batch=1,
+                            size=ERF_SIZE)
+        for mode, key in (("dy_only", name), ("full", name + "_full")):
+            row, b_ms, o_ms = rows[mode]
+            add(key, dict(row, library_ms=row["unfused_torch_ms"]), depth,
+                b_ms, o_ms)
         del y, res, dout, pk
         torch.cuda.empty_cache()
     print("[erf_kernels] per fp32 1024^2 image: " + json.dumps(
@@ -910,6 +966,7 @@ def reset_counts():
     K1, KW, K2 = _counters()
     K1.launch_count = K1.stats_launch_count = KW.launch_count = 0
     K2.launch_count = K2.bwd_launch_count = K2.wide_bwd_launch_count = 0
+    K2.bwd_dy_launch_count = K2.wide_bwd_dy_launch_count = 0
     K10.pair_launch_count = K2.dual_launch_count = 0
     K11.stacked_launch_count = K1.probe_launch_count = 0
 
@@ -932,7 +989,9 @@ def read_counts():
     return {"dwconv": K1.launch_count, "dwconv_stats": K1.stats_launch_count,
             "dwconv_wgrad": KW.launch_count, "fused_mlp": K2.launch_count,
             "mlp_bwd": K2.bwd_launch_count,
-            "mlp_bwd_wide": K2.wide_bwd_launch_count}
+            "mlp_bwd_wide": K2.wide_bwd_launch_count,
+            "mlp_bwd_dy_only": K2.bwd_dy_launch_count,
+            "mlp_bwd_wide_dy_only": K2.wide_bwd_dy_launch_count}
 
 
 def train_setup(batch, dtype, mask_kw, seed=0, snip=True, masks=None,
@@ -1029,7 +1088,8 @@ def phase_train(batch):
             "dwconv_wgrad": 2 * n_blocks * TRAIN_STEPS,
             "fused_mlp": (narrow + wide) * TRAIN_STEPS,
             "mlp_bwd": narrow * TRAIN_STEPS,
-            "mlp_bwd_wide": wide * TRAIN_STEPS}
+            "mlp_bwd_wide": wide * TRAIN_STEPS,
+            "mlp_bwd_dy_only": 0, "mlp_bwd_wide_dy_only": 0}
     print(f"[train] {TRAIN_STEPS} bf16 steps at batch {batch} in {sec:.2f} s;"
           f" launches {counts}; refreshes {n_refresh}; TRAIN_WIDE_MLP_BWD "
           f"{S.TRAIN_WIDE_MLP_BWD}", flush=True)
@@ -1151,11 +1211,13 @@ def phase_erf():
     want = {"dwconv": 4 * n_blocks * ERF_IMAGES, "dwconv_stats": 0,
             "dwconv_wgrad": 0, "fused_mlp": n_blocks * ERF_IMAGES,
             "mlp_bwd": narrow * ERF_IMAGES,
-            "mlp_bwd_wide": (n_blocks - narrow) * ERF_IMAGES}
+            "mlp_bwd_wide": (n_blocks - narrow) * ERF_IMAGES,
+            "mlp_bwd_dy_only": narrow * ERF_IMAGES,
+            "mlp_bwd_wide_dy_only": (n_blocks - narrow) * ERF_IMAGES}
     print(f"[erf] {ERF_IMAGES} fp32 images at {ERF_SIZE}^2: launches "
           f"{counts} (per image: K1 {2 * n_blocks} forward + {2 * n_blocks} "
-          f"dgrad, K2/K3 {n_blocks}, K8 {narrow}, K9 {n_blocks - narrow})",
-          flush=True)
+          f"dgrad, K2/K3 {n_blocks}, K8 {narrow}, K9 {n_blocks - narrow}, "
+          f"K8 and K9 in dy-only mode)", flush=True)
     _check(counts == want, f"ERF launch counts {counts}, want {want}")
     data = run["data"]
     c = ERF_SIZE // 2
@@ -1207,7 +1269,8 @@ def phase_erf():
             got = read_counts()
             want = {"dwconv": 4 * n_blocks, "dwconv_stats": 0,
                     "dwconv_wgrad": 2 * n_blocks, "fused_mlp": n_blocks,
-                    "mlp_bwd": narrow, "mlp_bwd_wide": n_blocks - narrow}
+                    "mlp_bwd": narrow, "mlp_bwd_wide": n_blocks - narrow,
+                    "mlp_bwd_dy_only": 0, "mlp_bwd_wide_dy_only": 0}
             _check(got == want, f"eval-grad launch counts {got}, want {want}")
         grads[plain] = {n: p.grad.float().clone()
                         for n, p in model.named_parameters()
@@ -1778,22 +1841,41 @@ def base_mlp_bwd(base: str):
 def phase_mlp_bwd_ab(cfg, base: str):
     """The MLP backward (K8, K9) of another checkout against this tree's,
     in one process, in turns base, change, change, base: K8 at stages 1-2
-    and K9 at stages 3-4 in bf16 at the train batch, K8 and K9 in fp32 at
-    the 1024^2 ERF shapes, and the bf16 train step (base: the base's
-    kernels with the stage 3-4 tails on the unfused composition, as the
-    base routes them; change: this tree's kernels and route). Then the
-    route alone, this tree's kernels: the step with TRAIN_WIDE_MLP_BWD
-    False (base) and True (change). Returns the rows."""
+    and K9 at stages 3-4 in bf16 at the train batch; K8 and K9 in fp32 at
+    the 1024^2 ERF shapes in the full mode and as the ERF calls them
+    (``_dy`` rows: this tree's dy-only mode; a base without that mode
+    runs its full sequence, as its ERF does); one fp32 ERF image at
+    1024^2 (the flagship's input gradient with frozen weights, the base's
+    K8/K9 swapped in); and the bf16 train step (base: the base's kernels
+    and its TRAIN_WIDE_MLP_BWD, read from its models/slak.py (False where
+    it has none); change: this tree's kernels and route). Then the route
+    alone, this tree's kernels: the step with TRAIN_WIDE_MLP_BWD False
+    (base) and True (change). Returns the rows."""
+    import inspect
+    import re
     import torch
+    from slak_tpu_torch.analysis.erf import get_input_grad
+    from slak_tpu_torch.models import create_model
     from slak_tpu_torch.models import slak as S
     from slak_tpu_torch.ops import mlp as K2
     from slak_tpu_torch.train.engine import make_train_step
     mod = base_mlp_bwd(base)
-    kernels = {"base": (mod.fused_mlp_bwd, mod.fused_mlp_bwd_wide),
+    with open(os.path.join(base, "slak_tpu_torch", "models", "slak.py")) as f:
+        m = re.search(r"^TRAIN_WIDE_MLP_BWD = (True|False)", f.read(), re.M)
+    base_wide = m is not None and m.group(1) == "True"
+
+    def with_mode(fn):
+        """fn as this tree's wrappers are called; a base wrapper without
+        dy-only mode runs its full sequence."""
+        if "dy_only" in inspect.signature(fn).parameters:
+            return fn
+        return lambda y, dout, pk, cd=-1, dy_only=False: fn(y, dout, pk, cd)
+    kernels = {"base": (with_mode(mod.fused_mlp_bwd),
+                        with_mode(mod.fused_mlp_bwd_wide)),
                "change": (K2.fused_mlp_bwd, K2.fused_mlp_bwd_wide)}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(50)
-    cases = []                               # (name, wide, y, dout, pk)
+    cases = []                          # (name, wide, y, dout, pk, dy_only)
     for dt, size, batch in ((torch.bfloat16, 224, TRAIN_BATCH),
                             (torch.float32, ERF_SIZE, 1)):
         dn = str(dt).split(".")[1]
@@ -1802,29 +1884,60 @@ def phase_mlp_bwd_ab(cfg, base: str):
             dout = (torch.randn(batch, C, H, H, generator=g, device=dev)
                     * 0.1).to(dt)
             wide = C > K2.BWD_C_MAX
-            cases.append((f"{'k9' if wide else 'k8'}_{dn}_{size}_stage"
-                          f"{i + 1}_ms", wide, y, dout,
-                          random_pack(C, g, dt)))
+            pk = random_pack(C, g, dt)
+            name = f"{'k9' if wide else 'k8'}_{dn}_{size}_stage{i + 1}"
+            cases.append((name + "_ms", wide, y, dout, pk, False))
+            if dt == torch.float32:
+                cases.append((name + "_dy_ms", wide, y, dout, pk, True))
     order = ("base", "change", "change", "base")
     rows = {c[0]: [] for c in cases}
     for route in order:
         k8, k9 = kernels[route]
-        for name, wide, y, dout, pk in cases:
+        for name, wide, y, dout, pk, only in cases:
             fn = k9 if wide else k8
-            rows[name].append(time_ms(lambda: fn(y, dout, pk, 1)))
+            rows[name].append(time_ms(
+                lambda: fn(y, dout, pk, 1, dy_only=only)))
     del cases
+    torch.cuda.empty_cache()
+    # one ERF image: the eval forward at 1024^2, fp32, and its input
+    # gradient, the parameters frozen
+    model = create_model("SLaK_tiny", seed=0, **MODEL_KW)
+    randomize(model, 1)
+    model.eval().requires_grad_(False)
+    image = torch.randn(1, ERF_SIZE, ERF_SIZE, 3, generator=g, device=dev)
+
+    def feature_fn(x):
+        stages = model.forward_features(x.permute(0, 3, 1, 2).contiguous(),
+                                        return_stages=True)
+        return stages[-1].permute(0, 2, 3, 1)
+    own = (K2.fused_mlp_bwd, K2.fused_mlp_bwd_wide, S.TRAIN_WIDE_MLP_BWD)
+    erf_ms, maps = [], {}
+    try:
+        for route in order:
+            K2.fused_mlp_bwd, K2.fused_mlp_bwd_wide = kernels[route]
+            maps[route] = get_input_grad(feature_fn, image)
+            erf_ms.append(time_ms(lambda: get_input_grad(feature_fn, image),
+                                  2, 1, 3))
+    finally:
+        K2.fused_mlp_bwd, K2.fused_mlp_bwd_wide = own[:2]
+    d, r = rel_err(torch.from_numpy(maps["change"]),
+                   torch.from_numpy(maps["base"]))
+    print(f"[mlp_bwd_ab] ERF map, change vs base: max abs {d:.4g}, rel "
+          f"{r:.4g} (tol {TOL_ERF_MAP})", flush=True)
+    _check(r <= TOL_ERF_MAP, f"mlp_bwd_ab: ERF map rel err {r:.3g}")
+    rows["erf_image_%d_fp32_ms" % ERF_SIZE] = erf_ms
+    del model, image
     torch.cuda.empty_cache()
     model, state, tc, mc, lr, batches = train_setup(
         TRAIN_BATCH, torch.bfloat16, dict(TRAIN_MASK, sparse_init="ERK",
                                           update_frequency=100), snip=False)
     step = make_train_step(model, tc, mc, lr)
     gen = torch.Generator(device=dev).manual_seed(3)
-    own = (K2.fused_mlp_bwd, K2.fused_mlp_bwd_wide, S.TRAIN_WIDE_MLP_BWD)
     step_ms, route_ms = [], []
     try:
         for route in order:
             K2.fused_mlp_bwd, K2.fused_mlp_bwd_wide = kernels[route]
-            S.TRAIN_WIDE_MLP_BWD = own[2] if route == "change" else False
+            S.TRAIN_WIDE_MLP_BWD = own[2] if route == "change" else base_wide
             step_ms.append(time_ms(lambda: step(state, batches[0], gen),
                                    5, 2, 3))
         K2.fused_mlp_bwd, K2.fused_mlp_bwd_wide = own[:2]
@@ -1839,7 +1952,8 @@ def phase_mlp_bwd_ab(cfg, base: str):
     for name, ms in rows.items():
         print(f"[mlp_bwd_ab] {name}: " + " / ".join(f"{v:.4f}" for v in ms)
               + "  (" + ", ".join(order) + ")", flush=True)
-    out = dict(order=order, train_wide_mlp_bwd=own[2], **rows)
+    out = dict(order=order, train_wide_mlp_bwd=own[2],
+               base_train_wide_mlp_bwd=base_wide, **rows)
     print("[mlp_bwd_ab] " + json.dumps(out), flush=True)
     del model, state, step, batches
     torch.cuda.empty_cache()
@@ -2046,7 +2160,10 @@ def main(argv=None) -> int:
                       else "operations"),
             library_ms=None, unfused_torch_ms=t["library_ms"],
             library="none; unfused_torch_ms is the autograd backward of the "
-            "unfused composition",
+            "unfused composition (the gradient of y alone in dy-only mode)",
+            mode="dy_only", ops_bound="3xTF32 (3 passes at 495 TFLOP/s)",
+            full_mode={k: erf_totals["mlp_bwd_wide_full"][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms")},
             times_per="one float32 ERF image at %d^2 (9 launches at T=4096 "
             "C=499, 3 at T=1024 C=998)" % ERF_SIZE,
             launches_in="the ERF path: %d float32 images at %d^2"
@@ -2083,6 +2200,11 @@ def main(argv=None) -> int:
                         % ERF_SIZE)
                     if lib:
                         k[lib] = per["library_ms"]
+                    if name == "mlp_bwd":
+                        full = erf_totals["mlp_bwd_full"]
+                        k.update(erf_mode="dy_only", erf_full_mode={
+                            f: full[f] for f in ("ms", "plain_ms",
+                                                 "library_ms", "bound_ms")})
         if erf_run is not None:
             for k in kernels:
                 if k["name"] in ("dwconv", "fused_mlp", "mlp_bwd"):

@@ -131,20 +131,23 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A tensor map of the row-major bf16 matrix (rows, cols) at base: boxes of
-// box_cols columns x box_rows rows, in the 128-byte swizzle (wgmma's
-// operands) or plain; loads fill zeros outside, stores clip. Rows are
-// pitch elements apart (default cols).
+// A tensor map of the row-major bf16 (or, f32, float32) matrix (rows, cols)
+// at base: boxes of box_cols columns x box_rows rows, in the 128-byte
+// swizzle (wgmma's operands) or plain; loads fill zeros outside, stores
+// clip. Rows are pitch elements apart (default cols).
 bool tensor_map(CUtensorMap* map, const void* base, long long rows,
                 int cols, int box_rows, int box_cols = 64,
-                bool swizzle = true, long long pitch = 0) {
+                bool swizzle = true, long long pitch = 0, bool f32 = false) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
+  const size_t elem_bytes = f32 ? sizeof(float) : sizeof(__nv_bfloat16);
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)(pitch > 0 ? pitch : cols) * sizeof(__nv_bfloat16)};
+  const cuuint64_t strides[1] = {(cuuint64_t)(pitch > 0 ? pitch : cols) * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            2, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -14,7 +14,8 @@
 // fit a block above Cp = 256. So the work is split by what each output
 // reduces over, every step a launch over scratch, no sum carried between
 // blocks:
-//  1. wide_prep_kernel, 32 tokens a block (16 in bf16 above Cp = 512):
+//  1. wide_prep_kernel, 32 tokens a block (above Cp = 512: 16 in bf16, 8
+//     in float32):
 //     the LayerNorm (mean and inv to scratch), h -> hs and [do | dout] ->
 //     dd, rounded; the block's column sums of do (db2) and dout.
 //  2. a = h W1^T and dg = do W2 over K = Cp, with the epilogue g = GELU(a +
@@ -29,9 +30,17 @@
 //     dout]^T g, split along the tokens, and dgamma_kernel: dgamma = sum_f
 //     W2^T[c, f] M[c, f] + b2[c] sum_t dout (= sum_t dout (g W2^T + b2), so
 //     the per-token g W2^T is never formed).
-// Block and split partials are added in a fixed order (sum_partials, and
-// in bf16 reduce_rows for the many rows of the per-token kernels): no
-// atomics, the same bits every run.
+// Block and split partials are added in a fixed order (reduce_rows for the
+// many rows of the per-token kernels and of db1, sum_partials for the
+// token splits): no atomics, the same bits every run.
+//
+// dy-only mode (the caller asks for no parameter gradient: the ERF's input
+// gradient with frozen weights) runs steps 1-4 and stops: no token
+// reduction, no dgamma, none of the sums that only the parameter gradients
+// read; in float32 the prep and the GELU product also skip the scratch
+// (h, [do | dout], g, da whole) that only step 5 reads. dy comes from the
+// same launches of steps 1-4 in both modes, so its bits do not depend on
+// the mode.
 //
 // bf16 runs the products (2, 3 and 5) as one persistent, warp-specialised
 // Hopper GEMM kernel (bwd_gemm_kernel, below): a producer thread keeps TMA
@@ -40,26 +49,29 @@
 // rows (W2^T and W1^T in products 2-3, and the token-major scratch in the
 // token reductions) the operand is read MN-major: wgmma's transposed form,
 // so no operand is repacked. float32 (the differentiated eval's ERF path)
-// runs the products on the CUDA cores (simt_tile.cuh: 64 x 64 tiles, 4 x 4
-// a thread, shared with K2/K3's f32 path).
+// runs products 2 and 3 as 3xTF32 on the same kind of kernel
+// (tf32_gemm_kernel, below: each operand split into big and small TF32
+// parts, three TF32 products a k step, as accurate as fp32, the Hopper
+// analogue of the TPU kernels' Precision.HIGHEST); its token reductions
+// stay on the CUDA cores (simt_tile.cuh: 64 x 64 tiles, 4 x 4 a thread).
 //
 // Rounding follows _mlp_bwd_kernel: LN statistics, a, gelu, dg, da and dh
 // in fp32; h, g, do and da rounded to the compute dtype before the
 // products that use them; exact erf. The weights are pack_mlp's W1^T (Fp,
 // Cp) and W2^T (Cp, Fp), zero-padded to Cp (a multiple of 16) and Fp (of
-// 64); products load zeros past K and N (TMA's fill in bf16), the
-// per-token kernels mask the ragged channels and tokens, so padded hidden
-// units and channels give exactly zero gradients, which the wrapper slices
-// away.
+// 64); products load zeros past K and N (TMA's fill), the per-token
+// kernels mask the ragged channels and tokens, so padded hidden units and
+// channels give exactly zero gradients, which the wrapper slices away.
 //
 // What bounds it on an H100: the six products, 12*T*C*4C operations, 0.30
 // ms at 989 TFLOP/s bf16 at batch 128's stages 1-4; f32 about 49 GFLOP an
-// ERF launch, 0.73 ms at 67 TFLOP/s. The scratch round trips (h, do, dout,
-// g, da in the compute dtype, dh in f32; at stage 1, batch 128, about 3
-// GB: 0.9 ms at 3.35 TB/s) weigh as much as the products in bf16, and the
-// exact-erf GELU' epilogue (T x 4C erf and exp) is CUDA-core work that
-// the two consumer warpgroups do while the tensor cores wait (PERF.md has
-// the measured split).
+// ERF launch (24.6 in dy-only mode), 0.73 ms at 67 TFLOP/s FFMA, 0.30 (dy
+// only: 0.15) as three TF32 passes at 495 TFLOP/s. The scratch round trips
+// (h, do, dout, g, da in the compute dtype, dh in f32; at stage 1, batch
+// 128, about 3 GB: 0.9 ms at 3.35 TB/s) weigh as much as the products in
+// bf16, and the exact-erf GELU' epilogue (T x 4C erf and exp) is CUDA-core
+// work that the two consumer warpgroups do while the tensor cores wait
+// (PERF.md has the measured split).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -105,6 +117,22 @@ __device__ __forceinline__ float rows_sum(float v) {
   return v;
 }
 
+// x rounded to TF32 (round to nearest, ties away from zero), its low 13
+// bits cleared (the PTX leaves them unspecified), and the split x = big +
+// small of 3xTF32: small = (x - big) rounded to TF32 as well, so that no
+// product depends on how the tensor cores treat an operand's low bits.
+__device__ __forceinline__ float tf32_big(float x) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
+  return __uint_as_float(u & 0xffffe000u);
+}
+__device__ __forceinline__ void split_tf32(float x, float* big,
+                                           float* small) {
+  const float b = tf32_big(x);
+  *big = b;
+  *small = tf32_big(x - b);
+}
+
 struct BArgs {
   const void* y;       // activations, strided (see slak_fused_mlp)
   const void* dout;
@@ -137,6 +165,16 @@ __device__ void token_offsets(const BArgs& a, long long t0, long long* tok) {
     tok[t] = off;
   }
 }
+
+// float32's prep outputs for the 3xTF32 products: the big and small TF32
+// planes of h and of do, each (2 Tp, Cp), big rows first; full: also h
+// and [do | dout] whole into hs and dd, for the token reductions.
+struct PrepF32 {
+  float* h;
+  float* dd;
+  long long Tp;
+  int full;
+};
 
 // Walk the tile's (token, channel < Cp) elements, neighbouring lanes on
 // neighbouring addresses: along C when it is the unit stride (a warp a
@@ -192,15 +230,18 @@ __host__ __device__ inline size_t take(size_t* o, size_t bytes) {
 
 constexpr int kWT = 32;        // tokens a block in the per-token kernels
 constexpr int kWTNarrow = 16;  // ... in bf16 above Cp = 512
+constexpr int kWTF32Narrow = 8;    // ... in float32 above Cp = 512
 constexpr int kWPadT = 128;    // the tokens are padded to a multiple of this
 
-// The per-token kernels' token tile for a compute dtype of e bytes: bf16
-// above 512 channels takes 16 tokens a block, so that the few blocks of a
-// wide tail (196 of 129 KB shared each at batch 128's stage 4 with 32)
-// fill the SMs. Measured at batch 128 (PERF.md): 16 tokens a block took
-// stage 4 from 1.25 to 1.02 ms, and lost at stages 1-3, as did 8 and 64.
+// The per-token kernels' token tile for a compute dtype of e bytes: above
+// 512 channels bf16 takes 16 tokens a block and float32 8, so that the few
+// blocks of a wide tail (196 of 129 KB shared each at batch 128's stage 4
+// with 32; 32 at the ERF's stage 4, 1024 tokens) fill the SMs. Measured at
+// batch 128 (PERF.md): 16 tokens a block took stage 4 from 1.25 to 1.02
+// ms, and lost at stages 1-3, as did 8 and 64.
 inline int token_tile(size_t e, int Cp) {
-  return e == 2 && Cp > 512 ? kWTNarrow : kWT;
+  if (Cp <= 512) return kWT;
+  return e == 2 ? kWTNarrow : kWTF32Narrow;
 }
 
 // Shared layout of the per-token kernels: tile [BT][Cp + 1] f32 (the odd
@@ -221,10 +262,12 @@ __host__ __device__ inline TLayout t_layout(int Cp, int BT = kWT) {
 }
 
 // The LayerNorm (each token's mean and inv to scratch), h rounded -> hs,
-// [do | dout] rounded -> dd, and this block's column sums of do (db2) and
+// [do | dout] rounded -> dd (float32: h and do as TF32 planes -> sp, and
+// whole only in full mode), and this block's column sums of do (db2) and
 // dout -> vpart_a[blockIdx.x]. Padded tokens and channels give zeros.
 template <typename T, int BT = kWT>
-__global__ void __launch_bounds__(kThreads) wide_prep_kernel(BArgs a) {
+__global__ void __launch_bounds__(kThreads)
+wide_prep_kernel(BArgs a, const PrepF32 sp) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int C = a.C, Cp = a.Cp, LDW = Cp + 1;
   const TLayout L = t_layout(Cp, BT);
@@ -269,9 +312,20 @@ __global__ void __launch_bounds__(kThreads) wide_prep_kernel(BArgs a) {
     }
   }
   __syncthreads();
-  for (int i = tid; i < BT * Cp; i += kThreads) {
-    const int t = i / Cp, c = i - t * Cp;
-    h_g[(t0 + t) * Cp + c] = from_f<T>(tile[t * LDW + c]);
+  if constexpr (sizeof(T) == 4) {
+    const long long plane = sp.Tp * Cp;
+    for (int i = tid; i < BT * Cp; i += kThreads) {
+      const int t = i / Cp, c = i - t * Cp;
+      const long long o = (t0 + t) * Cp + c;
+      const float v = tile[t * LDW + c];
+      split_tf32(v, sp.h + o, sp.h + plane + o);
+      if (sp.full) h_g[o] = from_f<T>(v);
+    }
+  } else {
+    for (int i = tid; i < BT * Cp; i += kThreads) {
+      const int t = i / Cp, c = i - t * Cp;
+      h_g[(t0 + t) * Cp + c] = from_f<T>(tile[t * LDW + c]);
+    }
   }
   __syncthreads();
   for_tile<4>(
@@ -286,9 +340,19 @@ __global__ void __launch_bounds__(kThreads) wide_prep_kernel(BArgs a) {
     for (int t = 0; t < BT; ++t) {
       const float d = tile[t * LDW + c];
       const float v = d * gm;
-      T* row = dd_g + (t0 + t) * 2 * Cp;
-      row[c] = from_f<T>(v);
-      row[Cp + c] = from_f<T>(d);
+      if constexpr (sizeof(T) == 4) {
+        const long long o = (t0 + t) * Cp + c;
+        split_tf32(v, sp.dd + o, sp.dd + sp.Tp * Cp + o);
+        if (sp.full) {
+          T* row = dd_g + (t0 + t) * 2 * Cp;
+          row[c] = from_f<T>(v);
+          row[Cp + c] = from_f<T>(d);
+        }
+      } else {
+        T* row = dd_g + (t0 + t) * 2 * Cp;
+        row[c] = from_f<T>(v);
+        row[Cp + c] = from_f<T>(d);
+      }
       s += v;
       sd += d;
     }
@@ -366,33 +430,6 @@ wide_lnb_kernel(BArgs a, const float* __restrict__ dh) {
       });
 }
 
-// float32: the two token-row products (row-major operands, pitches in
-// elements):
-//  fused:  a = h W1^T (B = W1^T rows, [n = f][k = c]) and dg = do W2 (B =
-//          W2^T, [k = c][n = f]) over K = Cp; then g = GELU(a + b1) and
-//          da = dg gelu'(a + b1), rounded -> g, da (Tp, Fp); the block's
-//          column sums of da (db1) -> vpart[blockIdx.x] (row pitch ldo).
-//  !fused: dh = da W1 (B = W1^T, [k = f][n = c]) over K = Fp -> dh (Tp, N)
-//          f32.
-template <typename T>
-struct PArgs {
-  const T* a0;          // h (fused) or da, [t][k]
-  long long lda0;
-  const T* a1;          // do (fused), [t][k]
-  long long lda1;
-  const T* bn;          // [n][k] (fused)
-  long long ldbn;
-  const T* bk;          // [k][n]
-  long long ldbk;
-  int K, N;
-  const float* b1;      // fused
-  T* g;                 // fused outputs, row pitch ldo
-  T* da;
-  long long ldo;
-  float* vpart;
-  float* dh;            // !fused output, row pitch N
-};
-
 // GELU of a = acc + bias, and gelu'(a) * dg
 __device__ __forceinline__ void gelu_pair(float acc, float bias, float dg,
                                           float* g, float* da) {
@@ -400,83 +437,6 @@ __device__ __forceinline__ void gelu_pair(float acc, float bias, float dg,
   const float er = erff(v * kInvSqrt2);
   *g = 0.5f * v * (1.f + er);
   *da = dg * (0.5f * (1.f + er) + v * kInvSqrt2Pi * __expf(-0.5f * v * v));
-}
-
-// float32 on the CUDA cores: the same products as simt_tile.cuh tiles (64
-// x 64 a block, 4 x 4 a thread), K in steps of 16 through shared memory;
-// fused runs the two products one after the other over the same rows.
-constexpr int kSM = simt_tile::kTile, kSN = simt_tile::kTile, kSK = 16;
-
-template <bool FUSED>
-__global__ void __launch_bounds__(kThreads, simt_tile::kMinBlocks)
-    wide_simt_kernel(PArgs<float> p) {
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const long long m0 = (long long)blockIdx.x * kSM;
-  const int n0 = blockIdx.y * kSN;
-  const long long K = p.K;
-  auto a0 = [&](int r, long long k) {
-    return k < K ? p.a0[(m0 + r) * p.lda0 + k] : 0.f;
-  };
-  // B = [k][n] (bk): W1^T for dh = da W1, W2^T for dg = do W2
-  auto bk = [&](int n, long long k) {
-    return k < K && n0 + n < p.N ? p.bk[k * p.ldbk + n0 + n] : 0.f;
-  };
-  float acc_k[4][4] = {};
-  if constexpr (!FUSED) {
-    simt_tile::product<kSK, true, false>(a0, bk, 0, K, acc_k);
-    for (int i = 0; i < 4; ++i) {
-      const long long row = m0 + tr * 4 + i;
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tc * 4 + j;
-        if (n < p.N) p.dh[row * p.N + n] = acc_k[i][j];
-      }
-    }
-  } else {
-    __shared__ float colp[16][kSN];
-    float acc_n[4][4] = {};
-    simt_tile::product<kSK, true, true>(
-        a0,
-        [&](int n, long long k) {
-          return k < K ? p.bn[(long long)(n0 + n) * p.ldbn + k] : 0.f;
-        },
-        0, K, acc_n);
-    simt_tile::product<kSK, true, false>(
-        [&](int r, long long k) {
-          return k < K ? p.a1[(m0 + r) * p.lda1 + k] : 0.f;
-        },
-        bk, 0, K, acc_k);
-    float cs[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int i = 0; i < 4; ++i) {
-      const long long row = m0 + tr * 4 + i;
-      float gv[4], dv[4];
-      for (int j = 0; j < 4; ++j) {
-        gelu_pair(acc_n[i][j], p.b1[n0 + tc * 4 + j], acc_k[i][j], &gv[j],
-                  &dv[j]);
-        cs[j] += dv[j];
-      }
-      *reinterpret_cast<float4*>(p.g + row * p.ldo + n0 + tc * 4) =
-          make_float4(gv[0], gv[1], gv[2], gv[3]);
-      *reinterpret_cast<float4*>(p.da + row * p.ldo + n0 + tc * 4) =
-          make_float4(dv[0], dv[1], dv[2], dv[3]);
-    }
-    for (int j = 0; j < 4; ++j) colp[tr][tc * 4 + j] = cs[j];
-    __syncthreads();
-    if (tid < kSN) {
-      float s = 0.f;
-      for (int r = 0; r < 16; ++r) s += colp[r][tid];
-      p.vpart[(long long)blockIdx.x * p.ldo + n0 + tid] = s;
-    }
-  }
-}
-
-cudaError_t run_product(const PArgs<float>& p, bool fused, long long Tp,
-                        cudaStream_t s) {
-  const dim3 grid((unsigned)(Tp / kSM), (p.N + kSN - 1) / kSN);
-  if (fused)
-    wide_simt_kernel<true><<<grid, kThreads, 0, s>>>(p);
-  else
-    wide_simt_kernel<false><<<grid, kThreads, 0, s>>>(p);
-  return cudaGetLastError();
 }
 
 // dgamma[c] = sum_f W2^T[c, f] M[c, f] + b2[c] sum_t dout[t, c], a warp a
@@ -552,7 +512,7 @@ cudaError_t reduce(const float* part, float* out, long long n, int parts,
 // no thread walks them all: chunks of kChunk rows summed by parallel
 // blocks (32 columns x 8 row lanes a block, the lanes' sums added in
 // order) into `chunks` (ceil(parts / kChunk), n), then those in order by
-// sum_partials. bf16 takes it; float32 keeps reduce.
+// sum_partials.
 constexpr int kChunk = 64;
 
 __global__ void __launch_bounds__(256)
@@ -614,12 +574,12 @@ cudaError_t gemm_f32(const void* A, int lda, const void* B, int ldb,
   return reduce(part, out, (long long)M * N, splits, s);
 }
 
-template <typename K>
-cudaError_t run(K kernel, const BArgs& a, int grid, size_t smem,
-                cudaStream_t s) {
+template <typename K, typename... Args>
+cudaError_t run(K kernel, int grid, size_t smem, cudaStream_t s,
+                Args... args) {
   cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel));
   if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem, s>>>(a);
+  kernel<<<grid, kThreads, smem, s>>>(args...);
   return cudaGetLastError();
 }
 
@@ -927,7 +887,7 @@ cudaError_t run_gemm(const CUtensorMap* m, GemmArgs gm, int splits, int sms,
 cudaError_t products_bf16(const BArgs& a, long long Tp, float* dh,
                           float* vp_db1, float* chunks, float* wpart1,
                           float* wpart2, float* dvec, float* dw1, float* dw2,
-                          int s1, int s2, cudaStream_t s) {
+                          int s1, int s2, bool full, cudaStream_t s) {
   const int Cp = a.Cp, Fp = a.Fp;
   const int sms = sm_count();
   CUtensorMap m[6];
@@ -947,9 +907,11 @@ cudaError_t products_bf16(const BArgs& a, long long Tp, float* dh,
   g.vpart = vp_db1;
   cudaError_t e = run_gemm<128, true, false, false>(m, g, 1, sms, s);
   if (e != cudaSuccess) return e;
-  e = reduce_rows(vp_db1, dvec, Fp, (int)(2 * ((Tp + kBM - 1) / kBM)),
-                  chunks, s);
-  if (e != cudaSuccess) return e;
+  if (full) {
+    e = reduce_rows(vp_db1, dvec, Fp, (int)(2 * ((Tp + kBM - 1) / kBM)),
+                    chunks, s);
+    if (e != cudaSuccess) return e;
+  }
   // 3. dh = da W1: A da (K-major), B W1^T [k = f][n = c] (MN-major)
   const int bn = pick_bn((Tp + kBM - 1) / kBM, Cp, sms, {128, 256});
   if (!tensor_map(&m[0], a.das, Tp, Fp, kBM) ||
@@ -963,7 +925,7 @@ cudaError_t products_bf16(const BArgs& a, long long Tp, float* dh,
   d.ld = Cp;
   e = bn == 128 ? run_gemm<128, false, false, true>(m, d, 1, sms, s)
                 : run_gemm<256, false, false, true>(m, d, 1, sms, s);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess || !full) return e;
   // 5. dW1^T (Fp, Cp) = da^T h and [dW2^T; M] (2 Cp, Fp) = [do | dout]^T g,
   // K = the tokens: both operands MN-major
   const int kb_t = (int)(Tp / kBK);
@@ -995,21 +957,399 @@ cudaError_t products_bf16(const BArgs& a, long long Tp, float* dh,
   return reduce(wpart2, dw2, 2LL * Cp * Fp, parts, s);
 }
 
+// ===========================================================================
+// float32: products 2 and 3 as 3xTF32 on the tensor cores (TMA-fed wgmma)
+//
+// Every operand x of the two products is stored as two TF32 planes, big =
+// x rounded to TF32 and small = (x - big) rounded to TF32 (split_tf32),
+// the small plane under the big one: (2 R, K) for R rows. A k step of 8
+// runs three TF32 wgmma into one fp32 accumulator, small A x big B, big A x
+// small B, big A x big B; small x small (2^-22 of the product) is dropped.
+// That is as accurate as fp32 FFMA (one TF32 pass is about 3e-4 off), the
+// counterpart of the TPU kernels' Precision.HIGHEST, a multi-pass bf16
+// product. TF32 wgmma reads K-major operands only, so the weights enter as
+// W1^T (Fp, Cp) for a = h W1^T, and as the transposed copies W2 (Fp, Cp)
+// for dg = do W2 and W1 (Cp, Fp) for dh = da W1, all split by
+// split_kernel each launch; h and do are split by wide_prep_kernel, da by
+// the GELU epilogue.
+//
+// The kernel is bwd_gemm_kernel's shape: persistent blocks of two consumer
+// warpgroups (64 rows each) and one producer thread, an mbarrier ring of
+// stages that each hold one 32-float k block (128 bytes, the 128-byte
+// swizzle's row) of A's and B's two planes, on 128 x 64 tiles. The tensor
+// cores do not round their fp32 sums to nearest: measured on the H100,
+// accumulating the whole K in the wgmma accumulator left dy 3.7e-5 off at
+// K = 4032 (the error grew with K), against 2.7e-6 for FFMA. So each k
+// block's 12 wgmma go into a fresh partial (two, in turns, so that one is
+// summed while the other's products run) and the partials are added into
+// the tile's sums with fp32 adds. GELU (product 2) walks the k blocks of a
+// = h W1^T, then those of dg = do W2, into two sums; its epilogue writes
+// da's planes (and g and da whole for the token reductions in full mode)
+// and the db1 column sums, F32 (product 3) the sums to dh.
+// ===========================================================================
+
+constexpr int kKf = 32;                 // floats of a k block (128 bytes)
+constexpr int kBNf = 64;                // columns of a tile
+
+struct Tf32Args {
+  int M, N;              // rows m < M (a multiple of kBM), columns n < N:
+                         // the rows of A's and of B's big planes
+  int kb;                // k blocks of each product
+  int m_tiles, n_tiles;
+  long long tiles;
+  float* out;            // F32: (M, N)
+  const float* b1;       // GELU: (N)
+  float* vpart;          // GELU: (2 m_tiles, N)
+  float* da;             // GELU: da's planes (2 M, N)
+  float* g;              // GELU, full mode: g and da whole (M, N); else null
+  float* da_full;
+};
+
+template <bool GELU> struct Tf32Cfg {
+  static constexpr int BN = kBNf;
+  static constexpr int kABytes = kBM * 128;      // one plane of A's k block
+  static constexpr int kBBytes = BN * 128;
+  static constexpr int kStageBytes = 2 * (kABytes + kBBytes);
+  static constexpr size_t kCsBytes = GELU ? 2 * 4 * BN * sizeof(float) : 0;
+  static constexpr size_t kAvail =
+      kSmemMax - 1024 - kCsBytes - 16 * sizeof(uint64_t);
+  static constexpr int kStages =
+      kAvail / kStageBytes > 6 ? 6 : (int)(kAvail / kStageBytes);
+  static constexpr size_t kCs = (size_t)kStages * kStageBytes;
+  static constexpr size_t kBar = kCs + kCsBytes;
+  static constexpr size_t kSmem = 1024 + kBar + 2 * kStages * sizeof(uint64_t);
+  static_assert(kStages >= 2 && kSmem <= kSmemMax, "fits a block");
+};
+
+// d (64 x kBNf) = one k block of A B^T as 3xTF32 (a = A's big plane, as
+// its small one, likewise b and bs for B), 8 deep a step
+__device__ __forceinline__ void mma_3xtf32(float* d, uint64_t a, uint64_t as,
+                                           uint64_t b, uint64_t bs) {
+#pragma unroll
+  for (int kk = 0; kk < kKf / 8; ++kk) {
+    wgmma::tf32<kBNf>(d, as + 2 * kk, b + 2 * kk, kk);
+    wgmma::tf32<kBNf>(d, a + 2 * kk, bs + 2 * kk, 1);
+    wgmma::tf32<kBNf>(d, a + 2 * kk, b + 2 * kk, 1);
+  }
+}
+
+// d[i] += p[i], in fp32 (rounded to nearest)
+template <int R>
+__device__ __forceinline__ void add_into(float* d, const float* p) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] += p[i];
+}
+
+template <bool GELU>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+tf32_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b,
+                 const __grid_constant__ CUtensorMap map_a2,
+                 const __grid_constant__ CUtensorMap map_b2,
+                 const Tf32Args gm) {
+  constexpr int BN = kBNf, R = BN / 2;
+  using L = Tf32Cfg<GELU>;
+  constexpr int S = L::kStages;
+  unsigned char* sm = smem_1k();
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + S;
+  const int n_kb = GELU ? 2 * gm.kb : gm.kb;     // k blocks of a tile
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {                      // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int s = 0, ph = 0;
+      for (long long tile = blockIdx.x; tile < gm.tiles; tile += gridDim.x) {
+        const int mt = (int)(tile / gm.n_tiles);
+        const int m0 = mt * kBM;
+        const int n0 = (int)(tile - (long long)mt * gm.n_tiles) * BN;
+        for (int kb = 0; kb < n_kb; ++kb) {
+          const bool second = GELU && kb >= gm.kb;
+          const CUtensorMap* ma = second ? &map_a2 : &map_a;
+          const CUtensorMap* mb = second ? &map_b2 : &map_b;
+          const int k = (second ? kb - gm.kb : kb) * kKf;
+          mbar_wait(&empty[s], ph ^ 1);
+          unsigned char* st = sm + s * L::kStageBytes;
+          mbar_expect_tx(&full[s], L::kStageBytes);
+          tma_load(st, ma, &full[s], k, m0);
+          tma_load(st + L::kABytes, ma, &full[s], k, gm.M + m0);
+          tma_load(st + 2 * L::kABytes, mb, &full[s], k, n0);
+          tma_load(st + 2 * L::kABytes + L::kBBytes, mb, &full[s], k,
+                   gm.N + n0);
+          if (++s == S) { s = 0; ph ^= 1; }
+        }
+      }
+    }
+  } else {                                       // consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
+    const int lane = threadIdx.x & 31, warp = wt >> 5;
+    const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+    int s = 0, ph = 0;
+    for (long long tile = blockIdx.x; tile < gm.tiles; tile += gridDim.x) {
+      const int mt = (int)(tile / gm.n_tiles);
+      const int n0 = (int)(tile - (long long)mt * gm.n_tiles) * BN;
+      const int m0 = mt * kBM + wg * 64;         // this warpgroup's rows
+      wg_sync(wg);                     // the last tile's epilogue is done
+      // sum (a, or dh) and sum2 (dg): the tile's fp32 sums; p0 and p1 the
+      // partials of the even and odd k blocks
+      float sum[R], sum2[GELU ? R : 1], p0[R], p1[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) sum[i] = 0.f;
+      if constexpr (GELU) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) sum2[i] = 0.f;
+      }
+      int prev = -1;
+      // block kb's 12 wgmma into its partial p, from stage s
+      const auto run_block = [&](float* p) {
+        mbar_wait(&full[s], ph);
+        const unsigned char* st = sm + s * L::kStageBytes;
+        const uint64_t a = wgmma::desc_sw128(st + wg * kBox);
+        const uint64_t as = wgmma::desc_sw128(st + L::kABytes + wg * kBox);
+        const uint64_t b = wgmma::desc_sw128(st + 2 * L::kABytes);
+        const uint64_t bs =
+            wgmma::desc_sw128(st + 2 * L::kABytes + L::kBBytes);
+        wgmma::fence();
+        mma_3xtf32(p, a, as, b, bs);
+        wgmma::commit();
+      };
+      // block kb's partial p, whose products are done, into its sum; its
+      // stage back to the producer
+      const auto promote = [&](float* p, int kb) {
+        wgmma::fence_operands<R>(p);
+        if (lane == 0) mbar_arrive(&empty[prev]);
+        if constexpr (GELU) {
+          if (kb >= gm.kb) {
+            add_into<R>(sum2, p);
+            return;
+          }
+        }
+        add_into<R>(sum, p);
+      };
+      for (int kb = 0; kb < n_kb; kb += 2) {
+        run_block(p0);
+        wgmma::wait<1>();              // block kb - 1's products
+        if (kb > 0) promote(p1, kb - 1);
+        prev = s;
+        if (++s == S) { s = 0; ph ^= 1; }
+        if (kb + 1 == n_kb) break;
+        run_block(p1);
+        wgmma::wait<1>();              // block kb's products
+        promote(p0, kb);
+        prev = s;
+        if (++s == S) { s = 0; ph ^= 1; }
+      }
+      wgmma::wait<0>();
+      if (n_kb & 1)
+        promote(p0, n_kb - 1);
+      else
+        promote(p1, n_kb - 1);
+
+      // fragment layout: rows r0 and r0 + 8, n8 group j's columns
+      // 8 j + c0 + {0, 1} in sum[4 j .. 4 j + 3]
+      if constexpr (!GELU) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int n = n0 + 8 * j + c0;
+          if (n >= gm.N) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long long row = m0 + r0 + 8 * h;
+            *reinterpret_cast<float2*>(gm.out + row * gm.N + n) =
+                make_float2(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
+          }
+        }
+      } else {
+        float* cs = reinterpret_cast<float*>(sm + L::kCs) + wg * 4 * BN;
+        const long long plane = (long long)gm.M * gm.N;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = 8 * j + c0, n = n0 + col;
+          const bool in = n < gm.N;
+          const float2 bb = in ? *reinterpret_cast<const float2*>(gm.b1 + n)
+                               : make_float2(0.f, 0.f);
+          float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h;
+            float g0, g1, d0, d1;
+            gelu_pair(sum[i], bb.x, sum2[i], &g0, &d0);
+            gelu_pair(sum[i + 1], bb.y, sum2[i + 1], &g1, &d1);
+            if (in) {
+              const long long o = (long long)(m0 + r0 + 8 * h) * gm.N + n;
+              const float e0 = tf32_big(d0), e1 = tf32_big(d1);
+              *reinterpret_cast<float2*>(gm.da + o) = make_float2(e0, e1);
+              *reinterpret_cast<float2*>(gm.da + plane + o) =
+                  make_float2(tf32_big(d0 - e0), tf32_big(d1 - e1));
+              if (gm.g != nullptr) {
+                *reinterpret_cast<float2*>(gm.g + o) = make_float2(g0, g1);
+                *reinterpret_cast<float2*>(gm.da_full + o) =
+                    make_float2(d0, d1);
+              }
+            }
+            s0 += d0;
+            s1 += d1;
+          }
+          s0 = rows_sum(s0);
+          s1 = rows_sum(s1);
+          if (lane < 4) {
+            cs[warp * BN + col] = s0;
+            cs[warp * BN + col + 1] = s1;
+          }
+        }
+        wg_sync(wg);                   // every warp's column sums are in cs
+        const int n = n0 + wt;
+        if (wt < BN && n < gm.N)
+          gm.vpart[(long long)(2 * mt + wg) * gm.N + n] =
+              cs[wt] + cs[BN + wt] + cs[2 * BN + wt] + cs[3 * BN + wt];
+      }
+    }
+  }
+}
+
+template <bool GELU>
+cudaError_t run_tf32(const CUtensorMap* m, Tf32Args gm, int sms,
+                     cudaStream_t stream) {
+  const auto kernel = tf32_gemm_kernel<GELU>;
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel));
+  if (e != cudaSuccess) return e;
+  gm.m_tiles = (gm.M + kBM - 1) / kBM;
+  gm.n_tiles = (gm.N + kBNf - 1) / kBNf;
+  gm.tiles = (long long)gm.m_tiles * gm.n_tiles;
+  const int grid = (int)(gm.tiles < sms ? gm.tiles : sms);
+  kernel<<<grid, kHopperThreads, Tf32Cfg<GELU>::kSmem, stream>>>(
+      m[0], m[1], m[2], m[3], gm);
+  return cudaGetLastError();
+}
+
+// The big and small TF32 planes of a (rows, cols) fp32 matrix, or of its
+// transpose (TRANS): dst (2 rows, cols) or (2 cols, rows), big rows first;
+// 32 x 32 tiles, through shared memory when transposed.
+template <bool TRANS>
+__global__ void __launch_bounds__(256)
+split_kernel(const float* __restrict__ src, float* __restrict__ dst,
+             int rows, int cols) {
+  __shared__ float tile[32][33];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  const long long plane = (long long)rows * cols;
+  for (int i = w; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + lane;
+    const bool in = r < rows && c < cols;
+    const float v = in ? src[(long long)r * cols + c] : 0.f;
+    if constexpr (TRANS) {
+      tile[i][lane] = v;
+    } else if (in) {
+      const long long o = (long long)r * cols + c;
+      split_tf32(v, dst + o, dst + plane + o);
+    }
+  }
+  if constexpr (TRANS) {
+    __syncthreads();
+    for (int i = w; i < 32; i += 8) {
+      const int r = c0 + i, c = r0 + lane;       // dst is (cols, rows)
+      if (r < cols && c < rows) {
+        const long long o = (long long)r * rows + c;
+        split_tf32(tile[lane][i], dst + o, dst + plane + o);
+      }
+    }
+  }
+}
+
+cudaError_t split(const void* src, float* dst, int rows, int cols,
+                  bool trans, cudaStream_t s) {
+  const dim3 grid((cols + 31) / 32, (rows + 31) / 32);
+  const float* x = static_cast<const float*>(src);
+  if (trans)
+    split_kernel<true><<<grid, 256, 0, s>>>(x, dst, rows, cols);
+  else
+    split_kernel<false><<<grid, 256, 0, s>>>(x, dst, rows, cols);
+  return cudaGetLastError();
+}
+
+// float32's split planes in the workspace
+struct Tf32Planes {
+  float* h;      // (2 Tp, Cp), by wide_prep_kernel
+  float* dd;     // do's (2 Tp, Cp), by wide_prep_kernel
+  float* da;     // (2 Tp, Fp), by the GELU epilogue
+  float* w1t;    // W1^T's (2 Fp, Cp)
+  float* w2;     // W2's (2 Fp, Cp)
+  float* w1;     // W1's (2 Cp, Fp)
+};
+
+// Products 2 and 3 in float32 (see launch_bwd): the weights' planes, then
+// a, dg -> da's planes (g, da whole in full mode); db1 (full mode); dh.
+cudaError_t products_tf32(const BArgs& a, const Tf32Planes& p, long long Tp,
+                          float* dh, float* vp_db1, float* chunks,
+                          float* dvec, bool full, cudaStream_t s) {
+  const int Cp = a.Cp, Fp = a.Fp, M = (int)Tp;
+  const int sms = sm_count();
+  cudaError_t e = split(a.w1, p.w1t, Fp, Cp, false, s);
+  if (e == cudaSuccess) e = split(a.w2, p.w2, Cp, Fp, true, s);
+  if (e == cudaSuccess) e = split(a.w1, p.w1, Fp, Cp, true, s);
+  if (e != cudaSuccess) return e;
+  CUtensorMap m[4];
+  // 2. a = h W1^T, dg = do W2 -> da's planes; db1
+  bool ok = tensor_map(&m[0], p.h, 2 * Tp, Cp, kBM, kKf, true, 0, true) &&
+            tensor_map(&m[1], p.w1t, 2LL * Fp, Cp, kBNf, kKf, true, 0, true) &&
+            tensor_map(&m[2], p.dd, 2 * Tp, Cp, kBM, kKf, true, 0, true) &&
+            tensor_map(&m[3], p.w2, 2LL * Fp, Cp, kBNf, kKf, true, 0, true);
+  if (!ok) return cudaErrorInvalidValue;
+  Tf32Args g{};
+  g.M = M;
+  g.N = Fp;
+  g.kb = (Cp + kKf - 1) / kKf;
+  g.b1 = a.b1;
+  g.vpart = vp_db1;
+  g.da = p.da;
+  g.g = full ? static_cast<float*>(a.gs) : nullptr;
+  g.da_full = full ? static_cast<float*>(a.das) : nullptr;
+  e = run_tf32<true>(m, g, sms, s);
+  if (e != cudaSuccess) return e;
+  if (full) {
+    e = reduce_rows(vp_db1, dvec, Fp, 2 * ((M + kBM - 1) / kBM), chunks, s);
+    if (e != cudaSuccess) return e;
+  }
+  // 3. dh = da W1
+  ok = tensor_map(&m[0], p.da, 2 * Tp, Fp, kBM, kKf, true, 0, true) &&
+       tensor_map(&m[1], p.w1, 2LL * Cp, Fp, kBNf, kKf, true, 0, true);
+  if (!ok) return cudaErrorInvalidValue;
+  m[2] = m[0];
+  m[3] = m[1];
+  Tf32Args d{};
+  d.M = M;
+  d.N = Cp;
+  d.kb = Fp / kKf;
+  d.out = dh;
+  return run_tf32<false>(m, d, sms, s);
+}
+
 // The workspace, compute dtype of `e` bytes: hs (Tp, Cp), dd (Tp, 2 Cp),
 // gs and das (Tp, Fp) in the compute dtype; dh (Tp, Cp), stats (Tp, 2),
 // the per-token kernels' partials (Tp / token_tile, 2 Cp) twice, db1's
-// (Tp / 64, Fp: a row each 64 tokens, a bf16 consumer warpgroup's or an
-// f32 product tile's), reduce_rows' chunk sums, wpart1 (s1, Fp, Cp),
-// wpart2 (s2, 2 Cp, Fp) float32.
+// (Tp / 64, Fp: a row each 64 tokens, a consumer warpgroup's),
+// reduce_rows' chunk sums, wpart1 (s1, Fp, Cp), wpart2 (s2, 2 Cp, Fp)
+// float32; in float32 also the split planes (Tf32Planes).
 struct WLayout {
   size_t hs, dd, gs, das, dh, stats, vp_prep, vp_lnb, vp_db1, chunks, wpart1,
-      wpart2, total;
+      wpart2, sp_h, sp_dd, sp_da, sp_w1t, sp_w2, sp_w1, total;
 };
 
 inline WLayout w_layout(size_t e, long long Tp, int Cp, int Fp, int s1,
                         int s2) {
   const size_t tp = (size_t)Tp, cp = (size_t)Cp, fp = (size_t)Fp;
   const size_t nb = tp / token_tile(e, Cp), nm = tp / 64;
+  const size_t f32 = e == 4 ? 2 * sizeof(float) : 0;   // two planes
   WLayout L;
   size_t o = 0;
   L.hs = take(&o, tp * cp * e);
@@ -1025,98 +1365,78 @@ inline WLayout w_layout(size_t e, long long Tp, int Cp, int Fp, int s1,
                           sizeof(float));
   L.wpart1 = take(&o, (size_t)s1 * fp * cp * sizeof(float));
   L.wpart2 = take(&o, (size_t)s2 * 2 * cp * fp * sizeof(float));
+  L.sp_h = take(&o, tp * cp * f32);
+  L.sp_dd = take(&o, tp * cp * f32);
+  L.sp_da = take(&o, tp * fp * f32);
+  L.sp_w1t = take(&o, fp * cp * f32);
+  L.sp_w2 = take(&o, fp * cp * f32);
+  L.sp_w1 = take(&o, fp * cp * f32);
   L.total = o;
   return L;
 }
 
+// The launch sequence; full = false is dy-only mode (dw1, dw2 and dvec
+// are not written and may be null).
 template <typename T, typename DY, int BT>
 cudaError_t launch_bwd(BArgs a, void* ws, float* dw1, float* dw2,
-                       float* dvec, int s1, int s2, cudaStream_t s) {
+                       float* dvec, int s1, int s2, bool full,
+                       cudaStream_t s) {
   constexpr bool kBf16 = sizeof(T) == 2;
   const int C = a.C, Cp = a.Cp, Fp = a.Fp;
   const long long Tp = (a.n_outer * a.P + kWPadT - 1) / kWPadT * kWPadT;
   const WLayout W = w_layout(sizeof(T), Tp, Cp, Fp, s1, s2);
   unsigned char* base = static_cast<unsigned char*>(ws);
+  const auto at = [&](size_t off) {
+    return reinterpret_cast<float*>(base + off);
+  };
   a.hs = base + W.hs;
   a.dd = base + W.dd;
   a.gs = base + W.gs;
   a.das = base + W.das;
-  a.stats = reinterpret_cast<float*>(base + W.stats);
-  a.vpart_a = reinterpret_cast<float*>(base + W.vp_prep);
-  a.vpart_b = reinterpret_cast<float*>(base + W.vp_lnb);
+  a.stats = at(W.stats);
+  a.vpart_a = at(W.vp_prep);
+  a.vpart_b = at(W.vp_lnb);
   a.BT = BT;
-  float* dh = reinterpret_cast<float*>(base + W.dh);
-  float* vp_db1 = reinterpret_cast<float*>(base + W.vp_db1);
-  float* chunks = reinterpret_cast<float*>(base + W.chunks);
-  float* wpart1 = reinterpret_cast<float*>(base + W.wpart1);
-  float* wpart2 = reinterpret_cast<float*>(base + W.wpart2);
+  float* dh = at(W.dh);
+  float* vp_db1 = at(W.vp_db1);
+  float* chunks = at(W.chunks);
+  const Tf32Planes planes{at(W.sp_h), at(W.sp_dd), at(W.sp_da),
+                          at(W.sp_w1t), at(W.sp_w2), at(W.sp_w1)};
+  const PrepF32 sp{planes.h, planes.dd, Tp, full};
   const size_t smem_t = t_layout(Cp, BT).total;
   if (smem_t > kSmemMax) return cudaErrorInvalidConfiguration;
   const int nb = (int)(Tp / BT);
 
   // 1. LayerNorm, h, do, dout; db2 and sum_t dout
-  cudaError_t e = run(wide_prep_kernel<T, BT>, a, nb, smem_t, s);
+  cudaError_t e = run(wide_prep_kernel<T, BT>, nb, smem_t, s, a, sp);
   if (e != cudaSuccess) return e;
-  // the per-token kernels' partials: many rows, bf16 sums them in two steps
-  const auto sum_rows = [&](const float* part, float* out, long long n,
-                            int parts) {
-    return kBf16 ? reduce_rows(part, out, n, parts, chunks, s)
-                 : reduce(part, out, n, parts, s);
-  };
-  e = sum_rows(a.vpart_a, dvec + Fp, 2LL * Cp, nb);
-  if (e != cudaSuccess) return e;
-  if constexpr (kBf16) {
-    // 2, 3 and 5 on the tensor cores
-    e = products_bf16(a, Tp, dh, vp_db1, chunks, wpart1, wpart2, dvec, dw1,
-                      dw2, s1, s2, s);
-    if (e != cudaSuccess) return e;
-  } else {
-    // 2. a, dg -> g, da; db1
-    PArgs<T> p{};
-    p.a0 = static_cast<const T*>(a.hs);
-    p.lda0 = Cp;
-    p.a1 = static_cast<const T*>(a.dd);
-    p.lda1 = 2 * Cp;
-    p.bn = static_cast<const T*>(a.w1);
-    p.ldbn = Cp;
-    p.bk = static_cast<const T*>(a.w2);
-    p.ldbk = Fp;
-    p.K = Cp;
-    p.N = Fp;
-    p.b1 = a.b1;
-    p.g = static_cast<T*>(a.gs);
-    p.da = static_cast<T*>(a.das);
-    p.ldo = Fp;
-    p.vpart = vp_db1;
-    e = run_product(p, true, Tp, s);
-    if (e != cudaSuccess) return e;
-    e = reduce(vp_db1, dvec, Fp, (int)(Tp / kSM), s);
-    if (e != cudaSuccess) return e;
-    // 3. dh = da W1
-    PArgs<T> q{};
-    q.a0 = static_cast<const T*>(a.das);
-    q.lda0 = Fp;
-    q.bk = static_cast<const T*>(a.w1);
-    q.ldbk = Cp;
-    q.K = Fp;
-    q.N = Cp;
-    q.dh = dh;
-    e = run_product(q, false, Tp, s);
-    if (e != cudaSuccess) return e;
-    // 5. dW1^T = da^T h ; [dW2^T ; M] = [do | dout]^T g
-    e = gemm_f32(a.das, Fp, a.hs, Cp, wpart1, dw1, Tp, Fp, Cp, s1, s);
-    if (e != cudaSuccess) return e;
-    e = gemm_f32(a.dd, 2 * Cp, a.gs, Fp, wpart2, dw2, Tp, 2 * Cp, Fp, s2,
-                 s);
+  if (full) {
+    e = reduce_rows(a.vpart_a, dvec + Fp, 2LL * Cp, nb, chunks, s);
     if (e != cudaSuccess) return e;
   }
+  if constexpr (kBf16) {
+    // 2, 3 and 5 on the tensor cores
+    e = products_bf16(a, Tp, dh, vp_db1, chunks, at(W.wpart1),
+                      at(W.wpart2), dvec, dw1, dw2, s1, s2, full, s);
+    if (e != cudaSuccess) return e;
+  } else {
+    // 2 and 3 as 3xTF32 on the tensor cores
+    e = products_tf32(a, planes, Tp, dh, vp_db1, chunks, dvec, full, s);
+    if (e != cudaSuccess) return e;
+    if (full) {
+      // 5. dW1^T = da^T h ; [dW2^T ; M] = [do | dout]^T g
+      e = gemm_f32(a.das, Fp, a.hs, Cp, at(W.wpart1), dw1, Tp, Fp, Cp, s1,
+                   s);
+      if (e != cudaSuccess) return e;
+      e = gemm_f32(a.dd, 2 * Cp, a.gs, Fp, at(W.wpart2), dw2, Tp, 2 * Cp,
+                   Fp, s2, s);
+      if (e != cudaSuccess) return e;
+    }
+  }
   // 4. the LayerNorm backward: dy; dLN-scale, dLN-bias
-  e = allow_smem(reinterpret_cast<const void*>(wide_lnb_kernel<T, DY, BT>));
-  if (e != cudaSuccess) return e;
-  wide_lnb_kernel<T, DY, BT><<<nb, kThreads, smem_t, s>>>(a, dh);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  e = sum_rows(a.vpart_b, dvec + Fp + 2 * Cp, 2LL * Cp, nb);
+  e = run(wide_lnb_kernel<T, DY, BT>, nb, smem_t, s, a, (const float*)dh);
+  if (e != cudaSuccess || !full) return e;
+  e = reduce_rows(a.vpart_b, dvec + Fp + 2 * Cp, 2LL * Cp, nb, chunks, s);
   if (e != cudaSuccess) return e;
   // dgamma from M, the last Cp rows of dw2
   dgamma_kernel<T><<<(Cp + kWarps - 1) / kWarps, kThreads, 0, s>>>(
@@ -1126,31 +1446,35 @@ cudaError_t launch_bwd(BArgs a, void* ws, float* dw1, float* dw2,
 }
 
 // The checks and the dispatch of both entry points: dy in float32
-// (dy_f32) or in the compute dtype.
+// (dy_f32) or in the compute dtype; full = false: dy-only mode.
 int launch(bool dy_f32, int dtype, const void* y, const void* dout, void* dy,
            const void* w1, const void* w2, const float* b1, const float* vec,
            void* ws, float* dw1, float* dw2, float* dvec, long long n_outer,
            long long P, long long sN, long long sC, long long sP, int C,
-           int Cp, int Fp, int s1, int s2, void* stream) {
-  if (Cp % 16 || Fp % 64 || C < 1 || C > Cp || s1 < 1 || s2 < 1)
+           int Cp, int Fp, int s1, int s2, bool full, void* stream) {
+  if (Cp % 16 || Fp % 64 || C < 1 || C > Cp || s1 < 1 || s2 < 1 ||
+      (full && (dw1 == nullptr || dw2 == nullptr || dvec == nullptr)))
     return (int)cudaErrorInvalidValue;
   BArgs a{y, dout, dy, w1, w2, b1, vec, nullptr, nullptr, nullptr, nullptr,
           nullptr, nullptr, nullptr, n_outer, P, sN, sC, sP, C, Cp, Fp, kWT};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_bwd<float, float, kWT>(a, ws, dw1, dw2, dvec, s1, s2,
-                                              s);
+    return (int)(token_tile(sizeof(float), Cp) == kWTF32Narrow
+                     ? launch_bwd<float, float, kWTF32Narrow>(
+                           a, ws, dw1, dw2, dvec, s1, s2, full, s)
+                     : launch_bwd<float, float, kWT>(a, ws, dw1, dw2, dvec,
+                                                     s1, s2, full, s));
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const bool narrow = token_tile(sizeof(bf16), Cp) == kWTNarrow;
   if (dy_f32)
     return (int)(narrow ? launch_bwd<bf16, float, kWTNarrow>(
-                              a, ws, dw1, dw2, dvec, s1, s2, s)
+                              a, ws, dw1, dw2, dvec, s1, s2, full, s)
                         : launch_bwd<bf16, float, kWT>(a, ws, dw1, dw2, dvec,
-                                                       s1, s2, s));
-  return (int)(narrow ? launch_bwd<bf16, bf16, kWTNarrow>(a, ws, dw1, dw2,
-                                                          dvec, s1, s2, s)
+                                                       s1, s2, full, s));
+  return (int)(narrow ? launch_bwd<bf16, bf16, kWTNarrow>(
+                            a, ws, dw1, dw2, dvec, s1, s2, full, s)
                       : launch_bwd<bf16, bf16, kWT>(a, ws, dw1, dw2, dvec,
-                                                    s1, s2, s));
+                                                    s1, s2, full, s));
 }
 
 }  // namespace
@@ -1172,17 +1496,20 @@ extern "C" long long slak_mlp_bwd_workspace(int dtype, long long Tp, int Cp,
 // of 64; b1 (Fp) and vec (5, C: ln_scale, ln_bias, b2, gamma, pre_bias)
 // float32; ws: slak_mlp_bwd_workspace bytes. Outputs, float32: dw1 = dW1^T
 // (Fp, Cp); dw2 (2 Cp, Fp), whose first Cp rows are dW2^T; dvec = [db1
-// (Fp) | db2 | (sum_t dout) | dlns | dlnb | dgamma (Cp each)]. Returns the
-// cudaError_t of the launches.
+// (Fp) | db2 | (sum_t dout) | dlns | dlnb | dgamma (Cp each)]. dy_only:
+// dy alone, and dw1, dw2 and dvec may be null. Returns the cudaError_t of
+// the launches.
 extern "C" int slak_mlp_bwd(int dtype, const void* y, const void* dout,
                             void* dy, const void* w1, const void* w2,
                             const float* b1, const float* vec, void* ws,
                             float* dw1, float* dw2, float* dvec,
                             long long n_outer, long long P, long long sN,
                             long long sC, long long sP, int C, int Cp,
-                            int Fp, int s1, int s2, void* stream) {
+                            int Fp, int s1, int s2, int dy_only,
+                            void* stream) {
   return launch(false, dtype, y, dout, dy, w1, w2, b1, vec, ws, dw1, dw2,
-                dvec, n_outer, P, sN, sC, sP, C, Cp, Fp, s1, s2, stream);
+                dvec, n_outer, P, sN, sC, sP, C, Cp, Fp, s1, s2, !dy_only,
+                stream);
 }
 
 // K9: the same at any width, dy float32 (shaped and strided like y), as
@@ -1193,7 +1520,9 @@ extern "C" int slak_mlp_bwd_wide(int dtype, const void* y, const void* dout,
                                  float* dw1, float* dw2, float* dvec,
                                  long long n_outer, long long P, long long sN,
                                  long long sC, long long sP, int C, int Cp,
-                                 int Fp, int s1, int s2, void* stream) {
+                                 int Fp, int s1, int s2, int dy_only,
+                                 void* stream) {
   return launch(true, dtype, y, dout, dy, w1, w2, b1, vec, ws, dw1, dw2,
-                dvec, n_outer, P, sN, sC, sP, C, Cp, Fp, s1, s2, stream);
+                dvec, n_outer, P, sN, sC, sP, C, Cp, Fp, s1, s2, !dy_only,
+                stream);
 }

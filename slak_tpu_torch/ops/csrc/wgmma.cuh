@@ -5,12 +5,16 @@
 // the m16n8k16 A-fragment layout of the warp's 16 rows). Shared-memory
 // operands are K-major, or MN-major where ss's TA / TB say so (the
 // transposed forms, bf16 only); the register A of rs is K-major and its B
-// K-major. scale_d = 0 overwrites D, 1 accumulates into it. Every N has
-// its own instruction, so the register lists are spelled out below, one
-// specialisation an N, the same text at every N; mlp.cu uses ss at N = 64
-// (the fused kernel's first product) and 128, 192, 256 (the GEMMs), rs at
-// N = 128, 256 (the fused kernel's second product); mlp_bwd.cu ss at N =
-// 128 and 256 in all three orientations (K-major, B MN-major, both).
+// K-major. wgmma::tf32 is the TF32 form, D += A (64 x 8) * B (8 x N), both
+// operands K-major in shared memory (TF32 has no transposed form): a k
+// step of 8 floats is the same 32 bytes as bf16's 16 elements, so
+// desc_sw128 and its advance (+2 a step) serve both. scale_d = 0
+// overwrites D, 1 accumulates into it. Every N has its own instruction, so
+// the register lists are spelled out below, one specialisation an N, the
+// same text at every N; mlp.cu uses ss at N = 64 (the fused kernel's first
+// product) and 128, 192, 256 (the GEMMs), rs at N = 128, 256 (the fused
+// kernel's second product); mlp_bwd.cu ss at N = 128 and 256 in all three
+// orientations (K-major, B MN-major, both) and tf32 at N = 64.
 #pragma once
 
 #include <stdint.h>
@@ -57,6 +61,7 @@ __device__ __forceinline__ uint64_t desc_sw128_mn(const void* smem,
 
 template <int N> struct Ss;
 template <int N> struct Rs;
+template <int N> struct Tf32;
 
 template <> struct Ss<64> {
   template <int TA, int TB>
@@ -322,6 +327,29 @@ template <> struct Rs<256> {
   }
 };
 
+template <> struct Tf32<64> {
+  static __device__ __forceinline__ void run(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 // d (64 x N) (+)= A (64 x 16) * B (16 x N), A and B in shared memory,
 // each K-major (TA, TB = 0: desc_sw128) or MN-major (1: desc_sw128_mn)
 template <int N, int TA = 0, int TB = 0>
@@ -335,6 +363,14 @@ template <int N>
 __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db,
                                    int scale_d) {
   Rs<N>::run(d, a, db, scale_d);
+}
+
+// d (64 x N) (+)= A (64 x 8) * B (8 x N), TF32 operands (fp32 words whose
+// low 13 bits are zero), both K-major in shared memory
+template <int N>
+__device__ __forceinline__ void tf32(float* d, uint64_t da, uint64_t db,
+                                     int scale_d) {
+  Tf32<N>::run(d, da, db, scale_d);
 }
 
 }  // namespace wgmma

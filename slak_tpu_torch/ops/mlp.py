@@ -16,11 +16,17 @@ custom VJP: K2 forward, K8 backward at C <= 256 and K9 above, as
 
 The backward's launches (the LayerNorm prep, the GELU product, dh, the
 LayerNorm backward, the token reductions and dgamma; in bf16 the products
-run as TMA-fed ``wgmma``) have plain versions :func:`mlp_bwd_prep_plain`,
+run as TMA-fed ``wgmma``, in float32 the GELU product and dh as 3xTF32 on
+TMA-fed ``wgmma``, each operand split into big and small TF32 parts, as
+accurate as fp32) have plain versions :func:`mlp_bwd_prep_plain`,
 :func:`mlp_bwd_act_plain`, :func:`mlp_bwd_dh_plain`,
 :func:`mlp_bwd_lnb_plain` and :func:`mlp_bwd_wgrad_plain`;
 :func:`fused_mlp_bwd_launches_plain` is their composition (the CPU tests
-hold it to the kernels' plain versions and to the Pallas kernels).
+hold it to the kernels' plain versions and to the Pallas kernels). With
+``dy_only`` the backward gives dy alone (the input gradient with frozen
+weights: the ERF): the kernels skip the token reductions, dgamma and the
+sums that only the parameter gradients read, and dy has the same bits as
+in the full mode.
 
 In bf16, ``mlp.cu`` first writes h = LN(y + pre_bias) into a workspace
 (the wrapper allocates ``slak_fused_mlp_workspace`` bytes), then runs the
@@ -64,6 +70,8 @@ launch_count = 0            # K2/K3 launches
 dual_launch_count = 0       # K12 launches
 bwd_launch_count = 0        # K8 launches
 wide_bwd_launch_count = 0   # K9 launches
+bwd_dy_launch_count = 0     # K8 launches in dy-only mode (also counted above)
+wide_bwd_dy_launch_count = 0    # K9 launches in dy-only mode (likewise)
 
 LN_EPS = 1e-6               # the block's LayerNorm (models/layers.py)
 BWD_C_MAX = 256             # the fused backward's width (pallas_mlp.py:73)
@@ -310,14 +318,18 @@ def fused_mlp_dual(y1: torch.Tensor, y2: torch.Tensor, res: torch.Tensor,
     return oh, oq
 
 
+_NO_PARAMS = (None,) * 7
+
+
 def fused_mlp_bwd_plain(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
-                        channel_dim: int = -1):
+                        channel_dim: int = -1, dy_only: bool = False):
     """Plain version of the backward, a transcription of
     ``_mlp_bwd_kernel`` with its rounding points (h, g, do and da rounded
     to y's dtype before the products that use them) and exact erf.
     Returns (dy in y's dtype, dW1 (4C, C), dW2 (C, 4C), db1, db2, dgamma,
     dln_scale, dln_bias), the weight gradients in ``nn.Linear``
-    orientation, all float32 but dy."""
+    orientation, all float32 but dy; ``dy_only``: (dy, None, ..., None),
+    dy from the same operations."""
     c, f = pk.c, pk.f
     cdt = y.dtype
     ln_s, ln_b, b2, gamma, pre = pk.vec
@@ -334,28 +346,24 @@ def fused_mlp_bwd_plain(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
     w2 = pk.w2[:c, :f].float()                  # W2^T (C, 4C)
     a = hb @ w1.t() + pk.b1[:f]
     erf_a = torch.erf(a * _INV_SQRT2)
-    gb = (0.5 * a * (1.0 + erf_a)).to(cdt).float()
-    o_pre = gb @ w2.t() + b2
-    dgamma = (dl * o_pre).sum(0)
     do = dl * gamma
-    db2 = do.sum(0)
     dob = do.to(cdt).float()
-    dw2 = dob.t() @ gb
     dg = dob @ w2
     gp = 0.5 * (1.0 + erf_a) + a * _INV_SQRT_2PI * torch.exp(-0.5 * a * a)
     da = dg * gp
-    db1 = da.sum(0)
     dab = da.to(cdt).float()
-    dw1 = dab.t() @ hb
     dh = dab @ w1
-    dlns = (dh * xhat).sum(0)
-    dlnb = dh.sum(0)
     dxh = dh * ln_s
     m1 = dxh.mean(-1, keepdim=True)
     m2 = (dxh * xhat).mean(-1, keepdim=True)
     dy = (inv * (dxh - m1 - xhat * m2)).to(cdt).reshape(shape)
-    return (dy.movedim(-1, channel_dim).contiguous(), dw1, dw2, db1, db2,
-            dgamma, dlns, dlnb)
+    dy = dy.movedim(-1, channel_dim).contiguous()
+    if dy_only:
+        return (dy,) + _NO_PARAMS
+    gb = (0.5 * a * (1.0 + erf_a)).to(cdt).float()
+    dgamma = (dl * (gb @ w2.t() + b2)).sum(0)
+    return (dy, dab.t() @ hb, dob.t() @ gb, da.sum(0), do.sum(0), dgamma,
+            (dh * xhat).sum(0), dh.sum(0))
 
 
 def mlp_bwd_prep_plain(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
@@ -458,7 +466,7 @@ def _bwd_entries():
     out = [ws]
     for fn in (lib.slak_mlp_bwd, lib.slak_mlp_bwd_wide):
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
-                       + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         out.append(fn)
@@ -497,24 +505,26 @@ def _check_bwd(name, y, dout, pk, channel_dim):
 
 
 def fused_mlp_bwd(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
-                  channel_dim: int = -1):
+                  channel_dim: int = -1, dy_only: bool = False):
     """K8: the tail's backward from its input y and output cotangent dout
     (channels on ``channel_dim``); returns what
-    :func:`fused_mlp_bwd_plain` returns. C <= 256 on every device (wider
-    tails are :func:`fused_mlp_bwd_wide`'s). One launch sequence serves K8
-    and K9 (``slak_mlp_bwd``: dy in y's dtype)."""
+    :func:`fused_mlp_bwd_plain` returns (``dy_only``: dy alone). C <= 256
+    on every device (wider tails are :func:`fused_mlp_bwd_wide`'s). One
+    launch sequence serves K8 and K9 (``slak_mlp_bwd``: dy in y's
+    dtype)."""
     if pk.c > BWD_C_MAX:
         raise ValueError(f"fused_mlp_bwd: C = {pk.c} > {BWD_C_MAX} "
                          f"(fused_mlp_bwd_wide covers it)")
     if y.device.type == "cpu":
-        return fused_mlp_bwd_plain(y, dout, pk, channel_dim)
+        return fused_mlp_bwd_plain(y, dout, pk, channel_dim, dy_only)
     if y.device.type != "cuda":
         raise RuntimeError(f"fused_mlp_bwd runs on cuda or cpu, not "
                            f"{y.device}")
     _check_bwd("fused_mlp_bwd", y, dout, pk, channel_dim)
-    out = _launch_bwd(y, dout, pk, channel_dim, wide=False)
-    global bwd_launch_count
+    out = _launch_bwd(y, dout, pk, channel_dim, False, dy_only)
+    global bwd_launch_count, bwd_dy_launch_count
     bwd_launch_count += 1
+    bwd_dy_launch_count += dy_only
     return out
 
 
@@ -528,13 +538,15 @@ def pick_fc(c4: int, itemsize: int) -> int:
 
 
 def fused_mlp_bwd_wide_plain(y: torch.Tensor, dout: torch.Tensor,
-                             pk: MlpWeights, channel_dim: int = -1):
+                             pk: MlpWeights, channel_dim: int = -1,
+                             dy_only: bool = False):
     """Plain version of K9, a transcription of ``_mlp_bwd_chunked_kernel``
     with its rounding points (h, g, do and da rounded to y's dtype before
     the products that use them), its hidden chunks (:func:`pick_fc`), dh
     summed over the chunks in fp32 and the LayerNorm backward after the
     last one; exact erf. Returns what :func:`fused_mlp_bwd_plain` returns,
-    but dy in float32 (the TPU kernel's dy output is float32 too)."""
+    but dy in float32 (the TPU kernel's dy output is float32 too);
+    ``dy_only``: dy alone, from the same operations."""
     c, f = pk.c, pk.f
     cdt = y.dtype
     ln_s, ln_b, b2, gamma, pre = pk.vec
@@ -561,46 +573,52 @@ def fused_mlp_bwd_wide_plain(y: torch.Tensor, dout: torch.Tensor,
         w1c, w2c = w1[f0:f0 + fc], w2[:, f0:f0 + fc]
         a = hb @ w1c.t() + b1[f0:f0 + fc]
         erf_a = torch.erf(a * _INV_SQRT2)
-        gb = (0.5 * a * (1.0 + erf_a)).to(cdt).float()
-        dgamma = dgamma + (dl * (gb @ w2c.t())).sum(0)
-        dw2.append(dob.t() @ gb)
         gp = (0.5 * (1.0 + erf_a)
               + a * _INV_SQRT_2PI * torch.exp(-0.5 * a * a))
         da = (dob @ w2c) * gp
-        db1.append(da.sum(0))
         dab = da.to(cdt).float()
-        dw1.append(dab.t() @ hb)
         dh = dh + dab @ w1c
-    dlns = (dh * xhat).sum(0)
-    dlnb = dh.sum(0)
+        if dy_only:
+            continue
+        gb = (0.5 * a * (1.0 + erf_a)).to(cdt).float()
+        dgamma = dgamma + (dl * (gb @ w2c.t())).sum(0)
+        dw2.append(dob.t() @ gb)
+        db1.append(da.sum(0))
+        dw1.append(dab.t() @ hb)
     dxh = dh * ln_s
     m1 = dxh.mean(-1, keepdim=True)
     m2 = (dxh * xhat).mean(-1, keepdim=True)
     dy = (inv * (dxh - m1 - xhat * m2)).reshape(shape)
-    return (dy.movedim(-1, channel_dim).contiguous(), torch.cat(dw1),
-            torch.cat(dw2, 1), torch.cat(db1), db2, dgamma, dlns, dlnb)
+    dy = dy.movedim(-1, channel_dim).contiguous()
+    if dy_only:
+        return (dy,) + _NO_PARAMS
+    return (dy, torch.cat(dw1), torch.cat(dw2, 1), torch.cat(db1), db2,
+            dgamma, (dh * xhat).sum(0), dh.sum(0))
 
 
 def fused_mlp_bwd_wide(y: torch.Tensor, dout: torch.Tensor, pk: MlpWeights,
-                       channel_dim: int = -1):
+                       channel_dim: int = -1, dy_only: bool = False):
     """K9: the tail's backward at any width (the kernel of the wide stages,
     C > 256); returns what :func:`fused_mlp_bwd_wide_plain` returns (dy in
-    float32)."""
+    float32; ``dy_only``: dy alone)."""
     if y.device.type == "cpu":
-        return fused_mlp_bwd_wide_plain(y, dout, pk, channel_dim)
+        return fused_mlp_bwd_wide_plain(y, dout, pk, channel_dim, dy_only)
     if y.device.type != "cuda":
         raise RuntimeError(f"fused_mlp_bwd_wide runs on cuda or cpu, not "
                            f"{y.device}")
     _check_bwd("fused_mlp_bwd_wide", y, dout, pk, channel_dim)
-    out = _launch_bwd(y, dout, pk, channel_dim, wide=True)
-    global wide_bwd_launch_count
+    out = _launch_bwd(y, dout, pk, channel_dim, True, dy_only)
+    global wide_bwd_launch_count, wide_bwd_dy_launch_count
     wide_bwd_launch_count += 1
+    wide_bwd_dy_launch_count += dy_only
     return out
 
 
-def _launch_bwd(y, dout, pk, channel_dim, wide):
+def _launch_bwd(y, dout, pk, channel_dim, wide, dy_only):
     """One launch of ``slak_mlp_bwd`` (dy in y's dtype) or, ``wide``,
-    ``slak_mlp_bwd_wide`` (dy in float32) on checked CUDA tensors."""
+    ``slak_mlp_bwd_wide`` (dy in float32) on checked CUDA tensors; with
+    ``dy_only`` the parameter gradients are neither computed nor
+    allocated."""
     dt = _DTYPES[y.dtype]
     fp, cp = pk.w1.shape
     n_outer, p, s_n, s_c, s_p = token_strides(y.shape, channel_dim)
@@ -612,18 +630,23 @@ def _launch_bwd(y, dout, pk, channel_dim, wide):
     ws = torch.empty(ws_fn(dt, tp, cp, fp, s1, s2), dtype=torch.uint8,
                      device=dev)
     dy = torch.empty(y.shape, dtype=f32 if wide else y.dtype, device=dev)
-    dw1 = torch.empty(fp, cp, dtype=f32, device=dev)
-    dw2 = torch.empty(2 * cp, fp, dtype=f32, device=dev)
-    dvec = torch.empty(fp + 5 * cp, dtype=f32, device=dev)
+    if dy_only:
+        dw1 = dw2 = dvec = None
+    else:
+        dw1 = torch.empty(fp, cp, dtype=f32, device=dev)
+        dw2 = torch.empty(2 * cp, fp, dtype=f32, device=dev)
+        dvec = torch.empty(fp + 5 * cp, dtype=f32, device=dev)
     err = (k9 if wide else k8)(
         dt, y.data_ptr(), dout.data_ptr(), dy.data_ptr(), pk.w1.data_ptr(),
         pk.w2.data_ptr(), pk.b1.data_ptr(), pk.vec.data_ptr(), ws.data_ptr(),
-        dw1.data_ptr(), dw2.data_ptr(), dvec.data_ptr(), n_outer, p, s_n,
-        s_c, s_p, pk.c, cp, fp, s1, s2,
+        *(None if t is None else t.data_ptr() for t in (dw1, dw2, dvec)),
+        n_outer, p, s_n, s_c, s_p, pk.c, cp, fp, s1, s2, int(dy_only),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         name = "fused_mlp_bwd_wide" if wide else "fused_mlp_bwd"
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    if dy_only:
+        return (dy,) + _NO_PARAMS
     c, f = pk.c, pk.f
     # dvec: db1 (fp) | db2 | sum_t dout | dlns | dlnb | dgamma (cp each)
     db2, _, dlns, dlnb, dgamma = dvec[fp:].view(5, cp)[:, :c]
@@ -639,6 +662,9 @@ class FusedMlp(torch.autograd.Function):
     folded conv bias ``pre_bias`` (None for zeros); they are packed in y's
     dtype for each call. The forward saves y only; the backward recomputes, and
     gives ``d pre_bias = sum over tokens of dy`` (``_vjp_bwd`` l.821-823).
+    When no parameter (nor ``pre_bias``) needs a gradient, as in the ERF
+    with frozen weights, the backward runs in dy-only mode and returns None
+    for each parameter.
     """
 
     @staticmethod
@@ -662,10 +688,11 @@ class FusedMlp(torch.autograd.Function):
         else:
             bwd = fused_mlp_bwd_wide_plain if ctx.plain else \
                 fused_mlp_bwd_wide
-        dy, dw1, dw2, db1, db2, dgamma, dlns, dlnb = bwd(
-            y, dout.contiguous(), ctx.pk, 1)
-        dres = dout if ctx.add_residual else None
         need = ctx.needs_input_grad         # 11 long when pre_bias is left out
+        dy_only = not any(need[2:9] + need[11:])
+        dy, dw1, dw2, db1, db2, dgamma, dlns, dlnb = bwd(
+            y, dout.contiguous(), ctx.pk, 1, dy_only=dy_only)
+        dres = dout if ctx.add_residual else None
         dpre = dy.float().sum((0, 2, 3)) if need[-1] and len(need) > 11 \
             else None
         return (dy.to(y.dtype), dres, dlns, dlnb, dw1, db1, dw2, db2, dgamma,
