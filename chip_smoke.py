@@ -7,26 +7,33 @@
     python3 chip_smoke.py --phases build,dual_kernels,dual,dual_timing,probes
     python3 chip_smoke.py --phases build,mlp_ab --base PARENT_CHECKOUT
     python3 chip_smoke.py --phases build,mlp_bwd_ab --base PARENT_CHECKOUT
+    python3 chip_smoke.py --phases build,dwconv_ab --base PARENT_CHECKOUT
 
 Phases (any failure exits non-zero):
   build    nvcc-build every kernel under slak_tpu_torch/ops/csrc/.
   kernels  each kernel against its plain PyTorch version on the card at the
            flagship's shapes (SLaK-T 51x51 w1.3, the main path's batch): the
-           dwconv pair at the four stages' (K,5)/(5,K) taps, the fused MLP
+           dwconv pair at the four stages' (K,5)/(5,K) taps (in bf16 also at
+           batches 1, 3 and 8; each launch's route, the band kernel or the
+           tiled kernel, named in its row), the fused MLP
            in NCHW, NHWC and (C, M) strides, bf16 and fp32, also without
            the residual and at the ragged batches 1 and 3; times with CUDA
            events (median), the bound, achieved TFLOP/s and share of the
            bound, the plain version's time and the library yardstick's.
   forward  the main path: create_model + make_eval_step on a few batches of
            synthetic labels, bf16 and fp32, with the launch counters set to 0
-           just before and read just after; logits held against the same
-           weights through the plain versions.
+           just before and read just after (bf16: every K1 launch on the
+           band kernel; fp32: none); logits held against the same weights
+           through the plain versions.
   timing   bf16 eval forward at batch 256 (bench.py's batch): img/s.
   train_kernels
            the train kernels against their plain versions at the train
            shapes (batch 128): the stats-fused conv (K4), the weight
            gradient (K5/K7) and K1 as the dgrad (flipped taps) at the four
-           stages' (K,5)/(5,K) taps, the fused MLP backward in NCHW, K8 at
+           stages' (K,5)/(5,K) taps (K4 and the dgrad in bf16 also at
+           batches 1, 3 and 8; K4's sums must be the same bits on a second
+           launch and, on the band kernel, the bits band_stats_sums adds
+           from its y in its order), the fused MLP backward in NCHW, K8 at
            C = 124 and 249 and K9 at C = 499 and 998 (also at the ragged
            batches 1 and 3; two launches must give the same bits); bf16
            and fp32; times, bound, plain and library (or unfused) times.
@@ -34,8 +41,9 @@ Phases (any failure exits non-zero):
            create_train_state (SNIP masks at 40% sparsity, random growth,
            refresh every 2 steps, EMA) + make_train_step, 4 bf16 steps at
            batch 128 with the launch counters set to 0 just before and read
-           just after (K8 on stages 1-2; K2 + K9 on stages 3-4 where
-           TRAIN_WIDE_MLP_BWD routes them); DST refreshes, mask counts and
+           just after (every K4 and K1 dgrad launch on the band kernel; K8
+           on stages 1-2; K2 + K9 on stages 3-4 where TRAIN_WIDE_MLP_BWD
+           routes them); DST refreshes, mask counts and
            masked weights checked; one step from the same state held
            against the plain route (bf16 at 128, fp32 at 32): loss, every
            gradient, BN stats.
@@ -56,11 +64,12 @@ Phases (any failure exits non-zero):
            fp32, 1024^2, 4 images, parameters frozen, launch counters set to
            0 just before and read just after (per image 36 K1 forward + 36
            dgrad, 18 K2/K3, 6 K8, 12 K9, K8 and K9 all in dy-only mode, no
-           weight-gradient or K4 launch);
+           weight-gradient, K4 or band-kernel launch);
            every image's map finite (all 4 averaged), the map nonzero and
            largest at the centre; one image on
            each route, maps within 1e-3; then one eval-mode backward (bf16,
-           batch 8, 224^2) with every parameter requiring a gradient, each
+           batch 8, 224^2, K1 forward and dgrad on the band kernel) with
+           every parameter requiring a gradient, each
            gradient held against the plain route's; ms an image on both
            routes.
   dual_kernels
@@ -103,6 +112,14 @@ Phases (any failure exits non-zero):
            train step (each tree's kernels and route);
            then this tree's route alone, TRAIN_WIDE_MLP_BWD False against
            True.
+  dwconv_ab
+           (not in the default run; needs --base) K1/K4 of another
+           checkout against this tree's in one process, in turns base,
+           change, change, base: the bf16 K1 pair at each stage shape at
+           batches 64 and 256, the K4 pair and the K1 dgrad pair at batch
+           128, then the bs256 bf16 eval forward, the bs128 bf16 train step
+           and one fp32 ERF image at 1024^2, each tree's dwconv.cu swapped
+           into ops/dwconv.py.
 
 Prints the card's name and power limit, then a {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}. TF32 is off for cuDNN and
@@ -162,7 +179,25 @@ MLP_BWD_NAMES = ("dy", "dW1", "dW2", "db1", "db2", "dgamma", "dln_scale",
                  "dln_bias")
 PAIR_MODES = ("kernel", "input", "dualout", "dualboth")
 PAIR_BIG = 256                              # K10's row-tiled maps (fp32)
+BAND_ROUTE = ("bf16, (K, 5) or (5, K) taps, both map axes <= 64 (all four "
+              "stages at 224^2): dwconv_band_kernel (per-channel banded "
+              "products, mma.sync m16n8k16); fp32 and larger maps: "
+              "dwconv_tiled_kernel")
 RAGGED = (1, 3)                             # the fused MLP's ragged batches
+# K1/K4's other batches: the ragged ones and the ERF's eval-mode gradient's
+DW_BATCHES = RAGGED + (ERF_GRAD_BATCH,)
+# bf16 K1/K4 maps off the 224^2 stage maps, (N, C, H, W, K, route): every
+# band-kernel instantiation (MT = 1-4 m-tiles of the long axis, with and
+# without 4-byte pairs: W even or odd), taps longer than the map,
+# non-square maps, and stage 1's taps above BAND_MAX on the tiled kernel
+DW_EDGES = ((3, 16, 48, 48, 47, "band"),      # MT 3, pairs
+            (3, 16, 45, 45, 47, "band"),      # MT 3, odd W
+            (3, 16, 27, 27, 49, "band"),      # MT 2, odd W
+            (1, 16, 63, 63, 51, "band"),      # MT 4, odd W
+            (3, 16, 12, 12, 51, "band"),      # taps longer than the map
+            (3, 16, 14, 13, 47, "band"),      # non-square, odd W
+            (2, 16, 40, 20, 49, "band"),      # MT 3 or 2 by orientation
+            (2, 124, 112, 112, 51, "tiled"))  # stage 1's taps at 448^2
 
 
 class PhaseError(RuntimeError):
@@ -272,6 +307,102 @@ def dwconv_macs(N, C, H, W, kh, kw) -> int:
         p = k // 2
         return sum(min(k, L + p - i) - max(0, p - i) for i in range(L))
     return N * C * span(H, kh) * span(W, kw)
+
+
+def route_of(x, w) -> str:
+    """The kernel ``ops/dwconv.py`` launches for these operands."""
+    from slak_tpu_torch.ops import dwconv as K1
+    return "band" if K1.band_route(x, w) else "tiled"
+
+
+def check_dwconv_pair(x, ws, dn, tag):
+    """The K1 pair (the second launch adding into the first's output)
+    against its plain version: (max abs err, rel err)."""
+    import torch
+    from slak_tpu_torch.ops import dwconv as K1
+
+    def pair(conv=K1.dwconv):
+        y = conv(x, ws[0])
+        return conv(x, ws[1], out=y)
+    want = pair(K1.dwconv_plain)
+    got = pair()
+    torch.cuda.synchronize()
+    d, r = rel_err(got, want)
+    _check(r <= TOL_KERNEL[dn], f"{tag} {dn}: rel err {r:.3g} > "
+           f"{TOL_KERNEL[dn]}")
+    return d, r
+
+
+def check_dwconv_stats(x, w, dn, tag):
+    """K4 against its plain version: y within TOL_KERNEL, both sums within
+    TOL_SUMS of max_c sum |y|, the sums the same bits on a second launch
+    and, on the band route, the same bits as ``band_stats_sums`` adds the
+    kernel's own y in the kernel's order. Returns (max abs err of y, sums
+    rel err)."""
+    import torch
+    from slak_tpu_torch.ops import dwconv as K1
+    y, s1, s2 = K1.dwconv_stats(x, w)
+    _, t1, t2 = K1.dwconv_stats(x, w)
+    yp, p1, p2 = K1.dwconv_stats_plain(x, w)
+    torch.cuda.synchronize()
+    d, r = rel_err(y, yp)
+    _check(r <= TOL_KERNEL[dn], f"{tag} {tuple(w.shape[1:])} {dn}: y rel err "
+           f"{r:.3g}")
+    scale = yp.float().abs().sum((0, 2, 3)).max().item()
+    s_err = max((a - b).abs().max().item() / scale
+                for a, b in ((s1, p1), (s2, p2)))
+    _check(s_err <= TOL_SUMS[dn], f"{tag} {dn}: sums rel err {s_err:.3g}")
+    _check(torch.equal(s1, t1) and torch.equal(s2, t2),
+           f"{tag} {dn}: the sums differ on a second launch")
+    if K1.band_route(x, w):
+        m1, m2 = K1.band_stats_sums(y, *w.shape[1:])
+        _check(torch.equal(s1, m1) and torch.equal(s2, m2),
+               f"{tag} {dn}: the band kernel's sums are not the bits "
+               f"band_stats_sums gives")
+    return d, s_err
+
+
+def check_dwconv_edges(phase: str, train: bool):
+    """bf16 K1/K4 at DW_EDGES against their plain versions, each on the
+    route it names: the K1 pair (``kernels``), or K4 on both orientations
+    (y, sums, the same bits twice) and the K1 dgrad on their flipped taps
+    (``train_kernels``). Prints a row a map."""
+    import torch
+    from slak_tpu_torch.ops import dwconv as K1
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(70)
+    bf, dn = torch.bfloat16, "bfloat16"
+    for N, C, H, W, K, route in DW_EDGES:
+        x = torch.randn(N, C, H, W, generator=g, device=dev).to(bf)
+        ws = [(torch.randn(C, *t, generator=g, device=dev) * 0.05
+               ).to(bf).float() for t in ((K, 5), (5, K))]
+        routes = [route_of(x, w) for w in ws]
+        tag = f"dwconv {N}x{C}x{H}x{W} taps {K}"
+        _check(routes == [route] * 2, f"{tag}: routes {routes}, want "
+               f"{route}")
+        row = dict(shape=[N, C, H, W], K=K, route=route, tol=TOL_KERNEL[dn])
+        if route == "band":
+            row.update(MT=[K1.band_geometry(N, C, H, W, *w.shape[1:])["MT"]
+                           for w in ws], pairs=W % 2 == 0)
+        if not train:
+            row["pair_max_abs_err"] = check_dwconv_pair(x, ws, dn, tag)[0]
+            print(f"[{phase}] " + json.dumps(row), flush=True)
+            continue
+        errs = [check_dwconv_stats(x, w, dn, tag + " stats") for w in ws]
+        row.update(stats_max_abs_err=max(e[0] for e in errs),
+                   sums_rel_err=max(e[1] for e in errs),
+                   tol_sums=TOL_SUMS[dn], sums_same_bits_twice=True)
+        d_max = 0.0
+        for w in ws:
+            f = w.flip(1, 2).contiguous()
+            got, want = K1.dwconv(x, f), K1.dwconv_plain(x, f)
+            torch.cuda.synchronize()
+            d, r = rel_err(got, want)
+            _check(r <= TOL_KERNEL[dn], f"{tag} dgrad {tuple(f.shape[1:])}: "
+                   f"rel err {r:.3g}")
+            d_max = max(d_max, d)
+        row["dgrad_max_abs_err"] = d_max
+        print(f"[{phase}] " + json.dumps(row), flush=True)
 
 
 def stage_shapes(cfg, size: int = 224):
@@ -427,11 +558,13 @@ def phase_build(ptxas: bool):
 
 
 def phase_kernels(cfg, batch):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main path's shapes;
+    first the bf16 K1 pair at DW_EDGES."""
     import torch
     import torch.nn.functional as F
     from slak_tpu_torch.ops import dwconv as K1
     from slak_tpu_torch.ops import mlp as K2
+    check_dwconv_edges("kernels", train=False)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     totals = {"dwconv": dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
@@ -455,13 +588,14 @@ def phase_kernels(cfg, batch):
                 y = conv(x, w1)
                 return conv(x, w2, out=y)
 
-            want = pair(K1.dwconv_plain)
-            got = pair()
-            torch.cuda.synchronize()
-            d, r = rel_err(got, want)
-            _check(r <= TOL_KERNEL[dn],
-                   f"dwconv stage {i + 1} {dn}: rel err {r:.3g} > "
-                   f"{TOL_KERNEL[dn]}")
+            d, r = check_dwconv_pair(x, (w1, w2), dn, f"dwconv stage {i + 1}")
+            more = {}
+            if dtype == torch.bfloat16:        # the other batches' tiles
+                more["rel_err_by_batch"] = {
+                    f"batch{nb}": check_dwconv_pair(
+                        x[:nb].contiguous(), (w1, w2), dn,
+                        f"dwconv stage {i + 1} batch {nb}")[1]
+                    for nb in DW_BATCHES}
             ms = time_ms(pair)
             plain_ms = time_ms(lambda: pair(K1.dwconv_plain))
             wl1 = w1.to(dtype)[:, None]
@@ -479,7 +613,9 @@ def phase_kernels(cfg, batch):
                 bytes_ms += b_ms
                 ops_ms += o_ms
             row = dict(kernel="dwconv", dtype=dn, stage=i + 1, C=C, H=H,
-                       taps=[K, s], batch=batch, max_abs_err=d, rel_err=r,
+                       taps=[K, s], batch=batch,
+                       route=[route_of(x, w1), route_of(x, w2)],
+                       max_abs_err=d, rel_err=r, **more,
                        tol=TOL_KERNEL[dn], ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound,
                        launches_per_forward=2 * depth)
@@ -601,20 +737,23 @@ def phase_forward(batch):
         step = make_eval_step(model, dtype)
         step(batches[0])                     # pack weights, warm up
         torch.cuda.synchronize()
-        K1.launch_count = 0
+        K1.launch_count = K1.band_launch_count = 0
         K2.launch_count = 0
         t0 = time.perf_counter()
         outs = [step(b) for b in batches]
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        got = (K1.launch_count, K2.launch_count)
+        got = (K1.launch_count, K2.launch_count, K1.band_launch_count)
         if dtype == torch.bfloat16:
             counts = got
         print(f"[forward] {dn}: {N_BATCHES} batches of {batch} in "
-              f"{sec:.3f} s; launches dwconv {got[0]}, fused_mlp {got[1]}")
-        _check(got == (n_conv * N_BATCHES, n_blocks * N_BATCHES),
-               f"{dn} launch counts {got}, want "
-               f"{(n_conv * N_BATCHES, n_blocks * N_BATCHES)}")
+              f"{sec:.3f} s; launches dwconv {got[0]} (on the band kernel "
+              f"{got[2]}), fused_mlp {got[1]}")
+        # bf16: every K1 launch on the band kernel (all four stages' maps
+        # fit it); fp32: none
+        want = (n_conv * N_BATCHES, n_blocks * N_BATCHES,
+                n_conv * N_BATCHES if dtype == torch.bfloat16 else 0)
+        _check(got == want, f"{dn} launch counts {got}, want {want}")
         for j, (o, (x, y)) in enumerate(zip(outs, batches)):
             lg = o["logits"]
             _check(lg.shape == (batch, 1000) and bool(
@@ -654,14 +793,16 @@ def dead_taps(K: int, L: int):
 def phase_train_kernels(cfg, batch):
     """K4, the weight gradient, the K1 dgrad, K8 (stages 1-2) and K9
     (stages 3-4) against their plain versions at the train shapes, K8 and
-    K9 also at the ragged batches RAGGED; returns per-train-step totals
-    (bf16) for the JSON line and K9's bf16 rows."""
+    K9 also at the ragged batches RAGGED (first bf16 K4 and the K1 dgrad
+    at DW_EDGES); returns per-train-step totals (bf16) for the JSON line
+    and K9's bf16 rows."""
     import torch
     import torch.nn.functional as F
     from slak_tpu_torch.models import slak as S
     from slak_tpu_torch.ops import dwconv as K1
     from slak_tpu_torch.ops import dwconv_wgrad as KW
     from slak_tpu_torch.ops import mlp as K2
+    check_dwconv_edges("train_kernels", train=True)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(10)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
@@ -694,22 +835,21 @@ def phase_train_kernels(cfg, batch):
             taps = [(K, s), (s, K)]
             ws = [(torch.randn(C, kh, kw, generator=g, device=dev) * 0.05
                    ).to(dtype).float() for kh, kw in taps]
-            # K4: the pair of stats-fused convs
+            # K4: the pair of stats-fused convs (bf16: also at the other
+            # batches)
             d_max = s_err = 0.0
-            for w in ws:
-                y, s1, s2 = K1.dwconv_stats(x, w)
-                yp, p1, p2 = K1.dwconv_stats_plain(x, w)
-                torch.cuda.synchronize()
-                d, r = rel_err(y, yp)
-                _check(r <= TOL_KERNEL[dn], f"dwconv_stats stage {i + 1} "
-                       f"{tuple(w.shape[1:])} {dn}: y rel err {r:.3g}")
-                scale = yp.float().abs().sum((0, 2, 3)).max().item()
-                for a, b in ((s1, p1), (s2, p2)):
-                    e = (a - b).abs().max().item() / scale
-                    _check(e <= TOL_SUMS[dn], f"dwconv_stats stage {i + 1} "
-                           f"{dn}: sums rel err {e:.3g}")
-                    s_err = max(s_err, e)
-                d_max = max(d_max, d)
+            by_batch = {}
+            for nb in (batch,) + (DW_BATCHES if dtype == torch.bfloat16
+                                  else ()):
+                xb = x if nb == batch else x[:nb].contiguous()
+                for w in ws:
+                    d, e = check_dwconv_stats(
+                        xb, w, dn, f"dwconv_stats stage {i + 1} batch {nb}")
+                    if nb == batch:
+                        d_max, s_err = max(d_max, d), max(s_err, e)
+                    else:
+                        by_batch[f"batch{nb}"] = max(
+                            by_batch.get(f"batch{nb}", 0.0), e)
             ms = time_ms(lambda: [K1.dwconv_stats(x, w) for w in ws])
             plain_ms = time_ms(lambda: [K1.dwconv_stats_plain(x, w)
                                         for w in ws])
@@ -728,8 +868,10 @@ def phase_train_kernels(cfg, batch):
                                 dtype)
                 b_ms, o_ms, bound = b_ms + bb, o_ms + oo, bound + max(bb, oo)
             row = dict(kernel="dwconv_stats", dtype=dn, stage=i + 1, C=C,
-                       H=H, taps=[K, s], batch=batch, max_abs_err=d_max,
-                       sums_rel_err=s_err, tol=TOL_KERNEL[dn],
+                       H=H, taps=[K, s], batch=batch,
+                       route=[route_of(x, w) for w in ws], max_abs_err=d_max,
+                       sums_rel_err=s_err, sums_rel_err_by_batch=by_batch,
+                       sums_same_bits_twice=True, tol=TOL_KERNEL[dn],
                        tol_sums=TOL_SUMS[dn], ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound,
                        launches_per_step=2 * depth)
@@ -778,13 +920,22 @@ def phase_train_kernels(cfg, batch):
             # K1 as each branch's dgrad: its taps flipped on both axes
             flipped = [w.flip(1, 2).contiguous() for w in ws]
             d_max = 0.0
-            for w in flipped:
-                got, want = K1.dwconv(dy, w), K1.dwconv_plain(dy, w)
-                torch.cuda.synchronize()
-                d, r = rel_err(got, want)
-                _check(r <= TOL_KERNEL[dn], f"dwconv dgrad stage {i + 1} "
-                       f"{tuple(w.shape[1:])} {dn}: rel err {r:.3g}")
-                d_max = max(d_max, d)
+            by_batch = {}
+            for nb in (batch,) + (DW_BATCHES if dtype == torch.bfloat16
+                                  else ()):
+                dyb = dy if nb == batch else dy[:nb].contiguous()
+                for w in flipped:
+                    got, want = K1.dwconv(dyb, w), K1.dwconv_plain(dyb, w)
+                    torch.cuda.synchronize()
+                    d, r = rel_err(got, want)
+                    _check(r <= TOL_KERNEL[dn], f"dwconv dgrad stage {i + 1}"
+                           f" batch {nb} {tuple(w.shape[1:])} {dn}: rel err "
+                           f"{r:.3g}")
+                    if nb == batch:
+                        d_max = max(d_max, d)
+                    else:
+                        by_batch[f"batch{nb}"] = max(
+                            by_batch.get(f"batch{nb}", 0.0), r)
             ms = time_ms(lambda: [K1.dwconv(dy, w) for w in flipped])
             plain_ms = time_ms(lambda: [K1.dwconv_plain(dy, w)
                                         for w in flipped])
@@ -798,7 +949,9 @@ def phase_train_kernels(cfg, batch):
                                 dtype)
                 b_ms, o_ms, bound = b_ms + bb, o_ms + oo, bound + max(bb, oo)
             row = dict(kernel="dwconv_dgrad", dtype=dn, stage=i + 1, C=C,
-                       H=H, taps=[K, s], batch=batch, max_abs_err=d_max,
+                       H=H, taps=[K, s], batch=batch,
+                       route=[route_of(dy, w) for w in flipped],
+                       max_abs_err=d_max, rel_err_by_batch=by_batch,
                        tol=TOL_KERNEL[dn], ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound,
                        launches_per_step=2 * depth)
@@ -965,6 +1118,7 @@ def reset_counts():
     from slak_tpu_torch.ops import dwpair as K10
     K1, KW, K2 = _counters()
     K1.launch_count = K1.stats_launch_count = KW.launch_count = 0
+    K1.band_launch_count = K1.band_stats_launch_count = 0
     K2.launch_count = K2.bwd_launch_count = K2.wide_bwd_launch_count = 0
     K2.bwd_dy_launch_count = K2.wide_bwd_dy_launch_count = 0
     K10.pair_launch_count = K2.dual_launch_count = 0
@@ -987,6 +1141,8 @@ def read_dual_counts():
 def read_counts():
     K1, KW, K2 = _counters()
     return {"dwconv": K1.launch_count, "dwconv_stats": K1.stats_launch_count,
+            "dwconv_band": K1.band_launch_count,
+            "dwconv_stats_band": K1.band_stats_launch_count,
             "dwconv_wgrad": KW.launch_count, "fused_mlp": K2.launch_count,
             "mlp_bwd": K2.bwd_launch_count,
             "mlp_bwd_wide": K2.wide_bwd_launch_count,
@@ -1083,8 +1239,11 @@ def phase_train(batch):
                  if c <= 256)
     # the wide tails run FusedMlp (K2 + K9) where the route says so
     wide = (n_blocks - narrow) if S.TRAIN_WIDE_MLP_BWD else 0
+    # every K4 and K1 dgrad launch of the bf16 step on the band kernel
     want = {"dwconv": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_stats": 2 * n_blocks * TRAIN_STEPS,
+            "dwconv_band": 2 * n_blocks * TRAIN_STEPS,
+            "dwconv_stats_band": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_wgrad": 2 * n_blocks * TRAIN_STEPS,
             "fused_mlp": (narrow + wide) * TRAIN_STEPS,
             "mlp_bwd": narrow * TRAIN_STEPS,
@@ -1208,7 +1367,9 @@ def phase_erf():
                                                            "erf.npy")])
     torch.cuda.synchronize()
     counts = read_counts()
+    # fp32: no launch on the band kernel
     want = {"dwconv": 4 * n_blocks * ERF_IMAGES, "dwconv_stats": 0,
+            "dwconv_band": 0, "dwconv_stats_band": 0,
             "dwconv_wgrad": 0, "fused_mlp": n_blocks * ERF_IMAGES,
             "mlp_bwd": narrow * ERF_IMAGES,
             "mlp_bwd_wide": (n_blocks - narrow) * ERF_IMAGES,
@@ -1267,7 +1428,9 @@ def phase_erf():
         torch.cuda.synchronize()
         if not plain:
             got = read_counts()
+            # bf16: K1 forward and dgrad all on the band kernel
             want = {"dwconv": 4 * n_blocks, "dwconv_stats": 0,
+                    "dwconv_band": 4 * n_blocks, "dwconv_stats_band": 0,
                     "dwconv_wgrad": 2 * n_blocks, "fused_mlp": n_blocks,
                     "mlp_bwd": narrow, "mlp_bwd_wide": n_blocks - narrow,
                     "mlp_bwd_dy_only": 0, "mlp_bwd_wide_dy_only": 0}
@@ -1314,7 +1477,7 @@ _GROUPS = (("mlp_bwd.cu (K8/K9)", ("bwd_gemm_kernel", "wide_prep_kernel",
                                    "mlp_bwd_gemm_f32", "dgamma_kernel",
                                    "sum_chunks", "sum_partials")),
            ("dwconv.cu (K1/K4)", ("dwconv_kernel", "dwconv_tiled",
-                                  "dwconv_stats_reduce")),
+                                  "dwconv_band", "dwconv_stats_reduce")),
            ("dwconv_wgrad.cu (K5/K7)", ("wgrad_",)),
            ("mlp.cu (K2/K3)", ("mlp_fused_kernel", "gemm_kernel<",
                                "ln_bf16_kernel", "simt_ln_kernel",
@@ -1739,23 +1902,11 @@ def phase_mlp_ab(cfg, base: str):
     1024^2 ERF shapes, and the bs256 bf16 eval forward. The base's
     ``csrc/mlp.cu`` is built here; both libraries serve the same wrappers
     (``ops/mlp.py``), swapped by their entry points. Returns the rows."""
-    import ctypes
     import torch
     from slak_tpu_torch.models import apply, create_model
-    from slak_tpu_torch.ops import _build
     from slak_tpu_torch.ops import mlp as K2
-    src = os.path.join(base, "slak_tpu_torch", "ops", "csrc", "mlp.cu")
-    _check(os.path.exists(src), f"mlp_ab: no {src}")
-    so = os.path.join(_build.BUILD_DIR, "ab", "libmlp_base.so")
-    os.makedirs(os.path.dirname(so), exist_ok=True)
-    t0 = time.perf_counter()
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
-                       capture_output=True, text=True)
-    _check(r.returncode == 0, f"mlp_ab: {src} does not build:\n"
-           f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
-    print(f"[mlp_ab] {src} built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    routes = {"base": K2.bind(ctypes.CDLL(so)), "change": K2._entries()}
+    routes = {"base": K2.bind(build_base(base, "mlp", "mlp_ab")),
+              "change": K2._entries()}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(40)
     cases = []                               # (name, fn)
@@ -1801,36 +1952,43 @@ def phase_mlp_ab(cfg, base: str):
     return out
 
 
-def base_mlp_bwd(base: str):
-    """The MLP backward of another checkout (``base``: the parent commit
-    unpacked into a git-ignored directory): its ``csrc/mlp_bwd.cu`` built
-    here and bound by that checkout's own ``ops/mlp.py``, loaded as a
-    module of its own whose entry-point loaders are pointed at that
-    library. Returns the module (its ``fused_mlp_bwd`` and
-    ``fused_mlp_bwd_wide`` launch the base's kernels)."""
+def build_base(base: str, name: str, tag: str):
+    """``csrc/<name>.cu`` of another checkout (``base``: the parent commit
+    unpacked into a git-ignored directory) built here with nvcc; returns
+    the ctypes library."""
     import ctypes
-    import importlib.util
     from slak_tpu_torch.ops import _build
-    root = os.path.join(base, "slak_tpu_torch", "ops")
-    src = os.path.join(root, "csrc", "mlp_bwd.cu")
-    _check(os.path.exists(src), f"mlp_bwd_ab: no {src}")
-    so = os.path.join(_build.BUILD_DIR, "ab", "libmlp_bwd_base.so")
+    src = os.path.join(base, "slak_tpu_torch", "ops", "csrc", name + ".cu")
+    _check(os.path.exists(src), f"{tag}: no {src}")
+    so = os.path.join(_build.BUILD_DIR, "ab", f"lib{name}_base.so")
     os.makedirs(os.path.dirname(so), exist_ok=True)
     t0 = time.perf_counter()
     r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
                        capture_output=True, text=True)
-    _check(r.returncode == 0, f"mlp_bwd_ab: {src} does not build:\n"
+    _check(r.returncode == 0, f"{tag}: {src} does not build:\n"
            f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
-    print(f"[mlp_bwd_ab] {src} built in {time.perf_counter() - t0:.1f} s",
+    print(f"[{tag}] {src} built in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return ctypes.CDLL(so)
+
+
+def base_module(base: str, name: str, py: str, loaders, tag: str):
+    """The wrappers of another checkout: its ``csrc/<name>.cu`` built here
+    (:func:`build_base`) and bound by that checkout's own ``ops/<py>.py``,
+    loaded as a module of its own whose entry-point ``loaders`` (the
+    lru-cached ones it has) are pointed at that library. Returns the
+    module, whose wrappers launch the base's kernels."""
+    import importlib.util
+    from slak_tpu_torch.ops import _build
+    lib = build_base(base, name, tag)
     spec = importlib.util.spec_from_file_location(
-        "base_mlp", os.path.join(root, "mlp.py"))
+        "base_" + py, os.path.join(base, "slak_tpu_torch", "ops", py + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    lib, own = ctypes.CDLL(so), _build.load
-    _build.load = lambda name: lib if name == "mlp_bwd" else own(name)
+    own = _build.load
+    _build.load = lambda n: lib if n == name else own(n)
     try:                                # bind (lru-cached) to the base's
-        for loader in ("_bwd_entries", "_wide_entries"):
+        for loader in loaders:
             if hasattr(mod, loader):
                 getattr(mod, loader)()
     finally:
@@ -1859,7 +2017,8 @@ def phase_mlp_bwd_ab(cfg, base: str):
     from slak_tpu_torch.models import slak as S
     from slak_tpu_torch.ops import mlp as K2
     from slak_tpu_torch.train.engine import make_train_step
-    mod = base_mlp_bwd(base)
+    mod = base_module(base, "mlp_bwd", "mlp",
+                      ("_bwd_entries", "_wide_entries"), "mlp_bwd_ab")
     with open(os.path.join(base, "slak_tpu_torch", "models", "slak.py")) as f:
         m = re.search(r"^TRAIN_WIDE_MLP_BWD = (True|False)", f.read(), re.M)
     base_wide = m is not None and m.group(1) == "True"
@@ -1960,6 +2119,101 @@ def phase_mlp_bwd_ab(cfg, base: str):
     return out
 
 
+def phase_dwconv_ab(cfg, base: str):
+    """K1/K4 of another checkout against this tree's, in one process, in
+    turns base, change, change, base: the bf16 K1 pair (the second launch
+    into the first's output) at each stage shape at the main batch and at
+    the timing batch; the K4 pair and the K1 dgrad pair at the train
+    batch; then the bs256 bf16 eval forward, the bs128 bf16 train step and
+    one fp32 ERF image at 1024^2 (the input gradient, weights frozen), each
+    with the tree's ``dwconv`` / ``dwconv_stats`` swapped into
+    ``ops/dwconv.py`` (the model's convs, ``DwconvTaps`` and
+    ``DwconvBnStats``, call them from there). Returns the rows."""
+    import torch
+    from slak_tpu_torch.analysis.erf import get_input_grad
+    from slak_tpu_torch.models import apply, create_model
+    from slak_tpu_torch.ops import dwconv as K1
+    from slak_tpu_torch.train.engine import make_train_step
+    mod = base_module(base, "dwconv", "dwconv",
+                      ("_entry", "_stats_entries", "_band_entries"),
+                      "dwconv_ab")
+    fns = {"base": (mod.dwconv, mod.dwconv_stats),
+           "change": (K1.dwconv, K1.dwconv_stats)}
+    own = fns["change"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(60)
+    bf = torch.bfloat16
+    cases = []                             # (name, fn(dwconv, dwconv_stats))
+    for i, C, H, K, s, _ in stage_shapes(cfg):
+        ws = [(torch.randn(C, *t, generator=g, device=dev) * 0.05
+               ).to(bf).float() for t in ((K, s), (s, K))]
+        flipped = [w.flip(1, 2).contiguous() for w in ws]
+        for batch in (MAIN_BATCH, TIMING_BATCH):
+            x = torch.randn(batch, C, H, H, generator=g, device=dev).to(bf)
+            cases.append((f"k1_pair_bs{batch}_stage{i + 1}_ms",
+                          lambda f, x=x, ws=ws: f[0](x, ws[1],
+                                                     out=f[0](x, ws[0]))))
+        x, dy = (torch.randn(TRAIN_BATCH, C, H, H, generator=g, device=dev
+                             ).to(bf) for _ in range(2))
+        cases.append((f"k4_pair_bs{TRAIN_BATCH}_stage{i + 1}_ms",
+                      lambda f, x=x, ws=ws: [f[1](x, w) for w in ws]))
+        cases.append((f"dgrad_pair_bs{TRAIN_BATCH}_stage{i + 1}_ms",
+                      lambda f, dy=dy, fl=flipped: [f[0](dy, w)
+                                                    for w in fl]))
+    order = ("base", "change", "change", "base")
+    rows = {name: [] for name, _ in cases}
+    for route in order:
+        for name, fn in cases:
+            rows[name].append(time_ms(lambda: fn(fns[route])))
+    del cases
+    torch.cuda.empty_cache()
+
+    def timed(name, fn, *timing):
+        """fn timed in the turns of ``order``, each tree's wrappers swapped
+        into ops/dwconv.py."""
+        rows[name] = []
+        try:
+            for route in order:
+                K1.dwconv, K1.dwconv_stats = fns[route]
+                rows[name].append(time_ms(fn, *timing))
+        finally:
+            K1.dwconv, K1.dwconv_stats = own
+    model = create_model("SLaK_tiny", dtype=bf, seed=0, **MODEL_KW)
+    x = torch.randn(TIMING_BATCH, 224, 224, 3, device=dev, generator=g
+                    ).to(bf)
+    timed(f"eval_bs{TIMING_BATCH}_ms", lambda: apply(model, x))
+    del model, x
+    torch.cuda.empty_cache()
+    model, state, tc, mc, lr, batches = train_setup(
+        TRAIN_BATCH, bf, dict(TRAIN_MASK, sparse_init="ERK",
+                              update_frequency=100), snip=False)
+    step = make_train_step(model, tc, mc, lr)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    timed(f"train_step_bs{TRAIN_BATCH}_ms",
+          lambda: step(state, batches[0], gen), 5, 2, 3)
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    model = create_model("SLaK_tiny", seed=0, **MODEL_KW)
+    randomize(model, 1)
+    model.eval().requires_grad_(False)
+    image = torch.randn(1, ERF_SIZE, ERF_SIZE, 3, generator=g, device=dev)
+
+    def feature_fn(xx):
+        stages = model.forward_features(xx.permute(0, 3, 1, 2).contiguous(),
+                                        return_stages=True)
+        return stages[-1].permute(0, 2, 3, 1)
+    timed(f"erf_image_{ERF_SIZE}_fp32_ms",
+          lambda: get_input_grad(feature_fn, image), 2, 1, 3)
+    del model, image
+    torch.cuda.empty_cache()
+    for name, ms in rows.items():
+        print(f"[dwconv_ab] {name}: " + " / ".join(f"{v:.4f}" for v in ms)
+              + "  (" + ", ".join(order) + ")", flush=True)
+    out = dict(order=order, **rows)
+    print("[dwconv_ab] " + json.dumps(out), flush=True)
+    return out
+
+
 def phase_probes():
     """The four kernel probes with the launch counters set to 0 just before
     and read just after; returns {probe: counts}."""
@@ -1998,9 +2252,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="build,kernels,forward,timing,"
                     "train_kernels,train,train_timing,erf_kernels,erf,"
                     "dual_kernels,dual,dual_timing,probes")
-    ap.add_argument("--base", help="mlp_ab, mlp_bwd_ab: another checkout "
-                    "of the repository (e.g. the parent commit from git "
-                    "archive, in a git-ignored directory)")
+    ap.add_argument("--base", help="mlp_ab, mlp_bwd_ab, dwconv_ab: another "
+                    "checkout of the repository (e.g. the parent commit "
+                    "from git archive, in a git-ignored directory)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     try:
@@ -2075,6 +2329,9 @@ def main(argv=None) -> int:
         if "mlp_bwd_ab" in phases:
             _check(args.base is not None, "mlp_bwd_ab needs --base")
             phase_mlp_bwd_ab(cfg, args.base)
+        if "dwconv_ab" in phases:
+            _check(args.base is not None, "dwconv_ab needs --base")
+            phase_dwconv_ab(cfg, args.base)
     except Exception as e:                      # report and fail the run
         import traceback
         traceback.print_exc()
@@ -2103,6 +2360,11 @@ def main(argv=None) -> int:
                 library_ms=t.get("library_ms"), **extra,
                 **({"unfused_torch_ms": t["unfused_torch_ms"]}
                    if "unfused_torch_ms" in t else {}),
+                **({"band_route": BAND_ROUTE,
+                    "band_launches": None if counts is None else counts[2],
+                    "train_band_launches": None if train_counts is None
+                    else train_counts["dwconv_band"]}
+                   if name == "dwconv" else {}),
                 train_launches=None if train_counts is None
                 else train_counts[name],
                 times_per="one bf16 forward at batch %d" % MAIN_BATCH,
@@ -2121,7 +2383,10 @@ def main(argv=None) -> int:
         for name, src, repl, extra in (
                 ("dwconv_stats", "slak_tpu_torch/ops/csrc/dwconv.cu",
                  "slak_tpu/ops/pallas_banded.py:251",
-                 {"library": "F.conv2d(groups=C) + sum + sum of squares"}),
+                 {"library": "F.conv2d(groups=C) + sum + sum of squares",
+                  "band_route": BAND_ROUTE,
+                  "band_launches": None if train_counts is None
+                  else train_counts["dwconv_stats_band"]}),
                 ("dwconv_wgrad", "slak_tpu_torch/ops/csrc/dwconv_wgrad.cu",
                  "slak_tpu/ops/pallas_banded.py:888",
                  {"also_replaces": "slak_tpu/ops/pallas_banded.py:806",

@@ -53,6 +53,51 @@
 // copies the W-padded input's first W columns, as the TPU copy-only twin
 // does (x_ref[i, :, 0:W, :]): out[h][w] = x[h][w - 2], zero for w < 2.
 // K1's own instantiations (PROBE = false) are unchanged.
+//
+// Band route (slak_dwconv_band, slak_dwconv_band_stats: bf16, taps (K, 5)
+// or (5, K), both map axes at most 64): dwconv_band_kernel, the same two
+// TPU kernels in their own form, per-channel banded products against the
+// batch, on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums). With
+// L the long tap axis of the map (H for (K, 5), W for (5, K)) and F the
+// other, both orientations are one product for each tap j < 5 of the short
+// axis:
+//   C[m][(n, f)] += sum_k A_j[m][k] X_n[f + j - 2][k],
+//   A_j[m][k] = t(k - m + K/2, j) (zero off the band),
+// M = m < L, K = k < L, N = (image, f), X_n the plane with the long axis
+// contiguous: (K, 5) stages it transposed (X[w][h]), (5, K) as it lies;
+// C[m][(n, f)] is out[n][m][f] for (K, 5), out[n][f][m] for (5, K).
+// The shift j - 2 is a row offset of the staged operand (each image has 2
+// zero rows before and after its F rows, F padded to 8), which ldmatrix
+// addresses freely, so the fp32 accumulators are the output tile: no
+// partial product goes through shared memory. A_j is Toeplitz in 16 x 16
+// tiles, tile (mt, kt) = D_j[kt - mt] (its columns beyond L meet zero
+// columns of X): a block keeps 5 (2 MT - 1) tiles, MT = ceil(L / 16), and
+// skips those off the band. The taps come in already rounded to bf16 by
+// every bf16 caller, so the bf16 band is exact.
+//
+// A block takes one channel and a run of images, NB a chunk (the images
+// whose tiles the 8 warps take in one round), and builds the channel's band
+// tiles once. Chunks are double-buffered with one barrier a chunk: while
+// chunk q's products run, chunk q + 1 (loaded into registers during chunk
+// q - 1) is written to the other staged buffer and chunk q + 2 is loaded.
+// A warp moves a plane in 8 x 8 blocks, a lane two neighbouring values
+// (one 4-byte load, two 2-byte loads where W is odd), and the (K, 5)
+// orientation transposes each block in registers with movmatrix, so the
+// staged stores are 4 bytes and free of bank conflicts. The accumulators
+// are stored from the fragments, two values along w a store ((5, K)
+// transposes each 8 x 8 fragment block with movmatrix first, its fp32
+// values as two 16-bit halves), in accumulate mode after adding what
+// `out` holds (one rounding; the loads an n-tile needs issued together,
+// but at MT = 1 in place). The stats variant (part != nullptr) sums the
+// stored values and their squares in each thread's store order in fp32
+// (separate multiply and add, so a plain version can repeat the sums) and
+// writes one partial pair per (image run, channel), summed by
+// dwconv_stats_reduce in a fixed order: no atomics, no re-read of `out`.
+//
+// What bounds it on an H100: the bytes (x read once, out written once).
+// The products run well below the tensor cores' rate; what is left is
+// latency: the staging, the fragment loads and the per-block set-up (the
+// band build), with 16 (32 on the small maps) warps an SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -447,6 +492,509 @@ cudaError_t launch(const void* x, const float* w, void* out, long long N,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The band route (see the header).
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBandMax = 64;           // either map axis: at most 4 tiles
+                                       // (ops/dwconv.py routes by BAND_MAX)
+constexpr int kBandPitch = 24;         // a band tile's row pitch (16 + 8)
+constexpr int kBandTile = 16 * kBandPitch;
+constexpr size_t kBandSmemMax = 200 * 1024;
+
+struct BandGeom {
+  int N, C, H, W, K, long_h;
+  int L, F;            // the long tap axis of the map, the other axis
+  int NTI, RPI, P;     // n-tiles an image (F to 8), staged rows an image
+                       // (F to 8, + 4 halo rows), staged row pitch (L to
+                       // 16, + 8)
+  int BW, BPI;         // 8 x 8 blocks of a plane: across W, in all
+  int HW, NB, CPB;     // plane; images a chunk; chunks a block
+  int b_off, b_bytes;  // shared memory: the band tiles at 0, then the two
+                       // staged buffers (b_bytes each)
+};
+
+// Per m-tile count MT (chosen by in-call A/B on the H100, PERF.md): the
+// n-tiles of 8 a warp takes (MT * WN accumulator tiles), the 8 x 8 blocks
+// a warp stages a chunk (its registers a lane), and the blocks an SM the
+// registers are held to. The small maps (MT = 1) trade chunk size for
+// occupancy; at MT = 4, three blocks an SM spill.
+__host__ __device__ constexpr int band_wn(int MT) {
+  return MT <= 2 ? 4 : 2;
+}
+__host__ __device__ constexpr int band_pre(int MT) {
+  return MT == 1 ? 8 : 16;
+}
+__host__ __device__ constexpr int band_min_blocks(int MT) {
+  return MT == 1 ? 4 : 2;
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// the transpose of the warp's 8 x 8 matrix of 16-bit values held as
+// mma fragments (lane: row lane / 4, columns 2 (lane % 4) and + 1)
+__device__ __forceinline__ unsigned movt(unsigned v) {
+  unsigned d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d) : "r"(v));
+  return d;
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float bf_lo(unsigned v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf_hi(unsigned v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// A chunk's 8 x 8 blocks: block b = warp + 8 i of the lane's loads and
+// stores, image b / BPI; blk[b] = (its offset in the chunk's planes, its
+// offset in a staged buffer, the rows and columns of the map it holds).
+__device__ __forceinline__ void band_blocks(const BandGeom& g, int4* blk) {
+  for (int b = threadIdx.x; b < g.NB * g.BPI; b += kThreads) {
+    const int img = b / g.BPI, rem = b - img * g.BPI;
+    const int bh = rem / g.BW, bw = rem - bh * g.BW;
+    const int row = g.long_h ? bw : bh, col = g.long_h ? bh : bw;
+    blk[b] = make_int4(img * g.C * g.HW + bh * 8 * g.W + bw * 8,
+                       (img * g.RPI + 2 + row * 8) * g.P + col * 8,
+                       g.H - bh * 8, g.W - bw * 8);
+  }
+}
+
+// The chunk's planes (nimg images from image n, channel c) into registers,
+// a block at a time: the lane's two values at (row lane / 4, columns
+// 2 (lane % 4) and + 1) of the block, one 4-byte load where W is even
+// (PAIR), else two 2-byte loads; zero outside the map.
+template <int PRE, bool PAIR>
+__device__ __forceinline__ void band_load(const BandGeom& g, const int4* blk,
+                                          const bf16* x, int n, int nimg,
+                                          int c, unsigned* pre) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lr = lane >> 2, lc = 2 * (lane & 3);
+  const int nblk = nimg * g.BPI;
+  const unsigned short* base = reinterpret_cast<const unsigned short*>(
+      x + ((long long)n * g.C + c) * g.HW) + lr * g.W + lc;
+#pragma unroll
+  for (int i = 0; i < PRE; ++i) {
+    const int b = warp + i * kWarps;
+    if (b >= nblk) break;
+    const int4 e = blk[b];
+    const unsigned short* p = base + e.x;
+    unsigned v = 0u;
+    if (lr < e.z && lc < e.w) {
+      if (PAIR)
+        v = *reinterpret_cast<const unsigned*>(p);
+      else
+        v = p[0] | (lc + 1 < e.w ? (unsigned)p[1] << 16 : 0u);
+    }
+    pre[i] = v;
+  }
+}
+
+// The registers into a staged buffer: image img's rows at img * RPI, value
+// (h, w) at row 2 + w, column h for (K, 5) (each block transposed in
+// registers with movmatrix) and at row 2 + h, column w for (5, K); 4-byte
+// stores. The blocks' zero values outside the map fill the padding.
+template <int PRE>
+__device__ __forceinline__ void band_stage(const BandGeom& g, const int4* blk,
+                                           bf16* bs, int nimg,
+                                           const unsigned* pre) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nblk = nimg * g.BPI;
+  bf16* base = bs + (lane >> 2) * g.P + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < PRE; ++i) {
+    const int b = warp + i * kWarps;
+    if (b >= nblk) break;
+    *reinterpret_cast<unsigned*>(base + blk[b].y) =
+        g.long_h ? movt(pre[i]) : pre[i];
+  }
+}
+
+// The two values `out` holds at (r, cc) and (r, cc + 1) of a plane (zero
+// outside the map), as a bf16 pair.
+template <bool PAIR>
+__device__ __forceinline__ unsigned band_old(const BandGeom& g,
+                                             const bf16* out, long long plane,
+                                             int r, int cc) {
+  if (r >= g.H || cc >= g.W) return 0u;
+  const unsigned short* p =
+      reinterpret_cast<const unsigned short*>(out + plane + r * g.W + cc);
+  if (PAIR) return *reinterpret_cast<const unsigned*>(p);
+  return p[0] | (cc + 1 < g.W ? (unsigned)p[1] << 16 : 0u);
+}
+
+// Two output values at (r, cc) and (r, cc + 1) of a plane: in accumulate
+// mode plus what `out` holds there (`old`, or with LOAD loaded here),
+// rounded once, stored where inside the map; the stats variant sums the
+// stored values and their squares.
+template <bool PAIR, bool LOAD>
+__device__ __forceinline__ void band_put(const BandGeom& g, bf16* out,
+                                         long long plane, int r, int cc,
+                                         float v0, float v1, int accumulate,
+                                         unsigned old, bool stats, float& s,
+                                         float& q) {
+  if (r >= g.H || cc >= g.W) return;
+  const bool two = PAIR || cc + 1 < g.W;
+  bf16* dst = out + plane + r * g.W + cc;
+  if (accumulate) {
+    if (LOAD) {
+      if (PAIR) {
+        old = *reinterpret_cast<const unsigned*>(dst);
+      } else {
+        old = __bfloat16_as_ushort(dst[0]);
+        if (two) old |= (unsigned)__bfloat16_as_ushort(dst[1]) << 16;
+      }
+    }
+    v0 += bf_lo(old);
+    v1 += bf_hi(old);
+  }
+  const bf16 y0 = __float2bfloat16(v0), y1 = __float2bfloat16(v1);
+  if (PAIR) {
+    *reinterpret_cast<unsigned*>(dst) =
+        (unsigned)__bfloat16_as_ushort(y0) |
+        ((unsigned)__bfloat16_as_ushort(y1) << 16);
+  } else {
+    dst[0] = y0;
+    if (two) dst[1] = y1;
+  }
+  if (stats) {
+    const float a = __bfloat162float(y0), b = __bfloat162float(y1);
+    s = __fadd_rn(s, a);
+    q = __fadd_rn(q, __fmul_rn(a, a));
+    if (two) {
+      s = __fadd_rn(s, b);
+      q = __fadd_rn(q, __fmul_rn(b, b));
+    }
+  }
+}
+
+// The products of a chunk of T n-tiles (images n ..) and their stores:
+// warp tile wt = n-tiles [wt * WN, wt * WN + WN), all MT m-tiles. For each
+// tap j: the B fragments of the warp's n-tiles at every k-tile (rows
+// shifted by j), then each band tile D_j[d] on the band once, into every
+// (m-tile, k-tile = m-tile + d). The accumulators are the output tile:
+// (K, 5) stores them as they lie (row m = h, columns f = w), (5, K) after
+// a movmatrix transpose of each 8 x 8 block (its fp32 values as two 16-bit
+// halves), so both store value pairs along w.
+template <int MT, bool PAIR>
+__device__ __forceinline__ void band_products(
+    const BandGeom& g, const bf16* band, const bf16* bs, bf16* out, int n,
+    int c, int T, int accumulate, bool stats, float& s, float& q) {
+  constexpr int WN = band_wn(MT), ND = 2 * MT - 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int pk = g.K / 2;
+  const bf16* a_lane = band + ((lane & 7) + ((lane >> 3) & 1) * 8) *
+                                  kBandPitch + (lane >> 4) * 8;
+  const int WT = (T + WN - 1) / WN;
+  for (int wt = warp; wt < WT; wt += kWarps) {
+    float acc[MT][WN][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nn = 0; nn < WN; ++nn)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nn][i] = 0.f;
+    // the lane's ldmatrix row of each pair of n-tiles (lanes 16-31: the
+    // pair's second); an n-tile past the chunk reads the last one's rows
+    int brow[WN / 2];
+#pragma unroll
+    for (int p = 0; p < WN / 2; ++p) {
+      const int nt = min(wt * WN + 2 * p + (lane >> 4), T - 1);
+      const int img = nt / g.NTI, f0 = (nt - img * g.NTI) * 8;
+      brow[p] = (img * g.RPI + f0 + (lane & 7)) * g.P +
+                ((lane >> 3) & 1) * 8;
+    }
+#pragma unroll
+    for (int j = 0; j < kShort; ++j) {
+      unsigned b[MT][WN][2];
+#pragma unroll
+      for (int kt = 0; kt < MT; ++kt)
+#pragma unroll
+        for (int p = 0; p < WN / 2; ++p) {
+          unsigned r[4];
+          ldsm_x4(r, bs + brow[p] + j * g.P + kt * 16);
+          b[kt][2 * p][0] = r[0];
+          b[kt][2 * p][1] = r[1];
+          b[kt][2 * p + 1][0] = r[2];
+          b[kt][2 * p + 1][1] = r[3];
+        }
+#pragma unroll
+      for (int di = 0; di < ND; ++di) {
+        const int d = di - (MT - 1);
+        if (16 * (d < 0 ? -d : d) - 15 > pk) continue;     // off the band
+        unsigned a[4];
+        ldsm_x4(a, a_lane + (j * ND + di) * kBandTile);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int kt = mt + d;
+          if (kt < 0 || kt >= MT) continue;
+#pragma unroll
+          for (int nn = 0; nn < WN; ++nn)
+            mma_bf16(acc[mt][nn], a, b[kt][nn][0], b[kt][nn][1]);
+        }
+      }
+    }
+    // the tile's stores, an n-tile at a time: output (r, cc) of fragment
+    // half hf of (mt, nn); in accumulate mode what `out` holds at the
+    // n-tile's outputs is loaded first, all at once (at MT = 1, where the
+    // registers are held to 64, just before each store)
+#pragma unroll
+    for (int nn = 0; nn < WN; ++nn) {
+      const int nt = wt * WN + nn;
+      if (nt >= T) break;
+      const int img = nt / g.NTI, f0 = (nt - img * g.NTI) * 8;
+      const long long plane = ((long long)(n + img) * g.C + c) * g.HW;
+      const auto r_of = [&](int mt, int hf) {
+        return g.long_h ? mt * 16 + 8 * hf + gid : f0 + gid;
+      };
+      const auto cc_of = [&](int mt, int hf) {
+        return g.long_h ? f0 + 2 * tig : mt * 16 + 8 * hf + 2 * tig;
+      };
+      unsigned old[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          old[mt][hf] = MT > 1 && accumulate
+                            ? band_old<PAIR>(g, out, plane, r_of(mt, hf),
+                                             cc_of(mt, hf)) : 0u;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float v0 = acc[mt][nn][2 * hf], v1 = acc[mt][nn][2 * hf + 1];
+          if (!g.long_h) {        // (5, K): the 8 x 8 block transposed
+            const unsigned u0 = __float_as_uint(v0), u1 = __float_as_uint(v1);
+            const unsigned hi = movt(__byte_perm(u0, u1, 0x7632));
+            const unsigned lo = movt(__byte_perm(u0, u1, 0x5410));
+            v0 = __uint_as_float(__byte_perm(lo, hi, 0x5410));
+            v1 = __uint_as_float(__byte_perm(lo, hi, 0x7632));
+          }
+          band_put<PAIR, MT == 1>(g, out, plane, r_of(mt, hf),
+                                  cc_of(mt, hf), v0, v1, accumulate,
+                                  old[mt][hf], stats, s, q);
+        }
+    }
+  }
+}
+
+template <int MT, bool PAIR>
+__global__ void __launch_bounds__(kThreads, band_min_blocks(MT))
+dwconv_band_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+                   bf16* __restrict__ out, BandGeom g, int accumulate,
+                   float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  constexpr int ND = 2 * MT - 1, PRE = band_pre(MT);
+  bf16* band = reinterpret_cast<bf16*>(band_smem);
+  bf16* bsb[2] = {reinterpret_cast<bf16*>(band_smem + g.b_off),
+                  reinterpret_cast<bf16*>(band_smem + g.b_off + g.b_bytes)};
+  const int c = blockIdx.x % g.C, grp = blockIdx.x / g.C;
+  const int n_begin = grp * g.CPB * g.NB;
+  const int n_end = min(g.N, n_begin + g.CPB * g.NB);
+  const int nq = (n_end - n_begin + g.NB - 1) / g.NB;
+  const int pk = g.K / 2;
+  const bool stats = part != nullptr;
+
+  __shared__ int4 blk[PRE * kWarps];
+  band_blocks(g, blk);
+  __syncthreads();
+  unsigned pre[PRE];
+  band_load<PRE, PAIR>(g, blk, x, n_begin, min(g.NB, n_end - n_begin), c,
+                       pre);
+  // both staged buffers zeroed once (their halo rows and padding stay
+  // zero), and the channel's band tiles D_j[d], d = -(MT-1) .. MT-1, 8
+  // values a store (tiles off the band are never read, nor built)
+  for (int i = threadIdx.x; i < 2 * g.b_bytes / 16; i += kThreads)
+    reinterpret_cast<uint4*>(bsb[0])[i] = make_uint4(0u, 0u, 0u, 0u);
+  const float* wc = w + (long long)c * g.K * kShort;
+  for (int i = threadIdx.x; i < kShort * ND * 32; i += kThreads) {
+    const int jd = i >> 5, r = (i >> 1) & 15, c0 = (i & 1) * 8;
+    const int j = jd / ND, d = jd - j * ND - (MT - 1);
+    if (16 * (d < 0 ? -d : d) - 15 > pk) continue;
+    unsigned v[4];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int k = 16 * d + c0 + e - r + pk;
+      float t = 0.f;
+      if (k >= 0 && k < g.K)
+        t = g.long_h ? wc[k * kShort + j] : wc[j * g.K + k];
+      const unsigned h = __bfloat16_as_ushort(__float2bfloat16(t));
+      v[e >> 1] = e & 1 ? v[e >> 1] | h << 16 : h;
+    }
+    *reinterpret_cast<uint4*>(band + jd * kBandTile + r * kBandPitch + c0) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  __syncthreads();
+  band_stage<PRE>(g, blk, bsb[0], min(g.NB, n_end - n_begin), pre);
+  if (nq > 1)
+    band_load<PRE, PAIR>(g, blk, x, n_begin + g.NB,
+                         min(g.NB, n_end - n_begin - g.NB), c, pre);
+  __syncthreads();
+
+  // chunk qi: stage chunk qi + 1 into the other buffer and start loading
+  // chunk qi + 2, then chunk qi's products and stores; one barrier
+  float s = 0.f, q = 0.f;
+  for (int qi = 0; qi < nq; ++qi) {
+    const int n = n_begin + qi * g.NB, nimg = min(g.NB, n_end - n);
+    if (qi + 1 < nq) {
+      band_stage<PRE>(g, blk, bsb[(qi + 1) & 1],
+                      min(g.NB, n_end - n - g.NB), pre);
+      if (qi + 2 < nq)
+        band_load<PRE, PAIR>(g, blk, x, n + 2 * g.NB,
+                             min(g.NB, n_end - n - 2 * g.NB), c, pre);
+    }
+    band_products<MT, PAIR>(g, band, bsb[qi & 1], out, n, c, nimg * g.NTI,
+                            accumulate, stats, s, q);
+    __syncthreads();
+  }
+  if (stats) {
+    __shared__ float red[2][kWarps];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    s = warp_sum(s);
+    q = warp_sum(q);
+    if (lane == 0) {
+      red[0][warp] = s;
+      red[1][warp] = q;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float a = 0.f, b = 0.f;
+      for (int i = 0; i < kWarps; ++i) {
+        a += red[0][i];
+        b += red[1][i];
+      }
+      float* dst = part + ((long long)grp * g.C + c) * 2;
+      dst[0] = a;
+      dst[1] = b;
+    }
+  }
+}
+
+int round_up(int a, int m) { return (a + m - 1) / m * m; }
+
+// The band route's geometry: false when the shapes do not fit it. MT =
+// m-tiles of the long axis, PAIR = 4-byte loads and stores (W even, the
+// pointers 4-byte aligned), bpc = blocks a channel.
+bool band_geom(long long N, int C, int H, int W, int kh, int kw,
+               const void* x, const void* out, BandGeom* gp, int* MT,
+               bool* PAIR, int* bpc, size_t* smem_out) {
+  const int variant = variant_of(kh, kw);
+  if (variant == 0 || N < 1 || N > (1LL << 30) || C < 1) return false;
+  BandGeom g{};
+  g.N = (int)N; g.C = C; g.H = H; g.W = W;
+  g.long_h = variant == 1;
+  g.K = g.long_h ? kh : kw;
+  g.L = g.long_h ? H : W;
+  g.F = g.long_h ? W : H;
+  if (g.L < 1 || g.L > kBandMax || g.F < 1 || g.F > kBandMax) return false;
+  const int mt = (g.L + 15) / 16;
+  const int Fn = round_up(g.F, 8);
+  g.NTI = Fn / 8;
+  g.RPI = Fn + 4;
+  g.P = 16 * mt + 8;
+  g.BW = (W + 7) / 8;
+  g.BPI = (H + 7) / 8 * g.BW;
+  g.HW = H * W;
+  // as many images as the 8 warps' tiles take in one round, and as their
+  // 8 x 8 blocks take in band_pre registers a lane
+  const int pre = band_pre(mt) * kWarps;
+  int nb = 8 * band_wn(mt) / g.NTI;
+  if (nb > pre / g.BPI) nb = pre / g.BPI;
+  if (nb > g.N) nb = g.N;
+  g.NB = nb < 1 ? 1 : nb;
+  if (g.NB * g.BPI > pre) return false;
+  // about 1024 blocks: channels times runs of chunks
+  const int chunks = (g.N + g.NB - 1) / g.NB;
+  int per = (1024 + C - 1) / C;
+  if (per > chunks) per = chunks;
+  g.CPB = (chunks + per - 1) / per;
+  g.b_off = kShort * (2 * mt - 1) * kBandTile * 2;
+  g.b_bytes = round_up(g.NB * g.RPI * g.P * 2, 16);
+  const size_t smem = (size_t)g.b_off + 2 * (size_t)g.b_bytes;
+  if (smem > kBandSmemMax) return false;
+  *gp = g;
+  *MT = mt;
+  *PAIR = W % 2 == 0 && (((uintptr_t)x | (uintptr_t)out) & 3) == 0;
+  *bpc = (chunks + g.CPB - 1) / g.CPB;
+  *smem_out = smem;
+  return true;
+}
+
+template <int MT, bool PAIR>
+cudaError_t launch_band_t(const BandGeom& g, int bpc, size_t smem,
+                          const void* x, const float* w, void* out,
+                          int accumulate, float* part, cudaStream_t stream) {
+  auto kernel = dwconv_band_kernel<MT, PAIR>;
+  static bool raised = false;                 // once an instantiation
+  if (smem > 48 * 1024 && !raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kBandSmemMax);
+    if (e != cudaSuccess) return e;
+    raised = true;
+  }
+  kernel<<<(unsigned)(g.C * bpc), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), w, static_cast<bf16*>(out), g, accumulate,
+      part);
+  return cudaGetLastError();
+}
+
+template <bool PAIR>
+cudaError_t launch_band_p(int MT, const BandGeom& g, int bpc, size_t smem,
+                          const void* x, const float* w, void* out,
+                          int accumulate, float* part, cudaStream_t stream) {
+  switch (MT) {
+    case 1: return launch_band_t<1, PAIR>(g, bpc, smem, x, w, out,
+                                          accumulate, part, stream);
+    case 2: return launch_band_t<2, PAIR>(g, bpc, smem, x, w, out,
+                                          accumulate, part, stream);
+    case 3: return launch_band_t<3, PAIR>(g, bpc, smem, x, w, out,
+                                          accumulate, part, stream);
+    case 4: return launch_band_t<4, PAIR>(g, bpc, smem, x, w, out,
+                                          accumulate, part, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// One launch of the band kernel; *bpc_out = its blocks a channel (the
+// stats variant's partials per channel).
+cudaError_t launch_band(const void* x, const float* w, void* out,
+                        long long N, int C, int H, int W, int kh, int kw,
+                        int accumulate, float* part, int* bpc_out,
+                        cudaStream_t stream) {
+  BandGeom g;
+  int MT, bpc;
+  bool PAIR;
+  size_t smem;
+  if (!band_geom(N, C, H, W, kh, kw, x, out, &g, &MT, &PAIR, &bpc, &smem))
+    return cudaErrorInvalidValue;
+  *bpc_out = bpc;
+  return PAIR ? launch_band_p<true>(MT, g, bpc, smem, x, w, out, accumulate,
+                                    part, stream)
+              : launch_band_p<false>(MT, g, bpc, smem, x, w, out, accumulate,
+                                     part, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x, out: (N, C, H, W) contiguous;
@@ -510,10 +1058,22 @@ extern "C" int slak_dwconv_probe(int dtype, const void* x, const float* w,
   return (int)cudaGetLastError();
 }
 
-// The float32 scratch the stats variant needs: 2 * N * C * row tiles
-// (-1 when no tile fits).
-extern "C" long long slak_dwconv_stats_scratch(long long N, int C, int H,
-                                               int W, int kh, int kw) {
+// The float32 scratch the stats variant needs on a route: band = 0, the
+// tiled kernel's 2 * N * C * row tiles; band = 1, the band kernel's
+// 2 * C * blocks a channel (-1 when the route does not take the shapes).
+extern "C" long long slak_dwconv_stats_scratch(int band, long long N, int C,
+                                               int H, int W, int kh,
+                                               int kw) {
+  if (band) {
+    BandGeom g;
+    int MT, bpc;
+    bool PAIR;
+    size_t smem;
+    if (!band_geom(N, C, H, W, kh, kw, nullptr, nullptr, &g, &MT, &PAIR,
+                   &bpc, &smem))
+      return -1;
+    return 2LL * C * bpc;
+  }
   Geom g;
   size_t smem;
   if (!make_geom(N, C, H, W, kh, kw, &g, &smem)) return -1;
@@ -522,7 +1082,7 @@ extern "C" long long slak_dwconv_stats_scratch(long long N, int C, int H,
 
 // out = conv(x, w) as slak_dwconv (no accumulate), and s1[c], s2[c] = the
 // fp32 sum and sum of squares of channel c of the stored out. part:
-// slak_dwconv_stats_scratch floats. Two launches.
+// slak_dwconv_stats_scratch(0, ...) floats. Two launches.
 extern "C" int slak_dwconv_stats(int dtype, const void* x, const float* w,
                                  void* out, float* part, float* s1, float* s2,
                                  long long N, int C, int H, int W, int kh,
@@ -542,5 +1102,32 @@ extern "C" int slak_dwconv_stats(int dtype, const void* x, const float* w,
   if (e != cudaSuccess) return (int)e;
   dwconv_stats_reduce<<<C, kThreads, 0, s>>>(part, s1, s2, N, C,
                                              g.n_row_tiles);
+  return (int)cudaGetLastError();
+}
+
+// The band route (bf16 only): out = conv(x, w) (+ out with accumulate), as
+// slak_dwconv, for taps (K, 5) or (5, K) with both map axes at most 64.
+// Returns cudaErrorInvalidValue for shapes it does not take.
+extern "C" int slak_dwconv_band(const void* x, const float* w, void* out,
+                                long long N, int C, int H, int W, int kh,
+                                int kw, int accumulate, void* stream) {
+  int bpc;
+  return (int)launch_band(x, w, out, N, C, H, W, kh, kw, accumulate, nullptr,
+                          &bpc, static_cast<cudaStream_t>(stream));
+}
+
+// The band route's stats variant: out = conv(x, w) and s1[c], s2[c] as
+// slak_dwconv_stats. part: slak_dwconv_stats_scratch(1, ...) floats (one
+// pair of partials per channel and block). Two launches.
+extern "C" int slak_dwconv_band_stats(const void* x, const float* w,
+                                      void* out, float* part, float* s1,
+                                      float* s2, long long N, int C, int H,
+                                      int W, int kh, int kw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int bpc;
+  const cudaError_t e = launch_band(x, w, out, N, C, H, W, kh, kw, 0, part,
+                                    &bpc, s);
+  if (e != cudaSuccess) return (int)e;
+  dwconv_stats_reduce<<<C, kThreads, 0, s>>>(part, s1, s2, bpc, C, 1);
   return (int)cudaGetLastError();
 }

@@ -33,6 +33,20 @@ the kernel and the plain version multiply the same values. Both accumulate
 in fp32 and round once on the store; with ``out`` given the result is added
 to ``out`` in place -- the second branch of the decomposed pair adds into
 the first one's output.
+
+Two kernels serve K1/K4 on the card, chosen by dtype and shape
+(:func:`band_route`): bf16 maps with (K, 5) or (5, K) taps and both axes
+at most ``BAND_MAX`` take the band kernel (``slak_dwconv_band``,
+per-channel banded products on the tensor cores, counted in
+``band_launch_count`` / ``band_stats_launch_count`` besides
+``launch_count`` / ``stats_launch_count``); everything else (fp32, larger
+maps, other taps) takes the tiled kernel. :func:`launch` and
+:func:`launch_stats` launch one named route (the probes hold the two
+against each other). :func:`dwconv_band_mirror` and
+:func:`dwconv_band_stats_mirror` repeat the band kernel's decomposition in
+plain PyTorch: the Toeplitz band tiles, the staged operand with its zero
+halo rows, the shifted rows, the padded tiles, and the K4 partial sums in
+the kernel's order.
 """
 
 from __future__ import annotations
@@ -47,6 +61,10 @@ import torch.nn.functional as F
 launch_count = 0               # K1 launches (forward and dgrad)
 stats_launch_count = 0         # K4 launches (the stats variant)
 probe_launch_count = 0         # K13 launches (the tap-limited probe)
+band_launch_count = 0          # K1 launches on the band route (also above)
+band_stats_launch_count = 0    # K4 launches on the band route (also above)
+
+BAND_MAX = 64                  # the band kernel's map axes: 4 tiles of 16
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -89,6 +107,213 @@ def dwconv_stats_plain(x: torch.Tensor, w: torch.Tensor):
     return y, yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3))
 
 
+# --- the band kernel's decomposition in plain PyTorch -----------------------
+
+_THREADS, _WARPS = 256, 8          # the band kernel's block
+
+
+def band_geometry(N: int, C: int, H: int, W: int, kh: int, kw: int
+                  ) -> dict:
+    """The band kernel's launch geometry (``band_geom`` in csrc/dwconv.cu):
+    long_h ((K, 5) taps), the long-tap axis L and the other axis F, MT
+    m-tiles of 16 along L, NTI n-tiles of 8 an image, RPI staged rows an
+    image, WN n-tiles a warp tile, BPI 8 x 8 blocks a plane, NB images a
+    chunk, CPB chunks a block, bpc blocks a channel."""
+    long_h = kw == 5
+    K, L, F = (kh, H, W) if long_h else (kw, W, H)
+    mt, nti = -(-L // 16), -(-F // 8)
+    bpi = -(-H // 8) * -(-W // 8)
+    wn = 4 if mt <= 2 else 2
+    nb = max(1, min(8 * wn // nti, (8 if mt == 1 else 16) * _WARPS // bpi, N))
+    chunks = -(-N // nb)
+    per = min(-(-1024 // C), chunks)
+    cpb = -(-chunks // per)
+    return dict(long_h=long_h, K=K, L=L, F=F, MT=mt, NTI=nti, RPI=8 * nti + 4,
+                WN=wn, BPI=bpi, NB=nb, CPB=cpb, bpc=-(-chunks // cpb))
+
+
+def band_tiles(w: torch.Tensor, long_h: bool, mt: int) -> torch.Tensor:
+    """The channel's band tiles as the kernel builds them: (C, 5, 2 MT - 1,
+    16, 16), tile d - (MT - 1) of tap j holding t(16 d + col - r + K/2, j)
+    at (r, col), zero off the taps and for tiles off the band, in bf16
+    (exact for taps already rounded to bf16), as float32."""
+    t = (w if long_h else w.transpose(1, 2)).float()        # (C, K, 5)
+    K = t.shape[1]
+    d = torch.arange(-(mt - 1), mt, device=w.device)
+    r = torch.arange(16, device=w.device)
+    k = 16 * d[:, None, None] + r[None, None, :] - r[None, :, None] + K // 2
+    ok = (k >= 0) & (k < K) & (16 * d.abs() - 15 <= K // 2)[:, None, None]
+    D = t[:, k.clamp(0, K - 1)] * ok[None, ..., None]   # (C, ND, 16, 16, 5)
+    return D.permute(0, 4, 1, 2, 3).to(torch.bfloat16).float()
+
+
+def _band_tile_products(x, w, g):
+    """The fp32 output tile of every image (N, C, H*W) as the kernel forms
+    it: the staged operand with each image's F rows (long axis contiguous,
+    F padded to 8) between 2 zero halo rows, stacked over the images; each
+    n-tile's 8 rows shifted by the tap j; the band tiles' products summed
+    over the k-tiles on the band; the tile scattered back to [h][w]."""
+    N, C, H, W = x.shape
+    mt, nti, rpi = g["MT"], g["NTI"], g["RPI"]
+    L, F, Lp = g["L"], g["F"], 16 * g["MT"]
+    D = band_tiles(w.to(x.device), g["long_h"], mt)
+    # xs: (N, C, F, L); staged: (C, N * RPI, Lp), row img * RPI + 2 + f
+    xs = x.float().transpose(2, 3) if g["long_h"] else x.float()
+    staged = torch.zeros(C, N, rpi, Lp, device=x.device)
+    staged[:, :, 2:2 + F, :L] = xs.transpose(0, 1)
+    staged = staged.reshape(C, N * rpi, Lp)
+    T = N * nti
+    nt = torch.arange(T, device=x.device)
+    img, f0 = nt // nti, (nt % nti) * 8
+    rows = img * rpi + f0                               # (T,)
+    acc = torch.zeros(C, T, Lp, 8, device=x.device)
+    for j in range(5):
+        B = staged[:, (rows[:, None] + j + torch.arange(8, device=x.device)
+                       )]                               # (C, T, 8, Lp)
+        for m in range(mt):
+            for k in range(mt):
+                if 16 * abs(k - m) - 15 > g["K"] // 2:
+                    continue                            # off the band
+                A = D[:, j, k - m + mt - 1]             # (C, 16, 16)
+                acc[:, :, 16 * m:16 * m + 16] += torch.einsum(
+                    "crk,ctnk->ctrn", A, B[..., 16 * k:16 * k + 16])
+    # tile (m, f) of n-tile nt -> image img, out[m][f] or out[f][m]
+    m = torch.arange(Lp, device=x.device)
+    f = f0[:, None] + torch.arange(8, device=x.device)  # (T, 8)
+    ok = (m[None, :, None] < L) & (f[:, None, :] < F)   # (T, Lp, 8)
+    pos = (m[None, :, None] * W + f[:, None, :] if g["long_h"]
+           else f[:, None, :] * W + m[None, :, None])
+    flat = (img[:, None, None] * (H * W) + pos)[ok]
+    os = torch.zeros(C, N * H * W, device=x.device)
+    os[:, flat] = acc[:, ok]
+    return os.reshape(C, N, H * W).transpose(0, 1)
+
+
+def dwconv_band_mirror(x: torch.Tensor, w: torch.Tensor,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The band kernel's decomposition in plain PyTorch (any dtype, any
+    device): the same function as :func:`dwconv_plain` for taps (K, 5) or
+    (5, K) already rounded to bf16, both map axes at most BAND_MAX; fp32
+    sums, one rounding to x.dtype (after the add into ``out``)."""
+    _check(x, w, out)
+    N, C, H, W = x.shape
+    kh, kw = w.shape[1], w.shape[2]
+    if (kh == 5) == (kw == 5) or max(H, W) > BAND_MAX:
+        raise ValueError(f"the band kernel takes (K, 5) or (5, K) taps on "
+                         f"maps up to {BAND_MAX}, not {(kh, kw)} on "
+                         f"{(H, W)}")
+    os = _band_tile_products(x, w, band_geometry(N, C, H, W, kh, kw))
+    y = os.reshape(x.shape)
+    if out is None:
+        return y.to(x.dtype)
+    out.copy_(out.float() + y)
+    return out
+
+
+def _block_sum(v: torch.Tensor) -> torch.Tensor:
+    """The kernels' block reduction of (..., 256) fp32 values: a butterfly
+    over each warp's 32 lanes (``warp_sum``), then the 8 warps' sums added
+    in order from 0."""
+    v = v.reshape(*v.shape[:-1], _WARPS, 32)
+    lane = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ o]
+    total = torch.zeros(v.shape[:-2], device=v.device)
+    for i in range(_WARPS):
+        total = total + v[..., i, 0]
+    return total
+
+
+def _band_store_order(g: dict, N: int, H: int, W: int) -> torch.Tensor:
+    """The order of the band kernel's stores: (bpc, 256, S), for block grp
+    of a channel and thread t the flat index n * H * W + h * W + w of its
+    s-th stored value, -1 for none. A thread (warp, lane) stores chunk by
+    chunk its warp tiles wt = warp, warp + 8, .., each n-tile nn, m-tile
+    mt, half hf of the fragment, then the pair's two values: (K, 5) at
+    (h, w) = (16 mt + 8 hf + lane / 4, 8 f + 2 (lane % 4) + e), (5, K)
+    transposed, at (8 f + lane / 4, 16 mt + 8 hf + 2 (lane % 4) + e)."""
+    nb, cpb, nti, wn, mt = g["NB"], g["CPB"], g["NTI"], g["WN"], g["MT"]
+    lane = torch.arange(32)
+    gid, tig = (lane // 4)[None], (lane % 4)[None]          # (1, 32)
+    warp = torch.arange(_WARPS)[:, None]                    # (8, 1)
+    blocks = []
+    for grp in range(g["bpc"]):
+        n_end = min(N, (grp + 1) * cpb * nb)
+        slots = []
+        for n in range(grp * cpb * nb, n_end, nb):
+            T = min(nb, n_end - n) * nti
+            wt_max = -(-T // wn)
+            for k in range(-(-wt_max // _WARPS)):
+                wt = warp + k * _WARPS
+                for nn in range(wn):
+                    nt = wt * wn + nn                       # (8, 1)
+                    img, f0 = nt // nti, (nt % nti) * 8
+                    ok_t = (wt < wt_max) & (nt < T)
+                    for m in range(mt):
+                        for hf in range(2):
+                            for e in range(2):
+                                if g["long_h"]:
+                                    r = 16 * m + 8 * hf + gid
+                                    cc = f0 + 2 * tig + e
+                                else:
+                                    r = f0 + gid
+                                    cc = 16 * m + 8 * hf + 2 * tig + e
+                                ok = ok_t & (r < H) & (cc < W)
+                                flat = (n + img) * H * W + r * W + cc
+                                slots.append(torch.where(ok, flat, -1))
+        blocks.append(torch.stack(slots, -1).reshape(_THREADS, -1))
+    S = max(b.shape[1] for b in blocks)
+    return torch.stack([torch.nn.functional.pad(b, (0, S - b.shape[1]),
+                                                value=-1) for b in blocks])
+
+
+def band_stats_sums(y: torch.Tensor, kh: int, kw: int):
+    """(s1, s2) of the stored y as the band kernel's stats variant sums
+    them: each thread the values it stores (``_band_store_order``) and
+    their squares in fp32, in order; a block reduction a (image run,
+    channel) partial; then ``dwconv_stats_reduce``: thread i the partials
+    i, i + 256, .. in order, and a block reduction."""
+    N, C, H, W = y.shape
+    g = band_geometry(N, C, H, W, kh, kw)
+    order = _band_store_order(g, N, H, W).to(y.device)   # (bpc, 256, S)
+    flat = y.float().transpose(0, 1).reshape(C, -1)
+    vals = torch.where(order >= 0, flat[:, order.clamp(min=0)],
+                       torch.zeros((), device=y.device))  # (C, bpc, 256, S)
+    s = torch.zeros(vals.shape[:-1], device=y.device)
+    q = torch.zeros_like(s)
+    for i in range(vals.shape[-1]):
+        v = vals[..., i]
+        s = s + v
+        q = q + v * v
+    bpc = g["bpc"]
+    out = []
+    for part in (_block_sum(s), _block_sum(q)):       # (C, bpc)
+        items = -(-bpc // _THREADS) * _THREADS
+        part = torch.nn.functional.pad(part, (0, items - bpc)).reshape(
+            C, -1, _THREADS)
+        t = torch.zeros(C, _THREADS, device=y.device)
+        for i in range(part.shape[1]):
+            t = t + part[:, i]
+        out.append(_block_sum(t))
+    return out[0], out[1]
+
+
+def dwconv_band_stats_mirror(x: torch.Tensor, w: torch.Tensor):
+    """The band kernel's stats variant in plain PyTorch: (y, s1, s2) with
+    y from :func:`dwconv_band_mirror` and the sums of the rounded y in the
+    kernel's order (:func:`band_stats_sums`)."""
+    y = dwconv_band_mirror(x, w)
+    return (y, *band_stats_sums(y, w.shape[1], w.shape[2]))
+
+
+def band_route(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """True where the CUDA wrappers launch the band kernel: bf16, taps
+    (K, 5) or (5, K) with K != 5, both map axes at most BAND_MAX."""
+    kh, kw = w.shape[1], w.shape[2]
+    return (x.dtype == torch.bfloat16 and (kh == 5) != (kw == 5)
+            and max(x.shape[2], x.shape[3]) <= BAND_MAX)
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     from slak_tpu_torch.ops._build import load
@@ -105,7 +330,8 @@ def _stats_entries():
     from slak_tpu_torch.ops._build import load
     lib = load("dwconv")
     scratch = lib.slak_dwconv_stats_scratch
-    scratch.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5
+    scratch.argtypes = ([ctypes.c_int, ctypes.c_longlong]
+                        + [ctypes.c_int] * 5)
     scratch.restype = ctypes.c_longlong
     fn = lib.slak_dwconv_stats
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
@@ -113,6 +339,21 @@ def _stats_entries():
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return scratch, fn
+
+
+@functools.lru_cache(maxsize=None)
+def _band_entries():
+    from slak_tpu_torch.ops._build import load
+    lib = load("dwconv")
+    fn = lib.slak_dwconv_band
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    st = lib.slak_dwconv_band_stats
+    st.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    st.restype = ctypes.c_int
+    return fn, st
 
 
 def _check_cuda(name, x, w, out=None):
@@ -126,34 +367,85 @@ def _check_cuda(name, x, w, out=None):
         raise ValueError(f"{name} needs contiguous tensors")
 
 
+def _on_cuda(name, x):
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name} runs on cuda or cpu, not {x.device}")
+
+
+def _is_band(route: str, x: torch.Tensor) -> bool:
+    if route not in ("band", "tiled"):
+        raise ValueError(f"route is 'band' or 'tiled', not {route!r}")
+    if route == "band" and x.dtype != torch.bfloat16:
+        raise TypeError(f"the band kernel takes bfloat16, not {x.dtype}")
+    return route == "band"
+
+
+def launch_stats(route: str, x: torch.Tensor, w: torch.Tensor):
+    """One K4 launch on ``route`` ("band" or "tiled"), counted: (conv(x,
+    w), s1, s2). :func:`dwconv_stats` picks the route; probes call this
+    to hold one route against another at the same shapes."""
+    band = _is_band(route, x)
+    _on_cuda("dwconv_stats", x)
+    _check_cuda("dwconv_stats", x, w)
+    N, C, H, W = x.shape
+    kh, kw = w.shape[1], w.shape[2]
+    scratch_fn, tiled_fn = _stats_entries()
+    n_part = scratch_fn(int(band), N, C, H, W, kh, kw)
+    if n_part < 0:
+        raise RuntimeError(f"dwconv_stats: the {route} kernel takes no "
+                           f"{tuple(x.shape)} with taps {(kh, kw)}")
+    out = torch.empty_like(x)
+    part = torch.empty(n_part, dtype=torch.float32, device=x.device)
+    sums = torch.empty(2, C, dtype=torch.float32, device=x.device)
+    ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr(), part.data_ptr(),
+            sums[0].data_ptr(), sums[1].data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = (_band_entries()[1](*ptrs, N, C, H, W, kh, kw, stream) if band
+           else tiled_fn(_DTYPES[x.dtype], *ptrs, N, C, H, W, kh, kw,
+                         stream))
+    if err != 0:
+        raise RuntimeError(f"dwconv_stats {route} kernel launch failed: "
+                           f"cudaError {err}")
+    global stats_launch_count, band_stats_launch_count
+    stats_launch_count += 1
+    band_stats_launch_count += band
+    return out, sums[0], sums[1]
+
+
 def dwconv_stats(x: torch.Tensor, w: torch.Tensor):
     """(conv(x, w), s1, s2): the conv and the fp32 per-channel sums of its
     stored output and of the output's square over (N, H, W)."""
     if x.device.type == "cpu":
         return dwconv_stats_plain(x, w)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"dwconv_stats runs on cuda or cpu, not {x.device}")
-    _check_cuda("dwconv_stats", x, w)
+    _on_cuda("dwconv_stats", x)
+    return launch_stats("band" if band_route(x, w) else "tiled", x, w)
+
+
+def launch(route: str, x: torch.Tensor, w: torch.Tensor,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One K1 launch on ``route`` ("band" or "tiled"), counted: conv(x, w)
+    (+ out, in place, when given). :func:`dwconv` picks the route; probes
+    call this to hold one route against another at the same shapes."""
+    band = _is_band(route, x)
+    _on_cuda("dwconv", x)
+    _check_cuda("dwconv", x, w, out)
     N, C, H, W = x.shape
     kh, kw = w.shape[1], w.shape[2]
-    scratch_fn, fn = _stats_entries()
-    n_part = scratch_fn(N, C, H, W, kh, kw)
-    if n_part < 0:
-        raise RuntimeError(f"dwconv_stats: no tile fits {tuple(x.shape)} "
-                           f"with taps {(kh, kw)}")
-    out = torch.empty_like(x)
-    part = torch.empty(n_part, dtype=torch.float32, device=x.device)
-    sums = torch.empty(2, C, dtype=torch.float32, device=x.device)
-    err = fn(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(),
-             part.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
-             N, C, H, W, kh, kw,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    accumulate = out is not None
+    if out is None:
+        out = torch.empty_like(x)
+    ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr())
+    tail = (N, C, H, W, kh, kw, int(accumulate),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    err = (_band_entries()[0](*ptrs, *tail) if band
+           else _entry()(_DTYPES[x.dtype], *ptrs, *tail))
     if err != 0:
-        raise RuntimeError(f"dwconv_stats kernel launch failed: cudaError "
+        raise RuntimeError(f"dwconv {route} kernel launch failed: cudaError "
                            f"{err}")
-    global stats_launch_count
-    stats_launch_count += 1
-    return out, sums[0], sums[1]
+    global launch_count, band_launch_count
+    launch_count += 1
+    band_launch_count += band
+    return out
 
 
 def dwconv(x: torch.Tensor, w: torch.Tensor,
@@ -162,22 +454,8 @@ def dwconv(x: torch.Tensor, w: torch.Tensor,
     bfloat16, contiguous; w: (C, kh, kw) float32."""
     if x.device.type == "cpu":
         return dwconv_plain(x, w, out)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"dwconv runs on cuda or cpu, not {x.device}")
-    _check_cuda("dwconv", x, w, out)
-    N, C, H, W = x.shape
-    kh, kw = w.shape[1], w.shape[2]
-    accumulate = out is not None
-    if out is None:
-        out = torch.empty_like(x)
-    err = _entry()(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(),
-             N, C, H, W, kh, kw, int(accumulate),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dwconv kernel launch failed: cudaError {err}")
-    global launch_count
-    launch_count += 1
-    return out
+    _on_cuda("dwconv", x)
+    return launch("band" if band_route(x, w) else "tiled", x, w, out)
 
 
 def _check_probe(x, w, ntaps):

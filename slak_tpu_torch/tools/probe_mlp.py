@@ -32,14 +32,11 @@ build is a kernel of the port. Needs one CUDA card and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import os
-import subprocess
 
 import torch
 
-from slak_tpu_torch.ops import _build
 from slak_tpu_torch.ops.mlp import bind, pack_mlp, token_strides
+from slak_tpu_torch.tools import timing
 from slak_tpu_torch.tools.timing import device_line, require_cuda, time_ms
 
 # phase -> [(text in mlp.cu, replacement), ...]; each text must be present
@@ -95,31 +92,10 @@ STAGES = ((124, 56), (249, 28), (499, 14), (998, 7))   # (C, H)
 
 
 def build_variants():
-    src = open(_build.source_path("mlp")).read()
-    out_dir = os.path.join(_build.BUILD_DIR, "probe")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = []
-    for name, removed in VARIANTS:
-        text = src
-        for old, new in (e for r in removed for e in EDITS[r]):
-            if old not in text:
-                raise RuntimeError(f"{name}: pattern not found: {old!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"mlp_{name}.cu")
-        so = os.path.join(out_dir, f"libmlp_{name}.so")
-        with open(cu, "w") as f:
-            f.write(text)
-        procs.append((name, so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o",
-             so, cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    libs = {}
-    for name, so, p in procs:
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        libs[name] = ctypes.CDLL(so)
-    return libs
+    """{variant: its library} for VARIANTS."""
+    return timing.build_variants("mlp", {
+        name: [e for r in removed for e in EDITS[r]]
+        for name, removed in VARIANTS})
 
 
 def launches(y, res, pk, out, ws, lib):

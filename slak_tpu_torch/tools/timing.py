@@ -4,13 +4,17 @@
 events around ``reps`` back-to-back calls (host launch overhead hides
 behind queued work), the median of ``rounds``, and ``refresh()`` called
 outside the timed window before each round to draw new input values.
+:func:`build_variants` builds a kernel source with text edits (the
+ablation probes' variants).
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 import statistics
 import subprocess
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -75,3 +79,37 @@ def conv_macs(n: int, c: int, h: int, w: int, kh: int, kw: int) -> int:
         return sum(min(k, length + p - i) - max(0, p - i)
                    for i in range(length))
     return n * c * span(h, kh) * span(w, kw)
+
+
+def build_variants(name: str, variants: Dict[str, List[Tuple[str, str]]]
+                   ) -> Dict[str, ctypes.CDLL]:
+    """``ops/csrc/<name>.cu`` with each variant's (text, replacement) edits
+    (each text must be in the source), each built with nvcc into its own
+    library under ``slak_tpu_torch/_build/probe/``, all at once: {variant:
+    its loaded library}."""
+    from slak_tpu_torch.ops import _build
+    src = open(_build.source_path(name)).read()
+    out_dir = os.path.join(_build.BUILD_DIR, "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = []
+    for variant, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"{variant}: pattern not found: {old!r}")
+            text = text.replace(old, new)
+        cu = os.path.join(out_dir, f"{name}_{variant}.cu")
+        so = os.path.join(out_dir, f"lib{name}_{variant}.so")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs.append((variant, so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o",
+             so, cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    libs = {}
+    for variant, so, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"{variant}: nvcc failed\n{log}")
+        libs[variant] = ctypes.CDLL(so)
+    return libs
