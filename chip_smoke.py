@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,mlp_ab --base PARENT_CHECKOUT
     python3 chip_smoke.py --phases build,mlp_bwd_ab --base PARENT_CHECKOUT
     python3 chip_smoke.py --phases build,dwconv_ab --base PARENT_CHECKOUT
+    python3 chip_smoke.py --phases build,wgrad_ab --base PARENT_CHECKOUT
 
 Phases (any failure exits non-zero):
   build    nvcc-build every kernel under slak_tpu_torch/ops/csrc/.
@@ -30,10 +31,13 @@ Phases (any failure exits non-zero):
            the train kernels against their plain versions at the train
            shapes (batch 128): the stats-fused conv (K4), the weight
            gradient (K5/K7) and K1 as the dgrad (flipped taps) at the four
-           stages' (K,5)/(5,K) taps (K4 and the dgrad in bf16 also at
-           batches 1, 3 and 8; K4's sums must be the same bits on a second
-           launch and, on the band kernel, the bits band_stats_sums adds
-           from its y in its order), the fused MLP backward in NCHW, K8 at
+           stages' (K,5)/(5,K) taps (in bf16 also at batches 1, 3 and 8;
+           K4's sums must be the same bits on a second launch and, on the
+           band kernel, the bits band_stats_sums adds from its y in its
+           order; the weight gradient the same bits on a second launch,
+           the taps that only read padding exactly 0, each row naming its
+           route; all three also at the DW_EDGES maps), the fused MLP
+           backward in NCHW, K8 at
            C = 124 and 249 and K9 at C = 499 and 998 (also at the ragged
            batches 1 and 3; two launches must give the same bits); bf16
            and fp32; times, bound, plain and library (or unfused) times.
@@ -41,7 +45,8 @@ Phases (any failure exits non-zero):
            create_train_state (SNIP masks at 40% sparsity, random growth,
            refresh every 2 steps, EMA) + make_train_step, 4 bf16 steps at
            batch 128 with the launch counters set to 0 just before and read
-           just after (every K4 and K1 dgrad launch on the band kernel; K8
+           just after (every K4, K1 dgrad and bf16 weight-gradient launch
+           on its band kernel; K8
            on stages 1-2; K2 + K9 on stages 3-4 where TRAIN_WIDE_MLP_BWD
            routes them); DST refreshes, mask counts and
            masked weights checked; one step from the same state held
@@ -68,7 +73,8 @@ Phases (any failure exits non-zero):
            every image's map finite (all 4 averaged), the map nonzero and
            largest at the centre; one image on
            each route, maps within 1e-3; then one eval-mode backward (bf16,
-           batch 8, 224^2, K1 forward and dgrad on the band kernel) with
+           batch 8, 224^2, K1 forward and dgrad and the weight gradient on
+           their band kernels) with
            every parameter requiring a gradient, each
            gradient held against the plain route's; ms an image on both
            routes.
@@ -120,6 +126,12 @@ Phases (any failure exits non-zero):
            128, then the bs256 bf16 eval forward, the bs128 bf16 train step
            and one fp32 ERF image at 1024^2, each tree's dwconv.cu swapped
            into ops/dwconv.py.
+  wgrad_ab (not in the default run; needs --base) K5/K7 of another
+           checkout against this tree's in one process, in turns base,
+           change, change, base: the bf16 weight gradient at each stage
+           shape and orientation at batch 128 (and the per-step sum), then
+           the bs128 bf16 train step, each tree's dwconv_wgrad swapped into
+           ops/dwconv_wgrad.py.
 
 Prints the card's name and power limit, then a {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}. TF32 is off for cuDNN and
@@ -183,6 +195,11 @@ BAND_ROUTE = ("bf16, (K, 5) or (5, K) taps, both map axes <= 64 (all four "
               "stages at 224^2): dwconv_band_kernel (per-channel banded "
               "products, mma.sync m16n8k16); fp32 and larger maps: "
               "dwconv_tiled_kernel")
+WGRAD_ROUTE = ("bf16, (K, 5) or (5, K) taps, both map axes <= 64 (all four "
+               "stages at 224^2): wgrad_band_kernel (per-channel correlation "
+               "matrices over the long tap axis, mma.sync m16n8k16, their "
+               "diagonals folded into taps); fp32, other taps and larger "
+               "maps: wgrad_tiled_kernel / wgrad_kernel")
 RAGGED = (1, 3)                             # the fused MLP's ragged batches
 # K1/K4's other batches: the ragged ones and the ERF's eval-mode gradient's
 DW_BATCHES = RAGGED + (ERF_GRAD_BATCH,)
@@ -402,6 +419,64 @@ def check_dwconv_edges(phase: str, train: bool):
                    f"rel err {r:.3g}")
             d_max = max(d_max, d)
         row["dgrad_max_abs_err"] = d_max
+        print(f"[{phase}] " + json.dumps(row), flush=True)
+
+
+def wgrad_route_of(x, kh, kw) -> str:
+    """The weight-gradient kernel ``ops/dwconv_wgrad.py`` launches."""
+    from slak_tpu_torch.ops import dwconv_wgrad as KW
+    return "band" if KW.wgrad_route(x, kh, kw) else "tiled"
+
+
+def check_wgrad(x, dy, kh, kw, dn, tag):
+    """The weight gradient against its plain version: within TOL_WGRAD of
+    max |plain|, the same bits on a second launch, the taps that only ever
+    read padding exactly 0. Returns (max abs err, rel err)."""
+    import torch
+    from slak_tpu_torch.ops import dwconv_wgrad as KW
+    got = KW.dwconv_wgrad(x, dy, kh, kw)
+    again = KW.dwconv_wgrad(x, dy, kh, kw)
+    want = KW.dwconv_wgrad_plain(x, dy, kh, kw)
+    torch.cuda.synchronize()
+    d, r = rel_err(got, want)
+    _check(r <= TOL_WGRAD[dn], f"{tag} {dn}: rel err {r:.3g} > "
+           f"{TOL_WGRAD[dn]}")
+    _check(torch.equal(got, again), f"{tag} {dn}: two launches differ")
+    H, W = x.shape[2:]
+    dead = ((torch.arange(kh, device=x.device)[:, None] - kh // 2).abs()
+            >= H) | ((torch.arange(kw, device=x.device)[None, :] - kw // 2
+                      ).abs() >= W)
+    z = got[:, dead].abs().max().item() if bool(dead.any()) else 0.0
+    _check(z == 0.0, f"{tag} {dn}: taps that only read padding got {z}")
+    return d, r
+
+
+def check_wgrad_edges(phase: str):
+    """bf16 K5/K7 at DW_EDGES against the plain version, both
+    orientations, each on the route it names (``check_wgrad``: within
+    TOL_WGRAD, the same bits twice, dead taps exactly 0). Prints a row a
+    map."""
+    import torch
+    from slak_tpu_torch.ops import dwconv_wgrad as KW
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(71)
+    dn = "bfloat16"
+    for N, C, H, W, K, route in DW_EDGES:
+        x, dy = (torch.randn(N, C, H, W, generator=g, device=dev
+                             ).to(torch.bfloat16) for _ in range(2))
+        taps = ((K, 5), (5, K))
+        tag = f"dwconv_wgrad {N}x{C}x{H}x{W} taps {K}"
+        routes = [wgrad_route_of(x, *t) for t in taps]
+        _check(routes == [route] * 2, f"{tag}: routes {routes}, want "
+               f"{route}")
+        errs = [check_wgrad(x, dy, *t, dn, tag) for t in taps]
+        row = dict(shape=[N, C, H, W], K=K, route=route,
+                   max_abs_err=max(e[0] for e in errs),
+                   rel_err=max(e[1] for e in errs), tol=TOL_WGRAD[dn],
+                   same_bits_twice=True, dead_taps_zero=True)
+        if route == "band":
+            row["MT"] = [KW.wgrad_geometry(N, C, H, W, *t)["MT"]
+                         for t in taps]
         print(f"[{phase}] " + json.dumps(row), flush=True)
 
 
@@ -784,18 +859,12 @@ def phase_timing(model, batch):
     return ms
 
 
-def dead_taps(K: int, L: int):
-    """Tap indices along a K-long axis that only ever read padding on a
-    map of extent L."""
-    return [i for i in range(K) if abs(i - K // 2) >= L]
-
-
 def phase_train_kernels(cfg, batch):
     """K4, the weight gradient, the K1 dgrad, K8 (stages 1-2) and K9
     (stages 3-4) against their plain versions at the train shapes, K8 and
-    K9 also at the ragged batches RAGGED (first bf16 K4 and the K1 dgrad
-    at DW_EDGES); returns per-train-step totals (bf16) for the JSON line
-    and K9's bf16 rows."""
+    K9 also at the ragged batches RAGGED (first bf16 K4, the K1 dgrad and
+    the weight gradient at DW_EDGES); returns per-train-step totals (bf16)
+    for the JSON line and K9's bf16 rows."""
     import torch
     import torch.nn.functional as F
     from slak_tpu_torch.models import slak as S
@@ -803,6 +872,7 @@ def phase_train_kernels(cfg, batch):
     from slak_tpu_torch.ops import dwconv_wgrad as KW
     from slak_tpu_torch.ops import mlp as K2
     check_dwconv_edges("train_kernels", train=True)
+    check_wgrad_edges("train_kernels")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(10)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
@@ -879,22 +949,23 @@ def phase_train_kernels(cfg, batch):
             if dtype == torch.bfloat16:
                 add("dwconv_stats", row, depth, b_ms, o_ms)
 
-            # the weight gradient of the pair
+            # the weight gradient of the pair (bf16: also at the other
+            # batches)
             d_max = r_max = 0.0
-            for kh, kw in taps:
-                got = KW.dwconv_wgrad(x, dy, kh, kw)
-                want = KW.dwconv_wgrad_plain(x, dy, kh, kw)
-                torch.cuda.synchronize()
-                d, r = rel_err(got, want)
-                _check(r <= TOL_WGRAD[dn], f"dwconv_wgrad stage {i + 1} "
-                       f"{(kh, kw)} {dn}: rel err {r:.3g}")
-                dead = (got[:, dead_taps(kh, H)].abs().max().item()
-                        if kh > kw and dead_taps(kh, H) else
-                        got[:, :, dead_taps(kw, H)].abs().max().item()
-                        if dead_taps(kw, H) else 0.0)
-                _check(dead == 0.0, f"dwconv_wgrad stage {i + 1}: taps "
-                       f"that only read padding got {dead}")
-                d_max, r_max = max(d_max, d), max(r_max, r)
+            by_batch = {}
+            for nb in (batch,) + (DW_BATCHES if dtype == torch.bfloat16
+                                  else ()):
+                xb, dyb = ((x, dy) if nb == batch else
+                           (x[:nb].contiguous(), dy[:nb].contiguous()))
+                for kh, kw in taps:
+                    d, r = check_wgrad(xb, dyb, kh, kw, dn,
+                                       f"dwconv_wgrad stage {i + 1} batch "
+                                       f"{nb} {(kh, kw)}")
+                    if nb == batch:
+                        d_max, r_max = max(d_max, d), max(r_max, r)
+                    else:
+                        by_batch[f"batch{nb}"] = max(
+                            by_batch.get(f"batch{nb}", 0.0), r)
             ms = time_ms(lambda: [KW.dwconv_wgrad(x, dy, kh, kw)
                                   for kh, kw in taps])
             plain_ms = time_ms(lambda: [KW.dwconv_wgrad_plain(x, dy, kh, kw)
@@ -909,8 +980,11 @@ def phase_train_kernels(cfg, batch):
                                 dtype)
                 b_ms, o_ms, bound = b_ms + bb, o_ms + oo, bound + max(bb, oo)
             row = dict(kernel="dwconv_wgrad", dtype=dn, stage=i + 1, C=C,
-                       H=H, taps=[K, s], batch=batch, max_abs_err=d_max,
-                       rel_err=r_max, tol=TOL_WGRAD[dn], ms=ms,
+                       H=H, taps=[K, s], batch=batch,
+                       route=[wgrad_route_of(x, *t) for t in taps],
+                       max_abs_err=d_max, rel_err=r_max,
+                       rel_err_by_batch=by_batch, same_bits_twice=True,
+                       tol=TOL_WGRAD[dn], ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                        launches_per_step=2 * depth)
             print("[train_kernels] " + json.dumps(row), flush=True)
@@ -1118,6 +1192,7 @@ def reset_counts():
     from slak_tpu_torch.ops import dwpair as K10
     K1, KW, K2 = _counters()
     K1.launch_count = K1.stats_launch_count = KW.launch_count = 0
+    KW.band_launch_count = 0
     K1.band_launch_count = K1.band_stats_launch_count = 0
     K2.launch_count = K2.bwd_launch_count = K2.wide_bwd_launch_count = 0
     K2.bwd_dy_launch_count = K2.wide_bwd_dy_launch_count = 0
@@ -1143,8 +1218,9 @@ def read_counts():
     return {"dwconv": K1.launch_count, "dwconv_stats": K1.stats_launch_count,
             "dwconv_band": K1.band_launch_count,
             "dwconv_stats_band": K1.band_stats_launch_count,
-            "dwconv_wgrad": KW.launch_count, "fused_mlp": K2.launch_count,
-            "mlp_bwd": K2.bwd_launch_count,
+            "dwconv_wgrad": KW.launch_count,
+            "dwconv_wgrad_band": KW.band_launch_count,
+            "fused_mlp": K2.launch_count, "mlp_bwd": K2.bwd_launch_count,
             "mlp_bwd_wide": K2.wide_bwd_launch_count,
             "mlp_bwd_dy_only": K2.bwd_dy_launch_count,
             "mlp_bwd_wide_dy_only": K2.wide_bwd_dy_launch_count}
@@ -1239,12 +1315,14 @@ def phase_train(batch):
                  if c <= 256)
     # the wide tails run FusedMlp (K2 + K9) where the route says so
     wide = (n_blocks - narrow) if S.TRAIN_WIDE_MLP_BWD else 0
-    # every K4 and K1 dgrad launch of the bf16 step on the band kernel
+    # every K4, K1 dgrad and weight-gradient launch of the bf16 step on
+    # its band kernel
     want = {"dwconv": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_stats": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_band": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_stats_band": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_wgrad": 2 * n_blocks * TRAIN_STEPS,
+            "dwconv_wgrad_band": 2 * n_blocks * TRAIN_STEPS,
             "fused_mlp": (narrow + wide) * TRAIN_STEPS,
             "mlp_bwd": narrow * TRAIN_STEPS,
             "mlp_bwd_wide": wide * TRAIN_STEPS,
@@ -1370,7 +1448,8 @@ def phase_erf():
     # fp32: no launch on the band kernel
     want = {"dwconv": 4 * n_blocks * ERF_IMAGES, "dwconv_stats": 0,
             "dwconv_band": 0, "dwconv_stats_band": 0,
-            "dwconv_wgrad": 0, "fused_mlp": n_blocks * ERF_IMAGES,
+            "dwconv_wgrad": 0, "dwconv_wgrad_band": 0,
+            "fused_mlp": n_blocks * ERF_IMAGES,
             "mlp_bwd": narrow * ERF_IMAGES,
             "mlp_bwd_wide": (n_blocks - narrow) * ERF_IMAGES,
             "mlp_bwd_dy_only": narrow * ERF_IMAGES,
@@ -1428,10 +1507,12 @@ def phase_erf():
         torch.cuda.synchronize()
         if not plain:
             got = read_counts()
-            # bf16: K1 forward and dgrad all on the band kernel
+            # bf16: K1 forward and dgrad and the weight gradient all on
+            # their band kernels
             want = {"dwconv": 4 * n_blocks, "dwconv_stats": 0,
                     "dwconv_band": 4 * n_blocks, "dwconv_stats_band": 0,
-                    "dwconv_wgrad": 2 * n_blocks, "fused_mlp": n_blocks,
+                    "dwconv_wgrad": 2 * n_blocks,
+                    "dwconv_wgrad_band": 2 * n_blocks, "fused_mlp": n_blocks,
                     "mlp_bwd": narrow, "mlp_bwd_wide": n_blocks - narrow,
                     "mlp_bwd_dy_only": 0, "mlp_bwd_wide_dy_only": 0}
             _check(got == want, f"eval-grad launch counts {got}, want {want}")
@@ -2214,6 +2295,66 @@ def phase_dwconv_ab(cfg, base: str):
     return out
 
 
+def phase_wgrad_ab(cfg, base: str):
+    """K5/K7 of another checkout against this tree's, in one process, in
+    turns base, change, change, base: the bf16 weight gradient at each
+    stage shape and orientation at the train batch, then the bs128 bf16
+    train step with the tree's ``dwconv_wgrad`` swapped into
+    ``ops/dwconv_wgrad.py`` (the conv backwards import it from there at
+    call time). Also the per-step sum of the weight gradient's launches
+    (each stage's depth times its pair). Returns the rows."""
+    import torch
+    from slak_tpu_torch.ops import dwconv_wgrad as KW
+    from slak_tpu_torch.train.engine import make_train_step
+    mod = base_module(base, "dwconv_wgrad", "dwconv_wgrad",
+                      ("_entry", "_band_entries"), "wgrad_ab")
+    fns = {"base": mod.dwconv_wgrad, "change": KW.dwconv_wgrad}
+    own = fns["change"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(61)
+    bf = torch.bfloat16
+    cases = []                          # (name, stage depth, fn(wgrad))
+    for i, C, H, K, s, depth in stage_shapes(cfg):
+        x, dy = (torch.randn(TRAIN_BATCH, C, H, H, generator=g, device=dev
+                             ).to(bf) for _ in range(2))
+        for kh, kw in ((K, s), (s, K)):
+            cases.append((f"wgrad_bs{TRAIN_BATCH}_stage{i + 1}_{kh}x{kw}_ms",
+                          depth, lambda f, x=x, dy=dy, kh=kh, kw=kw:
+                          f(x, dy, kh, kw)))
+    order = ("base", "change", "change", "base")
+    rows = {name: [] for name, _, _ in cases}
+    for route in order:
+        for name, _, fn in cases:
+            rows[name].append(time_ms(lambda: fn(fns[route])))
+    rows["wgrad_per_step_ms"] = [
+        sum(depth * rows[name][t] for name, depth, _ in cases)
+        for t in range(len(order))]
+    del cases
+    torch.cuda.empty_cache()
+    model, state, tc, mc, lr, batches = train_setup(
+        TRAIN_BATCH, bf, dict(TRAIN_MASK, sparse_init="ERK",
+                              update_frequency=100), snip=False)
+    step = make_train_step(model, tc, mc, lr)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    name = f"train_step_bs{TRAIN_BATCH}_ms"
+    rows[name] = []
+    try:
+        for route in order:
+            KW.dwconv_wgrad = fns[route]
+            rows[name].append(time_ms(lambda: step(state, batches[0], gen),
+                                      5, 2, 3))
+    finally:
+        KW.dwconv_wgrad = own
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    for name, ms in rows.items():
+        print(f"[wgrad_ab] {name}: " + " / ".join(f"{v:.4f}" for v in ms)
+              + "  (" + ", ".join(order) + ")", flush=True)
+    out = dict(order=order, **rows)
+    print("[wgrad_ab] " + json.dumps(out), flush=True)
+    return out
+
+
 def phase_probes():
     """The four kernel probes with the launch counters set to 0 just before
     and read just after; returns {probe: counts}."""
@@ -2252,9 +2393,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="build,kernels,forward,timing,"
                     "train_kernels,train,train_timing,erf_kernels,erf,"
                     "dual_kernels,dual,dual_timing,probes")
-    ap.add_argument("--base", help="mlp_ab, mlp_bwd_ab, dwconv_ab: another "
-                    "checkout of the repository (e.g. the parent commit "
-                    "from git archive, in a git-ignored directory)")
+    ap.add_argument("--base", help="mlp_ab, mlp_bwd_ab, dwconv_ab, "
+                    "wgrad_ab: another checkout of the repository (e.g. the "
+                    "parent commit from git archive, in a git-ignored "
+                    "directory)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     try:
@@ -2332,6 +2474,9 @@ def main(argv=None) -> int:
         if "dwconv_ab" in phases:
             _check(args.base is not None, "dwconv_ab needs --base")
             phase_dwconv_ab(cfg, args.base)
+        if "wgrad_ab" in phases:
+            _check(args.base is not None, "wgrad_ab needs --base")
+            phase_wgrad_ab(cfg, args.base)
     except Exception as e:                      # report and fail the run
         import traceback
         traceback.print_exc()
@@ -2390,7 +2535,10 @@ def main(argv=None) -> int:
                 ("dwconv_wgrad", "slak_tpu_torch/ops/csrc/dwconv_wgrad.cu",
                  "slak_tpu/ops/pallas_banded.py:888",
                  {"also_replaces": "slak_tpu/ops/pallas_banded.py:806",
-                  "library": "torch.nn.grad.conv2d_weight(groups=C)"}),
+                  "library": "torch.nn.grad.conv2d_weight(groups=C)",
+                  "band_route": WGRAD_ROUTE,
+                  "band_launches": None if train_counts is None
+                  else train_counts["dwconv_wgrad_band"]}),
                 ("mlp_bwd", "slak_tpu_torch/ops/csrc/mlp_bwd.cu",
                  "slak_tpu/ops/pallas_mlp.py:263", {})):
             t = train_totals[name]
