@@ -18,14 +18,16 @@ Phases (any failure exits non-zero):
            batches 1, 3 and 8; each launch's route, the band kernel or the
            tiled kernel, named in its row), the fused MLP
            in NCHW, NHWC and (C, M) strides, bf16 and fp32, also without
-           the residual and at the ragged batches 1 and 3; times with CUDA
-           events (median), the bound, achieved TFLOP/s and share of the
-           bound, the plain version's time and the library yardstick's.
+           the residual and at the ragged batches 1 and 3, the same bits
+           on a second launch; times with CUDA events (median), the bound,
+           achieved TFLOP/s and share of the bound, the plain version's
+           time and the library yardstick's.
   forward  the main path: create_model + make_eval_step on a few batches of
            synthetic labels, bf16 and fp32, with the launch counters set to 0
            just before and read just after (bf16: every K1 launch on the
-           band kernel; fp32: none); logits held against the same weights
-           through the plain versions.
+           band kernel; fp32: none, and every K2/K3 launch on the 3xTF32
+           route); logits held against the same weights through the plain
+           versions.
   timing   bf16 eval forward at batch 256 (bench.py's batch): img/s.
   train_kernels
            the train kernels against their plain versions at the train
@@ -59,17 +61,19 @@ Phases (any failure exits non-zero):
            the four 1024^2 stage shapes (batch 1): K9 (the wide-channel
            fused MLP backward, stage 3 T = 4096, C = 499; stage 4 T = 1024,
            C = 998; all eight outputs), K1 (forward and flipped-tap dgrad),
-           K2/K3 and K8; K8 and K9 in the full mode and in dy-only mode
-           (dy alone, as the ERF calls them; its dy must have the full
-           mode's bits), the fp32 MLP backward within 2e-5 (3xTF32); times,
-           bound (fp32 products: the lesser of 3xTF32 at 495 TFLOP/s and
-           FFMA at 67), plain and unfused (or library) times.
+           K2/K3 (3xTF32, the same bits on a second launch) and K8; K8 and
+           K9 in the full mode and in dy-only mode (dy alone, as the ERF
+           calls them; its dy must have the full mode's bits), the fp32 MLP
+           backward within 2e-5 (3xTF32); times, bound (fp32 products: the
+           lesser of 3xTF32 at 495 TFLOP/s and FFMA at 67), plain and
+           unfused (or library) times.
   erf      the ERF analysis through its CLI (analysis/visualize_erf.main):
            the flagship (random weights from a seed, given as --weights),
            fp32, 1024^2, 4 images, parameters frozen, launch counters set to
            0 just before and read just after (per image 36 K1 forward + 36
-           dgrad, 18 K2/K3, 6 K8, 12 K9, K8 and K9 all in dy-only mode, no
-           weight-gradient, K4 or band-kernel launch);
+           dgrad, 18 K2/K3 all on the 3xTF32 route, 6 K8, 12 K9, K8 and K9
+           all in dy-only mode, no weight-gradient, K4 or band-kernel
+           launch);
            every image's map finite (all 4 averaged), the map nonzero and
            largest at the centre; one image on
            each route, maps within 1e-3; then one eval-mode backward (bf16,
@@ -107,7 +111,9 @@ Phases (any failure exits non-zero):
            checkout (the parent commit, unpacked into a git-ignored
            directory) against this tree's in one process, in turns base,
            change, change, base: K2/K3 and K12 at the four stage shapes,
-           K2 in fp32 at the 1024^2 ERF shapes, the bs256 bf16 eval.
+           K2 in fp32 at the 1024^2 ERF shapes, the bs256 bf16 eval, one
+           fp32 ERF image at 1024^2 (each tree's K2/K3; the two maps
+           within 1e-3).
   mlp_bwd_ab
            (not in the default run; needs --base) the MLP backward (K8, K9)
            of another checkout against this tree's in one process, in turns
@@ -567,6 +573,32 @@ def mlp_bwd_bounds(name, T, C, F4, dtype, dy_only):
     return b_ms, o_ms, more
 
 
+def mlp_fwd_bounds(T, C, F4, dtype):
+    """(bytes ms, operations ms, {the operations bounds}) of a fused MLP
+    launch (K2/K3): y, res and out once, the two weight matrices once; the
+    two products' 4 T C 4C operations. In fp32 the operations bound is the
+    lesser of 3xTF32 on the tensor cores (three passes at 495 TFLOP/s) and
+    FFMA (67 TFLOP/s)."""
+    import torch
+    item = torch.tensor([], dtype=dtype).element_size()
+    ops = 4 * T * C * F4
+    b_ms, o_ms = bounds(3 * T * C * item + 2 * C * F4 * item, ops, dtype)
+    more = {}
+    if dtype == torch.float32:
+        tf32_ms = 3 * ops / PEAK_TF32 * 1e3
+        more = dict(ops_ms_3xtf32=tf32_ms, ops_ms_ffma=o_ms)
+        o_ms = min(o_ms, tf32_ms)
+    return b_ms, o_ms, more
+
+
+def same_bits_twice(fn, tag):
+    """Two launches of fn on the same inputs give the same bits."""
+    import torch
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    _check(torch.equal(first, second), f"{tag}: two launches differ")
+
+
 def mlp_bwd_rows(tag, name, bwd, plain, y, dout, pk, dtype,
                  modes=("full",), **extra):
     """Check a fused backward kernel in each of ``modes`` ("full",
@@ -727,6 +759,8 @@ def phase_kernels(cfg, batch):
                                K2, yy, rr, pk, cd, layout, i, dn, batch))
                 if layout == "NCHW":
                     T = batch * H * H
+                    same_bits_twice(lambda: K2.fused_mlp(y, res, pk, 1),
+                                    f"fused_mlp stage {i + 1} {dn}")
                     ms = time_ms(lambda: K2.fused_mlp(y, res, pk, 1))
                     plain_ms = time_ms(
                         lambda: K2.fused_mlp_plain(y, res, pk, 1))
@@ -743,12 +777,10 @@ def phase_kernels(cfg, batch):
                         z = F.linear(F.gelu(F.linear(z, w1d, b1d)), w2d, b2d)
                         return res + (gd * z).permute(0, 3, 1, 2)
                     unf_ms = time_ms(unfused)
-                    b_ms, o_ms = bounds(
-                        3 * T * C * item + 2 * C * F4 * item,
-                        4 * T * C * F4, dtype)
+                    b_ms, o_ms, more = mlp_fwd_bounds(T, C, F4, dtype)
                     row.update(ms=ms, plain_ms=plain_ms,
                                unfused_torch_ms=unf_ms,
-                               bound_ms=max(b_ms, o_ms),
+                               bound_ms=max(b_ms, o_ms), **more,
                                launches_per_forward=depth,
                                **rate(4 * T * C * F4, ms, max(b_ms, o_ms)))
                     if dtype == torch.bfloat16:
@@ -813,21 +845,25 @@ def phase_forward(batch):
         step(batches[0])                     # pack weights, warm up
         torch.cuda.synchronize()
         K1.launch_count = K1.band_launch_count = 0
-        K2.launch_count = 0
+        K2.launch_count = K2.tf32_launch_count = 0
         t0 = time.perf_counter()
         outs = [step(b) for b in batches]
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        got = (K1.launch_count, K2.launch_count, K1.band_launch_count)
+        got = (K1.launch_count, K2.launch_count, K1.band_launch_count,
+               K2.tf32_launch_count)
         if dtype == torch.bfloat16:
             counts = got
         print(f"[forward] {dn}: {N_BATCHES} batches of {batch} in "
               f"{sec:.3f} s; launches dwconv {got[0]} (on the band kernel "
-              f"{got[2]}), fused_mlp {got[1]}")
+              f"{got[2]}), fused_mlp {got[1]} (on the 3xTF32 route "
+              f"{got[3]})")
         # bf16: every K1 launch on the band kernel (all four stages' maps
-        # fit it); fp32: none
+        # fit it); fp32: none, and every K2/K3 launch on the 3xTF32 route
+        bf16 = dtype == torch.bfloat16
         want = (n_conv * N_BATCHES, n_blocks * N_BATCHES,
-                n_conv * N_BATCHES if dtype == torch.bfloat16 else 0)
+                n_conv * N_BATCHES if bf16 else 0,
+                0 if bf16 else n_blocks * N_BATCHES)
         _check(got == want, f"{dn} launch counts {got}, want {want}")
         for j, (o, (x, y)) in enumerate(zip(outs, batches)):
             lg = o["logits"]
@@ -1095,6 +1131,9 @@ def phase_erf_kernels(cfg):
         t = totals[name]
         for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
             t[k] += n * (row[k] or 0.0)
+        for k in ("ops_ms_3xtf32", "ops_ms_ffma"):
+            if k in row:
+                t[k] = t.get(k, 0.0) + n * row[k]
         t["bytes_ms"] += n * b_ms
         t["ops_ms"] += n * o_ms
         t["err"] = max(t["err"], row["max_abs_err"])
@@ -1146,16 +1185,18 @@ def phase_erf_kernels(cfg):
         d, r = rel_err(got, want)
         _check(r <= TOL_MLP["float32"], f"fused_mlp 1024^2 stage {i + 1}: "
                f"rel err {r:.3g}")
+        same_bits_twice(lambda: K2.fused_mlp(y, res, pk, 1),
+                        f"fused_mlp 1024^2 stage {i + 1}")
         T, F4 = H * H, 4 * C
-        b_ms, o_ms = bounds(3 * T * C * 4 + 2 * C * F4 * 4, 4 * T * C * F4,
-                            dt)
+        b_ms, o_ms, more = mlp_fwd_bounds(T, C, F4, dt)
         row = dict(kernel="fused_mlp", dtype="float32", stage=i + 1, C=C,
                    T=T, batch=1, max_abs_err=d, rel_err=r,
                    tol=TOL_MLP["float32"],
                    ms=time_ms(lambda: K2.fused_mlp(y, res, pk, 1)),
                    plain_ms=time_ms(lambda: K2.fused_mlp_plain(y, res, pk,
                                                                1)),
-                   library_ms=None, bound_ms=max(b_ms, o_ms))
+                   library_ms=None, bound_ms=max(b_ms, o_ms),
+                   bytes_ms=b_ms, ops_ms=o_ms, **more)
         print("[erf_kernels] " + json.dumps(row), flush=True)
         add("fused_mlp", row, depth, b_ms, o_ms)
 
@@ -1197,6 +1238,7 @@ def reset_counts():
     K2.launch_count = K2.bwd_launch_count = K2.wide_bwd_launch_count = 0
     K2.bwd_dy_launch_count = K2.wide_bwd_dy_launch_count = 0
     K10.pair_launch_count = K2.dual_launch_count = 0
+    K2.tf32_launch_count = 0
     K11.stacked_launch_count = K1.probe_launch_count = 0
 
 
@@ -1220,7 +1262,9 @@ def read_counts():
             "dwconv_stats_band": K1.band_stats_launch_count,
             "dwconv_wgrad": KW.launch_count,
             "dwconv_wgrad_band": KW.band_launch_count,
-            "fused_mlp": K2.launch_count, "mlp_bwd": K2.bwd_launch_count,
+            "fused_mlp": K2.launch_count,
+            "fused_mlp_tf32": K2.tf32_launch_count,
+            "mlp_bwd": K2.bwd_launch_count,
             "mlp_bwd_wide": K2.wide_bwd_launch_count,
             "mlp_bwd_dy_only": K2.bwd_dy_launch_count,
             "mlp_bwd_wide_dy_only": K2.wide_bwd_dy_launch_count}
@@ -1324,7 +1368,7 @@ def phase_train(batch):
             "dwconv_wgrad": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_wgrad_band": 2 * n_blocks * TRAIN_STEPS,
             "fused_mlp": (narrow + wide) * TRAIN_STEPS,
-            "mlp_bwd": narrow * TRAIN_STEPS,
+            "fused_mlp_tf32": 0, "mlp_bwd": narrow * TRAIN_STEPS,
             "mlp_bwd_wide": wide * TRAIN_STEPS,
             "mlp_bwd_dy_only": 0, "mlp_bwd_wide_dy_only": 0}
     print(f"[train] {TRAIN_STEPS} bf16 steps at batch {batch} in {sec:.2f} s;"
@@ -1450,14 +1494,15 @@ def phase_erf():
             "dwconv_band": 0, "dwconv_stats_band": 0,
             "dwconv_wgrad": 0, "dwconv_wgrad_band": 0,
             "fused_mlp": n_blocks * ERF_IMAGES,
+            "fused_mlp_tf32": n_blocks * ERF_IMAGES,
             "mlp_bwd": narrow * ERF_IMAGES,
             "mlp_bwd_wide": (n_blocks - narrow) * ERF_IMAGES,
             "mlp_bwd_dy_only": narrow * ERF_IMAGES,
             "mlp_bwd_wide_dy_only": (n_blocks - narrow) * ERF_IMAGES}
     print(f"[erf] {ERF_IMAGES} fp32 images at {ERF_SIZE}^2: launches "
           f"{counts} (per image: K1 {2 * n_blocks} forward + {2 * n_blocks} "
-          f"dgrad, K2/K3 {n_blocks}, K8 {narrow}, K9 {n_blocks - narrow}, "
-          f"K8 and K9 in dy-only mode)", flush=True)
+          f"dgrad, K2/K3 {n_blocks}, all on the 3xTF32 route, K8 {narrow}, "
+          f"K9 {n_blocks - narrow}, K8 and K9 in dy-only mode)", flush=True)
     _check(counts == want, f"ERF launch counts {counts}, want {want}")
     data = run["data"]
     c = ERF_SIZE // 2
@@ -1513,7 +1558,8 @@ def phase_erf():
                     "dwconv_band": 4 * n_blocks, "dwconv_stats_band": 0,
                     "dwconv_wgrad": 2 * n_blocks,
                     "dwconv_wgrad_band": 2 * n_blocks, "fused_mlp": n_blocks,
-                    "mlp_bwd": narrow, "mlp_bwd_wide": n_blocks - narrow,
+                    "fused_mlp_tf32": 0, "mlp_bwd": narrow,
+                    "mlp_bwd_wide": n_blocks - narrow,
                     "mlp_bwd_dy_only": 0, "mlp_bwd_wide_dy_only": 0}
             _check(got == want, f"eval-grad launch counts {got}, want {want}")
         grads[plain] = {n: p.grad.float().clone()
@@ -1551,9 +1597,12 @@ def _profile_rows(prof):
 
 
 # kernel name -> share of the device time: the port's kernels by source,
-# then what stock PyTorch runs (first match wins: mlp_bwd.cu's kernels
-# before the wgrad group's "wgrad_" and the GEMM group's "gemm")
-_GROUPS = (("mlp_bwd.cu (K8/K9)", ("bwd_gemm_kernel", "wide_prep_kernel",
+# then what stock PyTorch runs (first match wins: the fp32 products'
+# kernels before mlp.cu's "gemm_kernel<", mlp_bwd.cu's kernels before the
+# wgrad group's "wgrad_" and the GEMM group's "gemm")
+_GROUPS = (("tf32_gemm.cuh (fp32 K2/K3, K8/K9)", ("tf32_gemm_kernel",
+                                                  "split_kernel")),
+           ("mlp_bwd.cu (K8/K9)", ("bwd_gemm_kernel", "wide_prep_kernel",
                                    "wide_lnb_kernel", "wide_simt_kernel",
                                    "mlp_bwd_gemm_f32", "dgamma_kernel",
                                    "sum_chunks", "sum_partials")),
@@ -1562,7 +1611,7 @@ _GROUPS = (("mlp_bwd.cu (K8/K9)", ("bwd_gemm_kernel", "wide_prep_kernel",
            ("dwconv_wgrad.cu (K5/K7)", ("wgrad_",)),
            ("mlp.cu (K2/K3)", ("mlp_fused_kernel", "gemm_kernel<",
                                "ln_bf16_kernel", "simt_ln_kernel",
-                               "simt_gemm_kernel", "simt_out_kernel")),
+                               "simt_out_kernel")),
            ("GEMM (cuBLAS/CUTLASS)", ("gemm", "cutlass")),
            ("stock conv (cuDNN/ATen)", ("conv_depthwise", "cudnn",
                                         "implicit_convolve", "nchwToNhwc",
@@ -1980,10 +2029,17 @@ def phase_mlp_ab(cfg, base: str):
     unpacked into a git-ignored directory) against this tree's, in one
     process, in turns base, change, change, base: K2/K3 (NCHW bf16) and K12
     (with oq) at the four stage shapes at the main batch, K2 in fp32 at the
-    1024^2 ERF shapes, and the bs256 bf16 eval forward. The base's
+    1024^2 ERF shapes, the bs256 bf16 eval forward, and one fp32 ERF image
+    at 1024^2 (the flagship's input gradient with frozen weights and its
+    map; the maps of the two trees within TOL_ERF_MAP), timed with CUDA
+    events and, as the device's busy time (its kernels' summed durations
+    under torch.profiler), once a turn: the image syncs with the host, so
+    where the host is slower than the device the events read the host's
+    time. The base's
     ``csrc/mlp.cu`` is built here; both libraries serve the same wrappers
     (``ops/mlp.py``), swapped by their entry points. Returns the rows."""
     import torch
+    from slak_tpu_torch.analysis.erf import get_input_grad
     from slak_tpu_torch.models import apply, create_model
     from slak_tpu_torch.ops import mlp as K2
     routes = {"base": K2.bind(build_base(base, "mlp", "mlp_ab")),
@@ -2022,13 +2078,51 @@ def phase_mlp_ab(cfg, base: str):
                 rows[name].append(time_ms(fn))
     finally:
         K2._entries = own
+    del model, x, cases
+    torch.cuda.empty_cache()
+    # one ERF image: the eval forward at 1024^2, fp32, and its input
+    # gradient, the parameters frozen (K2/K3 forward, K8/K9 dy-only)
+    model = create_model("SLaK_tiny", seed=0, **MODEL_KW)
+    randomize(model, 1)
+    model.eval().requires_grad_(False)
+    image = torch.randn(1, ERF_SIZE, ERF_SIZE, 3, generator=g, device=dev)
+
+    def feature_fn(x):
+        stages = model.forward_features(x.permute(0, 3, 1, 2).contiguous(),
+                                        return_stages=True)
+        return stages[-1].permute(0, 2, 3, 1)
+    def busy_ms(fn):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows, dev_us = _profile_rows(prof)
+        return sum(dev_us(e) for e in rows) / 1e3
+    erf_ms, erf_busy, maps = [], [], {}
+    try:
+        for route in order:
+            K2._entries = lambda e=routes[route]: e
+            maps[route] = get_input_grad(feature_fn, image)
+            erf_ms.append(time_ms(lambda: get_input_grad(feature_fn, image),
+                                  2, 1, 3))
+            erf_busy.append(busy_ms(lambda: get_input_grad(feature_fn,
+                                                           image)))
+    finally:
+        K2._entries = own
+    d, r = rel_err(torch.from_numpy(maps["change"]),
+                   torch.from_numpy(maps["base"]))
+    print(f"[mlp_ab] ERF map, change vs base: max abs {d:.4g}, rel "
+          f"{r:.4g} (tol {TOL_ERF_MAP})", flush=True)
+    _check(r <= TOL_ERF_MAP, f"mlp_ab: ERF map rel err {r:.3g}")
+    rows["erf_image_%d_fp32_ms" % ERF_SIZE] = erf_ms
+    rows["erf_image_%d_fp32_busy_ms" % ERF_SIZE] = erf_busy
     out = dict(order=order, **rows, eval_img_per_s=[
         TIMING_BATCH / ms * 1e3 for ms in rows["eval_bs%d_ms" % TIMING_BATCH]])
     for name, ms in rows.items():
         print(f"[mlp_ab] {name}: " + " / ".join(f"{v:.4f}" for v in ms)
               + "  (" + ", ".join(order) + ")", flush=True)
     print("[mlp_ab] " + json.dumps(out), flush=True)
-    del model
+    del model, image
     torch.cuda.empty_cache()
     return out
 
@@ -2613,6 +2707,13 @@ def main(argv=None) -> int:
                         % ERF_SIZE)
                     if lib:
                         k[lib] = per["library_ms"]
+                    if name == "fused_mlp":
+                        k.update(
+                            erf_route="3xTF32 on TMA-fed wgmma",
+                            erf_bound_by=("bytes" if per["bytes_ms"]
+                                          >= per["ops_ms"] else "operations"),
+                            erf_ops_ms_3xtf32=per["ops_ms_3xtf32"],
+                            erf_ops_ms_ffma=per["ops_ms_ffma"])
                     if name == "mlp_bwd":
                         full = erf_totals["mlp_bwd_full"]
                         k.update(erf_mode="dy_only", erf_full_mode={
@@ -2622,6 +2723,8 @@ def main(argv=None) -> int:
             for k in kernels:
                 if k["name"] in ("dwconv", "fused_mlp", "mlp_bwd"):
                     k["erf_launches"] = erf_run[0][k["name"]]
+                if k["name"] == "fused_mlp":
+                    k["erf_tf32_launches"] = erf_run[0]["fused_mlp_tf32"]
     if dual_totals is not None:
         totals_d, extra_d = dual_totals
         per_fwd = "one bf16 dual forward at batch %d" % MAIN_BATCH

@@ -11,7 +11,9 @@ Usage:
 
 The model runs in eval mode, float32, batch 1, with its parameters frozen:
 only the input's gradient is taken, through the port's differentiable eval
-route (K1, K2/K3 forward; K1 on flipped taps, K8 and K9 backward). It runs
+route (K1, K2/K3 forward; K1 on flipped taps, K8 and K9 backward). TF32 is
+turned off for cuDNN and matmul, so that its stock convolutions run in full
+float32 as the JAX package's do. It runs
 on CUDA unless ``--device cpu`` is given; ``--plain`` runs the plain
 PyTorch versions of the kernels. Without ``--weights`` the weights are the
 port's random init from seed 0; without ``--data_path`` the images are
@@ -99,6 +101,11 @@ def main(argv=None) -> dict:
                    help="the plain PyTorch versions of the kernels")
     args = p.parse_args(argv)
 
+    # float32 throughout, as the JAX package's convolutions and products:
+    # cuDNN would run the stock convolutions (the stem and the downsampling)
+    # in TF32 by default
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     device = resolve_device(args.device)
     model = create_model(args.model, device="cpu",
                          kernel_size=tuple(args.kernel_size),

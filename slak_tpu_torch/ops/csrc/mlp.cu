@@ -32,22 +32,28 @@
 //     W1^T^T + b1) into the workspace, then the residual epilogue from
 //     g W2^T^T. A 128-token fp32 accumulator of Cp = 1008 channels does
 //     not fit a block.
-// - float32 (the differentiated eval's ERF path): plain fp32 FMAs (no
-//   TF32), matching the JAX kernels' Precision.HIGHEST, in four launches
-//   over f32 scratch: the LayerNorm, the two products as tiled GEMMs (the
-//   first with the GELU epilogue), the residual epilogue (see the float32
-//   section). The hidden activations make one round trip through device
-//   memory there; a one-pass design re-read every weight for each 16-64
-//   tokens at one FMA per two loads and was 10-30x slower.
+// - float32 (the differentiated eval's ERF path): both products as
+//   3xTF32 on the tensor cores (tf32_gemm.cuh: each operand split into big
+//   and small TF32 planes, three TF32 wgmma a k step, two-level fp32 sums),
+//   as accurate as fp32 FFMA, the counterpart of the JAX kernels'
+//   Precision.HIGHEST. The LayerNorm launch writes h's planes, the first
+//   product's epilogue g's, the second product's os, then the residual
+//   epilogue through the strides (see the float32 section). g makes one
+//   round trip through device memory at every width, as two planes (2 x
+//   268 MB at the ERF's stage 1); keeping it on chip, as bf16 does up to
+//   Cp = 256, is a later design.
 //
 // What bounds it on an H100: the two products, 4*T*C*4C operations, at
-// 989 TFLOP/s dense bf16 at best; the bytes (y, res, out and the two
-// weight matrices once) take far less. wgmma is the only way to that
-// rate: a warpgroup's asynchronous products from shared memory (and
+// 989 TFLOP/s dense bf16 at best, and in float32 at three TF32 passes at
+// 495 TFLOP/s (2.6x the 67 TFLOP/s of FFMA); the bytes (y, res, out and
+// the two weight matrices once) take far less. wgmma is the only way to
+// that rate: a warpgroup's asynchronous products from shared memory (and
 // registers), fed by TMA so that no thread spends instructions on the
-// weight copies. What the bf16 kernels do not yet hide is CUDA-core work:
-// T*4C exact-erf GELUs (~26 instructions each, the fused kernel's main
-// loop at C <= 256) and the epilogues' residual loads and stores.
+// weight copies. What the kernels do not yet hide is CUDA-core work: T*4C
+// exact-erf GELUs (~26 instructions each, the fused kernel's main loop at
+// C <= 256; in float32 also the TF32 split of g) and the epilogues'
+// residual loads and stores; in float32 also g's planes, 8 T 4C bytes
+// each way.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -57,8 +63,8 @@
 #include <initializer_list>
 #include <type_traits>
 
-#include "simt_tile.cuh"
 #include "hopper.cuh"
+#include "tf32_gemm.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -68,7 +74,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr float kLnEps = 1e-6f;
-constexpr size_t kSmemMax = 227 * 1024;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -87,10 +92,6 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-__device__ __forceinline__ float gelu(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
 struct Args {
@@ -202,12 +203,14 @@ __device__ __forceinline__ void for_tile(const A& a, const long long* tok,
 }
 
 // stage <- y + pre_bias (fp32, zero outside the tile, row pitch LDS);
-// hs <- LN(stage) (row pitch LDA). The LayerNorm runs a warp per token, R
-// tokens of a warp at once. K12: y = y1 + y2^T in the compute dtype, y2
-// read in the q orientation (strided by H along the tokens).
-template <typename T, typename A>
+// then store(t, c, h) with h = LN(stage) for each of the tile's tokens t
+// and channels c < Cp (0 past C), neighbouring lanes on neighbouring c.
+// The LayerNorm runs a warp per token, R tokens of a warp at once. K12: y
+// = y1 + y2^T in the compute dtype, y2 read in the q orientation (strided
+// by H along the tokens).
+template <typename T, typename A, typename Store>
 __device__ void load_layernorm(const A& a, const long long* tok,
-                               float* stage, int LDS, T* hs, int LDA) {
+                               float* stage, int LDS, Store store) {
   constexpr int R = 4;
   const T* __restrict__ y = static_cast<const T*>(a.y);
   const float* __restrict__ ln_s = a.vec;
@@ -254,9 +257,10 @@ __device__ void load_layernorm(const A& a, const long long* tok,
       const float bi = c < a.C ? ln_b[c] : 0.f;
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        hs[(t0 + r) * LDA + c] = from_f<T>(
-            c < a.C ? (stage[(t0 + r) * LDS + c] - mean[r]) * inv[r] * sc + bi
-                    : 0.f);
+        store(t0 + r, c,
+              c < a.C
+                  ? (stage[(t0 + r) * LDS + c] - mean[r]) * inv[r] * sc + bi
+                  : 0.f);
     }
   }
   __syncthreads();
@@ -289,33 +293,38 @@ __device__ void store_out(const A& a, const long long* tok,
 }
 
 // ---------------------------------------------------------------------------
-// float32, CUDA cores, in four launches over f32 scratch (the workspace):
-//  1. simt_ln_kernel, kSimtBT tokens a block: y + pre_bias, the LayerNorm
-//     -> hs (Tp, Cp);
-//  2. simt_gemm_kernel<true>: gs (Tp, Fp) = GELU(hs W1^T^T + b1);
-//  3. simt_gemm_kernel<false>: os (Tp, Cp) = gs W2^T^T;
-//  4. simt_out_kernel, kSimtBT tokens a block: out = res + gamma (os + b2)
-//     through the strides.
-// The products are simt_tile.cuh's 64 x 64 tiles, K in steps of 16: each
-// shared load feeds four FMAs, and a weight tile is read once for 64
-// tokens.
+// float32: the products as 3xTF32 on the tensor cores (tf32_gemm.cuh's
+// TMA-fed wgmma, two-level fp32 sums), in six launches over the f32
+// workspace, the tokens padded to Tp (a multiple of kBM):
+//  1. split_kernel, twice: the big and small TF32 planes of W1^T (2 Fp,
+//     Cp) and W2^T (2 Cp, Fp), each already K-major for its product;
+//  2. simt_ln_kernel, kSimtBT tokens a block: y + pre_bias (K12: y1 +
+//     y2^T), the LayerNorm, h stored as its planes (2 Tp, Cp), 0 past C
+//     and on padded tokens;
+//  3. tf32_gemm_kernel<GeluFwd>: g = GELU(h W1^T^T + b1), exact erf,
+//     stored as its planes (2 Tp, Fp) by the epilogue;
+//  4. tf32_gemm_kernel<F32>: os (Tp, Cp) = g W2^T^T;
+//  5. simt_out_kernel, kSimtBT tokens a block: out = res + gamma (os + b2)
+//     through the strides (K12: and outq).
 // ---------------------------------------------------------------------------
 
 constexpr int kSimtBT = 32;                   // tokens a per-token block
-constexpr int kGM = simt_tile::kTile, kGN = simt_tile::kTile, kGK = 16;
-static_assert(kThreads == simt_tile::kThreads, "one thread block shape");
 
-struct SimtLayout {
-  size_t hs, gs, os, total;
+struct F32Layout {
+  size_t h, g, os, w1, w2, total;
 };
 
-inline SimtLayout simt_layout(long long Tp, int Cp, int Fp) {
+inline F32Layout f32_layout(long long Tp, int Cp, int Fp) {
   auto al = [](size_t n) { return (n + 255) / 256 * 256; };
-  SimtLayout L;
-  L.hs = 0;
-  L.gs = al((size_t)Tp * Cp * sizeof(float));
-  L.os = L.gs + al((size_t)Tp * Fp * sizeof(float));
-  L.total = L.os + al((size_t)Tp * Cp * sizeof(float));
+  const size_t tp = (size_t)Tp, cp = (size_t)Cp, fp = (size_t)Fp;
+  const size_t f = sizeof(float);
+  F32Layout L;
+  L.h = 0;
+  L.g = L.h + al(2 * tp * cp * f);
+  L.os = L.g + al(2 * tp * fp * f);
+  L.w1 = L.os + al(tp * cp * f);
+  L.w2 = L.w1 + al(2 * fp * cp * f);
+  L.total = L.w2 + al(2 * cp * fp * f);
   return L;
 }
 
@@ -324,16 +333,21 @@ size_t smem_simt_tile(int Cp) {
          kSimtBT * sizeof(long long);
 }
 
+// hp: h's planes (2 Tp, Cp), big rows first
 template <typename A>
 __global__ void __launch_bounds__(kThreads)
-simt_ln_kernel(A a, float* __restrict__ hs) {
+simt_ln_kernel(A a, float* __restrict__ hp, long long Tp) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int LDS = a.Cp + 1;
   float* stage = reinterpret_cast<float*>(smem_raw);
   long long* tok = reinterpret_cast<long long*>(stage + kSimtBT * LDS);
   const long long t0 = (long long)blockIdx.x * kSimtBT;
+  const long long plane = Tp * a.Cp;
   token_offsets(a, t0, tok);
-  load_layernorm<float>(a, tok, stage, LDS, hs + t0 * a.Cp, a.Cp);
+  load_layernorm<float>(a, tok, stage, LDS, [&](int t, int c, float v) {
+    const long long o = (t0 + t) * a.Cp + c;
+    split_tf32(tok[t] >= 0 ? v : 0.f, hp + o, hp + plane + o);
+  });
 }
 
 template <typename A>
@@ -353,34 +367,6 @@ simt_out_kernel(A a, const float* __restrict__ os) {
   store_out<float>(a, tok, acc, LDA);
 }
 
-// Cout (Tp, N) = A (Tp, K) B^T, B (N, K), all row-major; GELU adds bias
-// and applies the exact-erf GELU. Rows past N load as zeros and are not
-// stored.
-template <bool GELU>
-__global__ void __launch_bounds__(kThreads, simt_tile::kMinBlocks)
-simt_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                 float* __restrict__ Cout, const float* __restrict__ bias,
-                 int K, int N) {
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-  const long long m0 = (long long)blockIdx.x * kGM;
-  const int n0 = blockIdx.y * kGN;
-  float acc[4][4] = {};
-  simt_tile::product<kGK, true, true>(
-      [&](int r, long long k) { return k < K ? A[(m0 + r) * K + k] : 0.f; },
-      [&](int r, long long k) {
-        return k < K && n0 + r < N ? B[(long long)(n0 + r) * K + k] : 0.f;
-      },
-      0, K, acc);
-  for (int i = 0; i < 4; ++i) {
-    const long long row = m0 + tr * 4 + i;
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tc * 4 + j;
-      if (n < N)
-        Cout[row * N + n] = GELU ? gelu(acc[i][j] + bias[n]) : acc[i][j];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // bf16, Hopper tensor cores: TMA-fed wgmma.
 //
@@ -397,11 +383,7 @@ simt_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
 // out-of-bounds zero fill pads a K of Cp = 1008 to the 64-wide box.
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 128;                 // tokens a tile (64 a consumer)
 constexpr int kBK = 64;                  // K of a TMA box (128 bytes)
-constexpr int kBoxBytes = 64 * 128;      // a 64-row box
-constexpr int kHopperThreads = 384;      // 2 consumer + 1 producer group
-constexpr int kConsumerWarps = 8;
 
 // Token t's offset n*sN + p*sP (-1 past the end); K12 also its offset in
 // the q orientation, n*sN + w*H + h.
@@ -632,7 +614,7 @@ constexpr int kHBox = kBM * 128;         // h: a 64-wide k-block of a tile
 template <int NP> struct Fused {
   static constexpr int kKB = NP / 64;
   static constexpr int kStages = NP > 128 ? 2 : 4;
-  static constexpr int kW1Bytes = kKB * kBoxBytes;    // kFC rows of W1^T
+  static constexpr int kW1Bytes = kKB * kBox;         // kFC rows of W1^T
   static constexpr int kW2Bytes = NP * 128;           // NP rows of W2^T
   static constexpr size_t kRing1 = (size_t)kKB * kHBox;
   static constexpr size_t kRing2 = kRing1 + (size_t)kStages * kW1Bytes;
@@ -690,9 +672,9 @@ mlp_fused_kernel(const __grid_constant__ CUtensorMap map_h,
         for (int ch = 0; ch < n_chunks; ++ch) {
           mbar_wait(&empty1[s1], ph1 ^ 1);
           unsigned char* w1 = sm + L::kRing1 + s1 * L::kW1Bytes;
-          mbar_expect_tx(&full1[s1], KB * kBoxBytes);
+          mbar_expect_tx(&full1[s1], KB * kBox);
           for (int kb = 0; kb < KB; ++kb)
-            tma_load(w1 + kb * kBoxBytes, &map_w1, &full1[s1], kb * kBK,
+            tma_load(w1 + kb * kBox, &map_w1, &full1[s1], kb * kBK,
                      ch * kFC);
           if (++s1 == S) { s1 = 0; ph1 ^= 1; }
           mbar_wait(&empty2[s2], ph2 ^ 1);
@@ -746,7 +728,7 @@ mlp_fused_kernel(const __grid_constant__ CUtensorMap map_h,
           const unsigned char* w1 = sm + L::kRing1 + s1 * L::kW1Bytes;
           for (int kb = 0; kb < KB; ++kb) {
             const uint64_t da = h_desc + kb * (kHBox >> 4);
-            const uint64_t db = wgmma::desc_sw128(w1 + kb * kBoxBytes);
+            const uint64_t db = wgmma::desc_sw128(w1 + kb * kBox);
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk)
               wgmma::ss<kFC>(a1, da + 2 * kk, db + 2 * kk, kb | kk);
@@ -897,7 +879,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int kb = 0; kb < KB; ++kb) {
         mbar_wait(&full[s], ph);
         const unsigned char* st = sm + s * L::kStageBytes;
-        const uint64_t da = wgmma::desc_sw128(st + wg * (kBoxBytes));
+        const uint64_t da = wgmma::desc_sw128(st + wg * kBox);
         const uint64_t db = wgmma::desc_sw128(st + L::kABytes);
         wgmma::fence();
 #pragma unroll
@@ -1008,19 +990,6 @@ ln_bf16_kernel(A a, bf16* __restrict__ h) {
 
 // ---------------------------------------------------------------------------
 
-// Raise a kernel's dynamic shared-memory limit to the most a block may
-// have, once a kernel, not at every launch.
-cudaError_t allow_smem(const void* kernel) {
-  static const void* done[32];
-  static int n_done = 0;
-  for (int i = 0; i < n_done; ++i)
-    if (done[i] == kernel) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
-  if (e == cudaSuccess && n_done < 32) done[n_done++] = kernel;
-  return e;
-}
-
 // K12's q token offsets go after a kernel's own shared layout: the
 // dynamic shared memory with them (a.q_off set).
 size_t with_q_tokens(const Args&, size_t smem) { return smem; }
@@ -1029,42 +998,67 @@ size_t with_q_tokens(DualArgs& a, size_t smem) {
   return a.q_off + (size_t)a.BT * sizeof(long long);
 }
 
-long long simt_tokens(const Args& a) {
-  return (a.n_outer * a.P + kGM - 1) / kGM * kGM;
+long long f32_tokens(long long tokens) {
+  return (tokens + kBM - 1) / kBM * kBM;
 }
 
+// float32: the weights' planes, the LayerNorm into h's planes, the two
+// 3xTF32 products, the residual epilogue (see the float32 section).
 template <typename A>
-cudaError_t launch_simt(A a, void* ws, cudaStream_t stream) {
+cudaError_t launch_f32(A a, void* ws, cudaStream_t stream) {
+  const long long T = a.n_outer * a.P;
+  if (T == 0) return cudaSuccess;
   a.BT = kSimtBT;
   const size_t smem = with_q_tokens(a, smem_simt_tile(a.Cp));
   if (ws == nullptr || smem > kSmemMax) return cudaErrorInvalidConfiguration;
-  const long long Tp = simt_tokens(a);
-  const SimtLayout L = simt_layout(Tp, a.Cp, a.Fp);
-  unsigned char* base = static_cast<unsigned char*>(ws);
-  float* hs = reinterpret_cast<float*>(base + L.hs);
-  float* gs = reinterpret_cast<float*>(base + L.gs);
-  float* os = reinterpret_cast<float*>(base + L.os);
-  const float* w1 = static_cast<const float*>(a.w1);
-  const float* w2 = static_cast<const float*>(a.w2);
-  const unsigned tiles = (unsigned)(Tp / kSimtBT);
-  cudaError_t e =
-      allow_smem(reinterpret_cast<const void*>(simt_ln_kernel<A>));
+  const int Cp = a.Cp, Fp = a.Fp, sms = sm_count();
+  const long long Tp = f32_tokens(T);
+  const F32Layout L = f32_layout(Tp, Cp, Fp);
+  const auto at = [&](size_t off) {
+    return reinterpret_cast<float*>(static_cast<unsigned char*>(ws) + off);
+  };
+  cudaError_t e = split(a.w1, at(L.w1), Fp, Cp, false, stream);
+  if (e == cudaSuccess) e = split(a.w2, at(L.w2), Cp, Fp, false, stream);
+  if (e == cudaSuccess)
+    e = allow_smem(reinterpret_cast<const void*>(simt_ln_kernel<A>));
   if (e != cudaSuccess) return e;
-  simt_ln_kernel<A><<<tiles, kThreads, smem, stream>>>(a, hs);
+  const unsigned blocks = (unsigned)(Tp / kSimtBT);
+  simt_ln_kernel<A><<<blocks, kThreads, smem, stream>>>(a, at(L.h), Tp);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  simt_gemm_kernel<true><<<dim3((unsigned)(Tp / kGM), a.Fp / kGN), kThreads,
-                           0, stream>>>(hs, w1, gs, a.b1, a.Cp, a.Fp);
-  e = cudaGetLastError();
+
+  // g = GELU(h W1^T^T + b1) -> g's planes
+  CUtensorMap m[4];
+  if (!tensor_map(&m[0], at(L.h), 2 * Tp, Cp, kBM, kKf, true, 0, true) ||
+      !tensor_map(&m[1], at(L.w1), 2LL * Fp, Cp, kBNf, kKf, true, 0, true))
+    return cudaErrorInvalidValue;
+  m[2] = m[0];
+  m[3] = m[1];
+  Tf32Args g1{};
+  g1.M = (int)Tp;
+  g1.N = Fp;
+  g1.kb = (Cp + kKf - 1) / kKf;
+  g1.b1 = a.b1;
+  g1.planes = at(L.g);
+  e = run_tf32<Tf32Epi::GeluFwd>(m, g1, sms, stream);
   if (e != cudaSuccess) return e;
-  simt_gemm_kernel<false><<<dim3((unsigned)(Tp / kGM),
-                                 (a.Cp + kGN - 1) / kGN), kThreads, 0,
-                            stream>>>(gs, w2, os, nullptr, a.Fp, a.Cp);
-  e = cudaGetLastError();
+
+  // os = g W2^T^T
+  if (!tensor_map(&m[0], at(L.g), 2 * Tp, Fp, kBM, kKf, true, 0, true) ||
+      !tensor_map(&m[1], at(L.w2), 2LL * Cp, Fp, kBNf, kKf, true, 0, true))
+    return cudaErrorInvalidValue;
+  m[2] = m[0];
+  m[3] = m[1];
+  Tf32Args g2{};
+  g2.M = (int)Tp;
+  g2.N = Cp;
+  g2.kb = Fp / kKf;
+  g2.out = at(L.os);
+  e = run_tf32<Tf32Epi::F32>(m, g2, sms, stream);
+  if (e == cudaSuccess)
+    e = allow_smem(reinterpret_cast<const void*>(simt_out_kernel<A>));
   if (e != cudaSuccess) return e;
-  e = allow_smem(reinterpret_cast<const void*>(simt_out_kernel<A>));
-  if (e != cudaSuccess) return e;
-  simt_out_kernel<A><<<tiles, kThreads, smem, stream>>>(a, os);
+  simt_out_kernel<A><<<blocks, kThreads, smem, stream>>>(a, at(L.os));
   return cudaGetLastError();
 }
 
@@ -1170,12 +1164,12 @@ cudaError_t launch_bf16(A a, void* ws, cudaStream_t stream) {
 }  // namespace
 
 // The bytes of scratch slak_fused_mlp needs for dtype at this many tokens:
-// the float32 path's hs, gs and os; bfloat16's h and, above Cp = 256, g.
+// float32's planes of h, g and the two weights, and os; bfloat16's h and,
+// above Cp = 256, g.
 extern "C" long long slak_fused_mlp_workspace(int dtype, long long tokens,
                                               int Cp, int Fp) {
   if (dtype == 0)
-    return (long long)simt_layout((tokens + kGM - 1) / kGM * kGM, Cp, Fp)
-        .total;
+    return (long long)f32_layout(f32_tokens(tokens), Cp, Fp).total;
   return (long long)bf16_layout(tokens, Cp, Fp).total;
 }
 
@@ -1195,7 +1189,7 @@ extern "C" int slak_fused_mlp(int dtype, const void* y, const void* res,
   Args a{y, res, out, w1, w2, b1, vec, n_outer, P, sN, sC, sP,
          C, Cp, Fp, 0, add_residual};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_simt(a, ws, s);
+  if (dtype == 0) return (int)launch_f32(a, ws, s);
   if (dtype == 1) return (int)launch_bf16(a, ws, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -1219,7 +1213,7 @@ extern "C" int slak_fused_mlp_dual(int dtype, const void* y1, const void* y2,
               0, 1},
              y2, outq, W, H, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_simt(a, ws, s);
+  if (dtype == 0) return (int)launch_f32(a, ws, s);
   if (dtype == 1) return (int)launch_bf16(a, ws, s);
   return (int)cudaErrorInvalidValue;
 }

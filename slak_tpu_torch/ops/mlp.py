@@ -35,6 +35,19 @@ GEMMs through g above. :func:`mlp_ln_plain`, :func:`mlp_gelu_gemm_plain`
 and :func:`mlp_residual_gemm_plain` are those launches' plain versions;
 :func:`fused_mlp_plain` is their composition.
 
+In float32 (the ERF's route) both products run as 3xTF32 on TMA-fed
+``wgmma`` (``csrc/tf32_gemm.cuh``, shared with the backward): every operand
+is stored as its big and small TF32 planes (:func:`tf32_split_plain`) and
+each k step runs three TF32 products, summed in fp32 per 32-deep k block,
+as accurate as fp32 FFMA. The launches: the weights' split, the LayerNorm
+into h's planes (:func:`mlp_ln_f32_plain`), g = GELU(h W1 + b1) into g's
+planes (:func:`mlp_gelu_f32_plain`), and g W2 with the residual epilogue
+(:func:`mlp_out_f32_plain`); :func:`fused_mlp_f32_launches_plain` is their
+composition. What bounds it on the card is the three TF32 passes' 4 T C
+4C operations each, not the bytes; the exact-erf GELU of the first
+product's epilogue and g's planes (two T x 4C fp32 round trips) are its
+CUDA-core and memory work.
+
 K12 (``slak_fused_mlp_dual`` in ``csrc/mlp.cu``, replaces
 ``fused_mlp_cmajor_dual_raw``) is a variant of the K2/K3 kernel family, as
 K3 is: :func:`fused_mlp_dual` runs the tail on ``y1 + y2^T`` (the raw pair
@@ -61,6 +74,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -68,6 +82,7 @@ import torch.nn.functional as F
 
 launch_count = 0            # K2/K3 launches
 dual_launch_count = 0       # K12 launches
+tf32_launch_count = 0       # float32 K2/K3 launches (3xTF32; also counted above)
 bwd_launch_count = 0        # K8 launches
 wide_bwd_launch_count = 0   # K9 launches
 bwd_dy_launch_count = 0     # K8 launches in dy-only mode (also counted above)
@@ -80,7 +95,7 @@ _INV_SQRT_2PI = 0.3989422804014327
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F_ALIGN = 64               # the hidden width is padded to this (mlp.cu)
-_BWD_TILE = 128             # K8/K9 pad the tokens to this (mlp_bwd.cu)
+_TOKEN_TILE = 128           # fp32 K2/K3/K12 and K8/K9 pad the tokens to this
 
 
 def _round_up(n: int, m: int) -> int:
@@ -144,15 +159,22 @@ def mlp_residual_gemm_plain(g: torch.Tensor, res: Optional[torch.Tensor],
     """Plain version of the second GEMM (``gemm_kernel<residual>``) and of
     the fused kernel's epilogue: out = res + gamma (g W2 + b2), one
     rounding, shaped ``shape`` with the channels on ``channel_dim``."""
+    return _residual_out(g.float() @ pk.w2[:pk.c, :pk.f].float().t(), res,
+                         pk, shape, channel_dim, add_residual, g.dtype)
+
+
+def _residual_out(o, res, pk, shape, channel_dim, add_residual, dtype):
+    """res + gamma (o + b2) for the (T, C) fp32 product o, rounded to
+    dtype once, shaped ``shape`` with the channels on ``channel_dim``."""
     _, _, b2, gamma, _ = pk.vec
-    o = (g.float() @ pk.w2[:pk.c, :pk.f].float().t() + b2) * gamma
+    o = (o + b2) * gamma
     shape = list(shape)
     tl_shape = shape[:channel_dim % len(shape)] + \
         shape[channel_dim % len(shape) + 1:] + [pk.c]
     o = o.reshape(tl_shape)
     if add_residual:
         o = res.movedim(channel_dim, -1).float() + o
-    return o.to(g.dtype).movedim(-1, channel_dim).contiguous()
+    return o.to(dtype).movedim(-1, channel_dim).contiguous()
 
 
 def fused_mlp_plain(y: torch.Tensor, res: torch.Tensor, pk: MlpWeights,
@@ -164,6 +186,74 @@ def fused_mlp_plain(y: torch.Tensor, res: torch.Tensor, pk: MlpWeights,
     g = mlp_gelu_gemm_plain(mlp_ln_plain(y, pk, channel_dim), pk)
     return mlp_residual_gemm_plain(g, res, pk, y.shape, channel_dim,
                                    add_residual)
+
+
+def tf32_split_plain(x: torch.Tensor) -> torch.Tensor:
+    """The big and small TF32 planes of a float32 (R, K) matrix, (2 R, K)
+    big rows first, as ``split_tf32`` (``csrc/tf32_gemm.cuh``) makes them:
+    big = x rounded to TF32 (to nearest, ties away from zero, the low 13
+    bits cleared), small = (x - big) rounded the same way."""
+    def tf32(v):
+        u = v.contiguous().view(torch.int32)
+        return ((u + 0x1000) & -0x2000).view(torch.float32)
+    big = tf32(x)
+    return torch.cat([big, tf32(x - big)])
+
+
+def _tf32_product(ap: torch.Tensor, bp: torch.Tensor) -> torch.Tensor:
+    """A B^T from the planes of A (2 M, K) and B (2 N, K) as the kernel's
+    three TF32 products: small A x big B + big A x small B + big A x big
+    B, in float32 (small x small dropped)."""
+    a, a_s = ap.chunk(2)
+    b, b_s = bp.chunk(2)
+    return a_s @ b.t() + a @ b_s.t() + a @ b.t()
+
+
+def mlp_ln_f32_plain(y: torch.Tensor, pk: MlpWeights,
+                     channel_dim: int = -1) -> torch.Tensor:
+    """Plain version of the float32 route's LayerNorm launch
+    (``simt_ln_kernel``): h = LN(y + pre_bias) with its tokens padded to a
+    multiple of 128 and its channels to Cp, zeros there, as its TF32
+    planes (2 Tp, Cp)."""
+    h = mlp_ln_plain(y, pk, channel_dim)
+    t = h.shape[0]
+    cp = pk.w1.shape[1]
+    hp = h.new_zeros(_round_up(t, _TOKEN_TILE), cp)
+    hp[:t, :pk.c] = h
+    return tf32_split_plain(hp)
+
+
+def mlp_gelu_f32_plain(hp: torch.Tensor, pk: MlpWeights) -> torch.Tensor:
+    """Plain version of the float32 route's first product
+    (``tf32_gemm_kernel<GeluFwd>``): from h's planes (2 Tp, Cp), g =
+    GELU(h W1 + b1) (exact erf) through the three TF32 products with W1's
+    planes, as g's planes (2 Tp, Fp)."""
+    a = _tf32_product(hp, tf32_split_plain(pk.w1)) + pk.b1
+    return tf32_split_plain(F.gelu(a))
+
+
+def mlp_out_f32_plain(gp: torch.Tensor, res: Optional[torch.Tensor],
+                      pk: MlpWeights, shape, channel_dim: int = -1,
+                      add_residual: bool = True) -> torch.Tensor:
+    """Plain version of the float32 route's second product
+    (``tf32_gemm_kernel<F32>``) and residual launch (``simt_out_kernel``):
+    from g's planes (2 Tp, Fp), out = res + gamma (g W2 + b2) through the
+    three TF32 products with W2's planes, the real tokens and channels,
+    shaped ``shape`` with the channels on ``channel_dim``."""
+    t = math.prod(shape) // pk.c
+    o = _tf32_product(gp, tf32_split_plain(pk.w2))[:t, :pk.c]
+    return _residual_out(o, res, pk, shape, channel_dim, add_residual,
+                         torch.float32)
+
+
+def fused_mlp_f32_launches_plain(y: torch.Tensor, res: Optional[torch.Tensor],
+                                 pk: MlpWeights, channel_dim: int = -1,
+                                 add_residual: bool = True) -> torch.Tensor:
+    """The composition of the float32 route's launches' plain versions:
+    the LayerNorm into h's planes, the GELU product into g's planes, the
+    second product with the residual epilogue."""
+    gp = mlp_gelu_f32_plain(mlp_ln_f32_plain(y, pk, channel_dim), pk)
+    return mlp_out_f32_plain(gp, res, pk, y.shape, channel_dim, add_residual)
 
 
 def token_strides(shape, channel_dim: int) -> Tuple[int, int, int, int, int]:
@@ -246,8 +336,9 @@ def fused_mlp(y: torch.Tensor, res: Optional[torch.Tensor], pk: MlpWeights,
              torch.cuda.current_stream(y.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed: cudaError {err}")
-    global launch_count
+    global launch_count, tf32_launch_count
     launch_count += 1
+    tf32_launch_count += y.dtype == torch.float32
     return out
 
 
@@ -622,7 +713,7 @@ def _launch_bwd(y, dout, pk, channel_dim, wide, dy_only):
     dt = _DTYPES[y.dtype]
     fp, cp = pk.w1.shape
     n_outer, p, s_n, s_c, s_p = token_strides(y.shape, channel_dim)
-    tp = _round_up(n_outer * p, _BWD_TILE)
+    tp = _round_up(n_outer * p, _TOKEN_TILE)
     dev, f32 = y.device, torch.float32
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     s1, s2 = _gemm_splits(tp, fp, cp, y.dtype, sms)

@@ -50,10 +50,10 @@ EDITS = {
     "epi_gelu": [("gelu(v[0] + bb.x), gelu(v[1] + bb.y)",
                   "v[0] + bb.x, v[1] + bb.y")],
     "tma": [
-        ("mbar_expect_tx(&full1[s1], KB * kBoxBytes);",
+        ("mbar_expect_tx(&full1[s1], KB * kBox);",
          "mbar_arrive(&full1[s1]);"),
         ("          for (int kb = 0; kb < KB; ++kb)\n"
-         "            tma_load(w1 + kb * kBoxBytes, &map_w1, &full1[s1], "
+         "            tma_load(w1 + kb * kBox, &map_w1, &full1[s1], "
          "kb * kBK,\n                     ch * kFC);\n", ""),
         ("mbar_expect_tx(&full2[s2], L::kW2Bytes);",
          "mbar_arrive(&full2[s2]);"),

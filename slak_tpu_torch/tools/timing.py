@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import statistics
 import subprocess
 from typing import Callable, Dict, List, Optional, Tuple
@@ -84,28 +85,42 @@ def conv_macs(n: int, c: int, h: int, w: int, kh: int, kw: int) -> int:
 def build_variants(name: str, variants: Dict[str, List[Tuple[str, str]]]
                    ) -> Dict[str, ctypes.CDLL]:
     """``ops/csrc/<name>.cu`` with each variant's (text, replacement) edits
-    (each text must be in the source), each built with nvcc into its own
-    library under ``slak_tpu_torch/_build/probe/``, all at once: {variant:
-    its loaded library}."""
+    (each text must be in the source or in one of the headers under
+    ``csrc/``, which are searched in that order), each built with nvcc into
+    its own library under ``slak_tpu_torch/_build/probe/``, all at once:
+    {variant: its loaded library}. A variant's edited source and headers
+    go into a directory of its own, where its includes find them first."""
     from slak_tpu_torch.ops import _build
-    src = open(_build.source_path(name)).read()
+
+    def read(f):
+        with open(os.path.join(_build.CSRC, f)) as fh:
+            return fh.read()
+    cu = f"{name}.cu"
+    sources = [cu] + sorted(f for f in os.listdir(_build.CSRC)
+                            if f.endswith(".cuh"))
     out_dir = os.path.join(_build.BUILD_DIR, "probe")
     os.makedirs(out_dir, exist_ok=True)
     procs = []
     for variant, edits in variants.items():
-        text = src
+        files = {cu: read(cu)}
         for old, new in edits:
-            if old not in text:
+            where = next((f for f in sources
+                          if old in files.get(f, "") or
+                          (f not in files and old in read(f))), None)
+            if where is None:
                 raise RuntimeError(f"{variant}: pattern not found: {old!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"{name}_{variant}.cu")
+            files[where] = files.get(where, read(where)).replace(old, new)
+        vdir = os.path.join(out_dir, f"{name}_{variant}")
+        shutil.rmtree(vdir, ignore_errors=True)
+        os.makedirs(vdir)
+        for f, text in files.items():
+            with open(os.path.join(vdir, f), "w") as fh:
+                fh.write(text)
         so = os.path.join(out_dir, f"lib{name}_{variant}.so")
-        with open(cu, "w") as f:
-            f.write(text)
         procs.append((variant, so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o",
-             so, cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+             so, os.path.join(vdir, cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for variant, so, p in procs:
         log, _ = p.communicate()
