@@ -14,9 +14,12 @@ Phases (any failure exits non-zero):
   build    nvcc-build every kernel under slak_tpu_torch/ops/csrc/.
   kernels  each kernel against its plain PyTorch version on the card at the
            flagship's shapes (SLaK-T 51x51 w1.3, the main path's batch): the
-           dwconv pair at the four stages' (K,5)/(5,K) taps (in bf16 also at
-           batches 1, 3 and 8; each launch's route, the band kernel or the
-           tiled kernel, named in its row), the fused MLP
+           dwconv pair at the four stages' (K,5)/(5,K) taps (also at
+           batches 1, 3 and 8; each launch's route, the band kernel, the
+           fp32 band kernel or the tiled kernel, named in its row; the fp32
+           pair also at the DW_EDGES_F32 maps, the same bits twice; the
+           fp32 bound bytes against the lesser of 3xTF32 and FFMA), the
+           fused MLP
            in NCHW, NHWC and (C, M) strides, bf16 and fp32, also without
            the residual and at the ragged batches 1 and 3, the same bits
            on a second launch; times with CUDA events (median), the bound,
@@ -25,9 +28,9 @@ Phases (any failure exits non-zero):
   forward  the main path: create_model + make_eval_step on a few batches of
            synthetic labels, bf16 and fp32, with the launch counters set to 0
            just before and read just after (bf16: every K1 launch on the
-           band kernel; fp32: none, and every K2/K3 launch on the 3xTF32
-           route); logits held against the same weights through the plain
-           versions.
+           band kernel; fp32: every K1 launch on the fp32 band kernel and
+           every K2/K3 launch on the 3xTF32 route); logits held against
+           the same weights through the plain versions.
   timing   bf16 eval forward at batch 256 (bench.py's batch): img/s.
   train_kernels
            the train kernels against their plain versions at the train
@@ -60,7 +63,10 @@ Phases (any failure exits non-zero):
            the ERF path's kernels against their plain versions in fp32 at
            the four 1024^2 stage shapes (batch 1): K9 (the wide-channel
            fused MLP backward, stage 3 T = 4096, C = 499; stage 4 T = 1024,
-           C = 998; all eight outputs), K1 (forward and flipped-tap dgrad),
+           C = 998; all eight outputs), K1 (forward and flipped-tap dgrad
+           on the fp32 band kernel, the same bits twice; each row naming
+           its route, its bound bytes against the lesser of 3xTF32 and
+           FFMA with both beside it),
            K2/K3 (3xTF32, the same bits on a second launch) and K8; K8 and
            K9 in the full mode and in dy-only mode (dy alone, as the ERF
            calls them; its dy must have the full mode's bits), the fp32 MLP
@@ -71,9 +77,9 @@ Phases (any failure exits non-zero):
            the flagship (random weights from a seed, given as --weights),
            fp32, 1024^2, 4 images, parameters frozen, launch counters set to
            0 just before and read just after (per image 36 K1 forward + 36
-           dgrad, 18 K2/K3 all on the 3xTF32 route, 6 K8, 12 K9, K8 and K9
-           all in dy-only mode, no weight-gradient, K4 or band-kernel
-           launch);
+           dgrad, all on the fp32 band kernel, 18 K2/K3 all on the 3xTF32
+           route, 6 K8, 12 K9, K8 and K9 all in dy-only mode, no
+           weight-gradient, K4 or bf16 band-kernel launch);
            every image's map finite (all 4 averaged), the map nonzero and
            largest at the centre; one image on
            each route, maps within 1e-3; then one eval-mode backward (bf16,
@@ -129,9 +135,11 @@ Phases (any failure exits non-zero):
            checkout against this tree's in one process, in turns base,
            change, change, base: the bf16 K1 pair at each stage shape at
            batches 64 and 256, the K4 pair and the K1 dgrad pair at batch
-           128, then the bs256 bf16 eval forward, the bs128 bf16 train step
-           and one fp32 ERF image at 1024^2, each tree's dwconv.cu swapped
-           into ops/dwconv.py.
+           128, the fp32 K1 pair and dgrad pair at the four 1024^2 ERF
+           shapes, then the bs256 bf16 eval forward, the bs128 bf16 train
+           step and one fp32 ERF image at 1024^2 (CUDA events and the
+           device's busy time, maps compared), each tree's ops/dwconv.py
+           wrappers and kernels swapped in.
   wgrad_ab (not in the default run; needs --base) K5/K7 of another
            checkout against this tree's in one process, in turns base,
            change, change, base: the bf16 weight gradient at each stage
@@ -199,8 +207,12 @@ PAIR_MODES = ("kernel", "input", "dualout", "dualboth")
 PAIR_BIG = 256                              # K10's row-tiled maps (fp32)
 BAND_ROUTE = ("bf16, (K, 5) or (5, K) taps, both map axes <= 64 (all four "
               "stages at 224^2): dwconv_band_kernel (per-channel banded "
-              "products, mma.sync m16n8k16); fp32 and larger maps: "
-              "dwconv_tiled_kernel")
+              "products, mma.sync m16n8k16); larger maps: "
+              "dwconv_tiled_kernel; fp32: F32_ROUTE")
+F32_ROUTE = ("fp32, (K, 5) or (5, K) taps, K != 5, at most 9 live "
+             "diagonals (every K up to 65), any map size (the ERF's 1024^2 "
+             "stages, the fp32 eval, the fp32 dgrad): dwconv_band_f32_kernel "
+             "(per-channel banded products, 3xTF32 on mma.sync m16n8k8)")
 WGRAD_ROUTE = ("bf16, (K, 5) or (5, K) taps, both map axes <= 64 (all four "
                "stages at 224^2): wgrad_band_kernel (per-channel correlation "
                "matrices over the long tap axis, mma.sync m16n8k16, their "
@@ -221,6 +233,18 @@ DW_EDGES = ((3, 16, 48, 48, 47, "band"),      # MT 3, pairs
             (3, 16, 14, 13, 47, "band"),      # non-square, odd W
             (2, 16, 40, 20, 49, "band"),      # MT 3 or 2 by orientation
             (2, 124, 112, 112, 51, "tiled"))  # stage 1's taps at 448^2
+# fp32 K1 maps off the stage maps, (N, C, H, W, K), all on the fp32 band
+# kernel: whole images stacked along F (pairs, odd maps, 4 images), one
+# image on a map not a multiple of 8, taps longer than the map, non-square
+# maps, maps above 64 in F slices (two row tiles, batch 3, stage 1's taps
+# at 448^2), a long axis above 256 (two and three blocks along L) and K =
+# 65 (nine live diagonals, the most the route takes)
+DW_EDGES_F32 = ((3, 16, 48, 48, 47), (3, 16, 45, 45, 47),
+                (8, 16, 27, 27, 49), (1, 16, 63, 63, 51),
+                (3, 16, 12, 12, 51), (3, 16, 14, 13, 47),
+                (2, 16, 40, 20, 49), (1, 16, 80, 80, 51),
+                (3, 16, 100, 72, 49), (2, 124, 112, 112, 51),
+                (1, 8, 300, 264, 13), (1, 8, 520, 40, 65))
 
 
 class PhaseError(RuntimeError):
@@ -280,6 +304,20 @@ def bounds(byts, flops, dtype):
     return (byts / PEAK_BYTES_PER_S * 1e3, flops / peak_flops(dtype) * 1e3)
 
 
+def conv_bounds(byts, flops, dtype):
+    """(bytes ms, operations ms, {the operations bounds}) of K1 launches;
+    fp32 runs its products on the fp32 band kernel's tensor cores: the
+    operations bound is the lesser of 3xTF32 (three passes at 495
+    TFLOP/s) and FFMA (67 TFLOP/s), both given."""
+    import torch
+    b_ms, o_ms = bounds(byts, flops, dtype)
+    if dtype != torch.float32:
+        return b_ms, o_ms, {}
+    tf32_ms = 3 * flops / PEAK_TF32 * 1e3
+    return b_ms, min(o_ms, tf32_ms), dict(ops_ms_3xtf32=tf32_ms,
+                                          ops_ms_ffma=o_ms)
+
+
 def rate(flops, ms, bound_ms):
     """Achieved TFLOP/s of a launch and its share of the bound."""
     return dict(tflops=flops / ms * 1e-9, bound_share=bound_ms / ms)
@@ -333,9 +371,10 @@ def dwconv_macs(N, C, H, W, kh, kw) -> int:
 
 
 def route_of(x, w) -> str:
-    """The kernel ``ops/dwconv.py`` launches for these operands."""
+    """The kernel ``ops/dwconv.py`` launches for these operands: "band",
+    "band_f32" or "tiled"."""
     from slak_tpu_torch.ops import dwconv as K1
-    return "band" if K1.band_route(x, w) else "tiled"
+    return K1._route_of(x, w)
 
 
 def check_dwconv_pair(x, ws, dn, tag):
@@ -385,13 +424,67 @@ def check_dwconv_stats(x, w, dn, tag):
     return d, s_err
 
 
+def check_dwconv_f32_edges(phase: str, train: bool):
+    """fp32 K1 at DW_EDGES_F32 against its plain version on the fp32 band
+    kernel: the pair (``kernels``) or the dgrad on both orientations'
+    flipped taps (``train_kernels``), and the same bits on a second
+    launch; the kernel's launch geometry that of ``band_f32_geometry``.
+    Prints a row a map."""
+    import torch
+    from slak_tpu_torch.ops import dwconv as K1
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(71)
+    dn = "float32"
+    for N, C, H, W, K in DW_EDGES_F32:
+        x = torch.randn(N, C, H, W, generator=g, device=dev)
+        ws = [torch.randn(C, *t, generator=g, device=dev) * 0.05
+              for t in ((K, 5), (5, K))]
+        tag = f"dwconv fp32 {N}x{C}x{H}x{W} taps {K}"
+        if train:
+            ws = [w.flip(1, 2).contiguous() for w in ws]
+        routes = [route_of(x, w) for w in ws]
+        _check(routes == ["band_f32"] * 2, f"{tag}: routes {routes}")
+        # the plain mirror's geometry is the kernel's
+        geo = []
+        for w in ws:
+            got = K1.band_f32_kernel_geometry(N, C, H, W, *w.shape[1:])
+            want = K1.band_f32_geometry(N, C, H, W, *w.shape[1:])
+            _check(all(want[k] == v for k, v in got.items()),
+                   f"{tag} {tuple(w.shape[1:])}: kernel geometry {got}, "
+                   f"band_f32_geometry {want}")
+            geo.append(got)
+        row = dict(shape=[N, C, H, W], K=K, route="band_f32",
+                   tol=TOL_KERNEL[dn], geometry=geo)
+        if train:
+            d_max = 0.0
+            for w in ws:
+                got, want = K1.dwconv(x, w), K1.dwconv_plain(x, w)
+                torch.cuda.synchronize()
+                d, r = rel_err(got, want)
+                _check(r <= TOL_KERNEL[dn], f"{tag} dgrad "
+                       f"{tuple(w.shape[1:])}: rel err {r:.3g}")
+                same_bits_twice(lambda: K1.dwconv(x, w), tag + " dgrad")
+                d_max = max(d_max, d)
+            row["dgrad_max_abs_err"] = d_max
+        else:
+            row["pair_max_abs_err"] = check_dwconv_pair(x, ws, dn, tag)[0]
+            same_bits_twice(lambda: K1.dwconv(x, ws[1], out=K1.dwconv(
+                x, ws[0])), tag)
+        row["same_bits_twice"] = True
+        print(f"[{phase}] " + json.dumps(row), flush=True)
+        del x
+    torch.cuda.empty_cache()
+
+
 def check_dwconv_edges(phase: str, train: bool):
     """bf16 K1/K4 at DW_EDGES against their plain versions, each on the
     route it names: the K1 pair (``kernels``), or K4 on both orientations
     (y, sums, the same bits twice) and the K1 dgrad on their flipped taps
-    (``train_kernels``). Prints a row a map."""
+    (``train_kernels``); then fp32 K1 at DW_EDGES_F32
+    (``check_dwconv_f32_edges``). Prints a row a map."""
     import torch
     from slak_tpu_torch.ops import dwconv as K1
+    check_dwconv_f32_edges(phase, train)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(70)
     bf, dn = torch.bfloat16, "bfloat16"
@@ -696,13 +789,11 @@ def phase_kernels(cfg, batch):
                 return conv(x, w2, out=y)
 
             d, r = check_dwconv_pair(x, (w1, w2), dn, f"dwconv stage {i + 1}")
-            more = {}
-            if dtype == torch.bfloat16:        # the other batches' tiles
-                more["rel_err_by_batch"] = {
-                    f"batch{nb}": check_dwconv_pair(
-                        x[:nb].contiguous(), (w1, w2), dn,
-                        f"dwconv stage {i + 1} batch {nb}")[1]
-                    for nb in DW_BATCHES}
+            more = {"rel_err_by_batch": {      # the other batches' tiles
+                f"batch{nb}": check_dwconv_pair(
+                    x[:nb].contiguous(), (w1, w2), dn,
+                    f"dwconv stage {i + 1} batch {nb}")[1]
+                for nb in DW_BATCHES}}
             ms = time_ms(pair)
             plain_ms = time_ms(lambda: pair(K1.dwconv_plain))
             wl1 = w1.to(dtype)[:, None]
@@ -713,12 +804,14 @@ def phase_kernels(cfg, batch):
             # launch 1 reads x and writes y; launch 2 also reads y
             bound = bytes_ms = ops_ms = 0.0
             for (kh, kw), tensors in (((K, s), 2), ((s, K), 3)):
-                b_ms, o_ms = bounds(
+                b_ms, o_ms, ops = conv_bounds(
                     tensors * x.numel() * item + 4 * C * kh * kw,
                     2 * dwconv_macs(batch, C, H, H, kh, kw), dtype)
                 bound += max(b_ms, o_ms)
                 bytes_ms += b_ms
                 ops_ms += o_ms
+                for k, v in ops.items():
+                    more[k] = more.get(k, 0.0) + v
             row = dict(kernel="dwconv", dtype=dn, stage=i + 1, C=C, H=H,
                        taps=[K, s], batch=batch,
                        route=[route_of(x, w1), route_of(x, w2)],
@@ -819,7 +912,9 @@ def randomize(model, seed: int):
 
 
 def phase_forward(batch):
-    """The main path; returns the launch counts of the bf16 run."""
+    """The main path; returns the model and the launch counts of the bf16
+    run and of the fp32 run (K1, K2/K3, K1 on the band kernel, K2/K3 on
+    the 3xTF32 route, K1 on the fp32 band kernel)."""
     import torch
     from slak_tpu_torch.models import apply, create_model
     from slak_tpu_torch.ops import dwconv as K1
@@ -844,26 +939,30 @@ def phase_forward(batch):
         step = make_eval_step(model, dtype)
         step(batches[0])                     # pack weights, warm up
         torch.cuda.synchronize()
-        K1.launch_count = K1.band_launch_count = 0
+        K1.launch_count = K1.band_launch_count = K1.tf32_launch_count = 0
         K2.launch_count = K2.tf32_launch_count = 0
         t0 = time.perf_counter()
         outs = [step(b) for b in batches]
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         got = (K1.launch_count, K2.launch_count, K1.band_launch_count,
-               K2.tf32_launch_count)
+               K2.tf32_launch_count, K1.tf32_launch_count)
         if dtype == torch.bfloat16:
             counts = got
+        else:
+            counts_fp32 = got
         print(f"[forward] {dn}: {N_BATCHES} batches of {batch} in "
               f"{sec:.3f} s; launches dwconv {got[0]} (on the band kernel "
-              f"{got[2]}), fused_mlp {got[1]} (on the 3xTF32 route "
-              f"{got[3]})")
+              f"{got[2]}, on the fp32 band kernel {got[4]}), fused_mlp "
+              f"{got[1]} (on the 3xTF32 route {got[3]})")
         # bf16: every K1 launch on the band kernel (all four stages' maps
-        # fit it); fp32: none, and every K2/K3 launch on the 3xTF32 route
+        # fit it); fp32: every K1 launch on the fp32 band kernel and every
+        # K2/K3 launch on the 3xTF32 route
         bf16 = dtype == torch.bfloat16
         want = (n_conv * N_BATCHES, n_blocks * N_BATCHES,
                 n_conv * N_BATCHES if bf16 else 0,
-                0 if bf16 else n_blocks * N_BATCHES)
+                0 if bf16 else n_blocks * N_BATCHES,
+                0 if bf16 else n_conv * N_BATCHES)
         _check(got == want, f"{dn} launch counts {got}, want {want}")
         for j, (o, (x, y)) in enumerate(zip(outs, batches)):
             lg = o["logits"]
@@ -877,7 +976,7 @@ def phase_forward(batch):
                   f" | vs plain: max abs {d:.4g}, rel {r:.4g} (tol "
                   f"{TOL_LOGITS[dn]}), top-1 agreement {top1:.4f}")
             _check(r <= TOL_LOGITS[dn], f"{dn} logits rel err {r:.3g}")
-    return model, counts
+    return model, counts, counts_fp32
 
 
 def phase_timing(model, batch):
@@ -1155,14 +1254,23 @@ def phase_erf_kernels(cfg):
             d, r = rel_err(got, want)
             _check(r <= TOL_KERNEL["float32"], f"{name} 1024^2 stage "
                    f"{i + 1}: rel err {r:.3g}")
+            # no atomics: the pair gives the same bits on a second launch
+            same_bits_twice(lambda: K1.conv_taps(inp, tt),
+                            f"{name} 1024^2 stage {i + 1}")
             lib_w = [w[:, None] for w in tt]
             b_ms = o_ms = bound = 0.0
+            ops = {}
             for (kh, kw), n_t in zip(taps, (2, 3)):
-                bb, oo = bounds(n_t * inp.numel() * 4 + 4 * C * kh * kw,
-                                2 * dwconv_macs(1, C, H, H, kh, kw), dt)
+                bb, oo, more = conv_bounds(
+                    n_t * inp.numel() * 4 + 4 * C * kh * kw,
+                    2 * dwconv_macs(1, C, H, H, kh, kw), dt)
                 b_ms, o_ms, bound = b_ms + bb, o_ms + oo, bound + max(bb, oo)
+                for k, v in more.items():
+                    ops[k] = ops.get(k, 0.0) + v
             row = dict(kernel=name, dtype="float32", stage=i + 1, C=C, H=H,
-                       taps=[K, s], batch=1, max_abs_err=d, rel_err=r,
+                       taps=[K, s], batch=1,
+                       route=[route_of(inp, w) for w in tt],
+                       max_abs_err=d, rel_err=r,
                        tol=TOL_KERNEL["float32"],
                        ms=time_ms(lambda: K1.conv_taps(inp, tt)),
                        plain_ms=time_ms(lambda: K1.conv_taps(inp, tt,
@@ -1170,7 +1278,7 @@ def phase_erf_kernels(cfg):
                        library_ms=time_ms(lambda: [F.conv2d(
                            inp, w, padding=(kh // 2, kw // 2), groups=C)
                            for w, (kh, kw) in zip(lib_w, taps)]),
-                       bound_ms=bound)
+                       bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms, **ops)
             print("[erf_kernels] " + json.dumps(row), flush=True)
             add(name, row, depth, b_ms, o_ms)
         del x, dy
@@ -1235,6 +1343,7 @@ def reset_counts():
     K1.launch_count = K1.stats_launch_count = KW.launch_count = 0
     KW.band_launch_count = 0
     K1.band_launch_count = K1.band_stats_launch_count = 0
+    K1.tf32_launch_count = 0
     K2.launch_count = K2.bwd_launch_count = K2.wide_bwd_launch_count = 0
     K2.bwd_dy_launch_count = K2.wide_bwd_dy_launch_count = 0
     K10.pair_launch_count = K2.dual_launch_count = 0
@@ -1259,6 +1368,7 @@ def read_counts():
     K1, KW, K2 = _counters()
     return {"dwconv": K1.launch_count, "dwconv_stats": K1.stats_launch_count,
             "dwconv_band": K1.band_launch_count,
+            "dwconv_tf32": K1.tf32_launch_count,
             "dwconv_stats_band": K1.band_stats_launch_count,
             "dwconv_wgrad": KW.launch_count,
             "dwconv_wgrad_band": KW.band_launch_count,
@@ -1363,7 +1473,7 @@ def phase_train(batch):
     # its band kernel
     want = {"dwconv": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_stats": 2 * n_blocks * TRAIN_STEPS,
-            "dwconv_band": 2 * n_blocks * TRAIN_STEPS,
+            "dwconv_band": 2 * n_blocks * TRAIN_STEPS, "dwconv_tf32": 0,
             "dwconv_stats_band": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_wgrad": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_wgrad_band": 2 * n_blocks * TRAIN_STEPS,
@@ -1489,9 +1599,11 @@ def phase_erf():
                                                            "erf.npy")])
     torch.cuda.synchronize()
     counts = read_counts()
-    # fp32: no launch on the band kernel
+    # fp32: every K1 launch (forward and dgrad) on the fp32 band kernel,
+    # none on the bf16 one
     want = {"dwconv": 4 * n_blocks * ERF_IMAGES, "dwconv_stats": 0,
-            "dwconv_band": 0, "dwconv_stats_band": 0,
+            "dwconv_band": 0,
+            "dwconv_tf32": 4 * n_blocks * ERF_IMAGES, "dwconv_stats_band": 0,
             "dwconv_wgrad": 0, "dwconv_wgrad_band": 0,
             "fused_mlp": n_blocks * ERF_IMAGES,
             "fused_mlp_tf32": n_blocks * ERF_IMAGES,
@@ -1501,7 +1613,7 @@ def phase_erf():
             "mlp_bwd_wide_dy_only": (n_blocks - narrow) * ERF_IMAGES}
     print(f"[erf] {ERF_IMAGES} fp32 images at {ERF_SIZE}^2: launches "
           f"{counts} (per image: K1 {2 * n_blocks} forward + {2 * n_blocks} "
-          f"dgrad, K2/K3 {n_blocks}, all on the 3xTF32 route, K8 {narrow}, "
+          f"dgrad, K2/K3 {n_blocks}, all on their 3xTF32 routes, K8 {narrow}, "
           f"K9 {n_blocks - narrow}, K8 and K9 in dy-only mode)", flush=True)
     _check(counts == want, f"ERF launch counts {counts}, want {want}")
     data = run["data"]
@@ -1555,7 +1667,8 @@ def phase_erf():
             # bf16: K1 forward and dgrad and the weight gradient all on
             # their band kernels
             want = {"dwconv": 4 * n_blocks, "dwconv_stats": 0,
-                    "dwconv_band": 4 * n_blocks, "dwconv_stats_band": 0,
+                    "dwconv_band": 4 * n_blocks, "dwconv_tf32": 0,
+                    "dwconv_stats_band": 0,
                     "dwconv_wgrad": 2 * n_blocks,
                     "dwconv_wgrad_band": 2 * n_blocks, "fused_mlp": n_blocks,
                     "fused_mlp_tf32": 0, "mlp_bwd": narrow,
@@ -2091,13 +2204,6 @@ def phase_mlp_ab(cfg, base: str):
         stages = model.forward_features(x.permute(0, 3, 1, 2).contiguous(),
                                         return_stages=True)
         return stages[-1].permute(0, 2, 3, 1)
-    def busy_ms(fn):
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows, dev_us = _profile_rows(prof)
-        return sum(dev_us(e) for e in rows) / 1e3
     erf_ms, erf_busy, maps = [], [], {}
     try:
         for route in order:
@@ -2125,6 +2231,18 @@ def phase_mlp_ab(cfg, base: str):
     del model, image
     torch.cuda.empty_cache()
     return out
+
+
+def busy_ms(fn):
+    """The device's busy time of one call of fn: its kernels' summed
+    durations under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows, dev_us = _profile_rows(prof)
+    return sum(dev_us(e) for e in rows) / 1e3
 
 
 def build_base(base: str, name: str, tag: str):
@@ -2299,11 +2417,14 @@ def phase_dwconv_ab(cfg, base: str):
     turns base, change, change, base: the bf16 K1 pair (the second launch
     into the first's output) at each stage shape at the main batch and at
     the timing batch; the K4 pair and the K1 dgrad pair at the train
-    batch; then the bs256 bf16 eval forward, the bs128 bf16 train step and
-    one fp32 ERF image at 1024^2 (the input gradient, weights frozen), each
-    with the tree's ``dwconv`` / ``dwconv_stats`` swapped into
-    ``ops/dwconv.py`` (the model's convs, ``DwconvTaps`` and
-    ``DwconvBnStats``, call them from there). Returns the rows."""
+    batch; the fp32 K1 pair and dgrad pair at the four 1024^2 ERF shapes
+    (batch 1); then the bs256 bf16 eval forward, the bs128 bf16 train step
+    and one fp32 ERF image at 1024^2 (the input gradient, weights frozen;
+    on CUDA events and as the device's busy time; the two trees' maps
+    within TOL_ERF_MAP), each with the tree's ``dwconv`` /
+    ``dwconv_stats`` swapped into ``ops/dwconv.py`` (the model's convs,
+    ``DwconvTaps`` and ``DwconvBnStats``, call them from there). Returns
+    the rows."""
     import torch
     from slak_tpu_torch.analysis.erf import get_input_grad
     from slak_tpu_torch.models import apply, create_model
@@ -2335,6 +2456,19 @@ def phase_dwconv_ab(cfg, base: str):
         cases.append((f"dgrad_pair_bs{TRAIN_BATCH}_stage{i + 1}_ms",
                       lambda f, dy=dy, fl=flipped: [f[0](dy, w)
                                                     for w in fl]))
+    # the ERF's fp32 pairs at 1024^2 (batch 1): forward and dgrad
+    for i, C, H, K, s, _ in stage_shapes(cfg, ERF_SIZE):
+        ws = [torch.randn(C, *t, generator=g, device=dev) * 0.05
+              for t in ((K, s), (s, K))]
+        flipped = [w.flip(1, 2).contiguous() for w in ws]
+        x, dy = (torch.randn(1, C, H, H, generator=g, device=dev)
+                 for _ in range(2))
+        cases.append((f"k1_pair_fp32_{ERF_SIZE}_stage{i + 1}_ms",
+                      lambda f, x=x, ws=ws: f[0](x, ws[1],
+                                                 out=f[0](x, ws[0]))))
+        cases.append((f"dgrad_pair_fp32_{ERF_SIZE}_stage{i + 1}_ms",
+                      lambda f, dy=dy, fl=flipped: f[0](dy, fl[1], out=f[0](
+                          dy, fl[0]))))
     order = ("base", "change", "change", "base")
     rows = {name: [] for name, _ in cases}
     for route in order:
@@ -2343,16 +2477,25 @@ def phase_dwconv_ab(cfg, base: str):
     del cases
     torch.cuda.empty_cache()
 
-    def timed(name, fn, *timing):
+    def timed(name, fn, *timing, busy=False):
         """fn timed in the turns of ``order``, each tree's wrappers swapped
-        into ops/dwconv.py."""
+        into ops/dwconv.py (``busy``: also the device's busy time, once a
+        turn, under ``name`` with _busy_ms for _ms). Returns fn's last
+        result of each tree."""
         rows[name] = []
+        if busy:
+            rows[name.replace("_ms", "_busy_ms")] = []
+        last = {}
         try:
             for route in order:
                 K1.dwconv, K1.dwconv_stats = fns[route]
+                last[route] = fn()
                 rows[name].append(time_ms(fn, *timing))
+                if busy:
+                    rows[name.replace("_ms", "_busy_ms")].append(busy_ms(fn))
         finally:
             K1.dwconv, K1.dwconv_stats = own
+        return last
     model = create_model("SLaK_tiny", dtype=bf, seed=0, **MODEL_KW)
     x = torch.randn(TIMING_BATCH, 224, 224, 3, device=dev, generator=g
                     ).to(bf)
@@ -2377,8 +2520,16 @@ def phase_dwconv_ab(cfg, base: str):
         stages = model.forward_features(xx.permute(0, 3, 1, 2).contiguous(),
                                         return_stages=True)
         return stages[-1].permute(0, 2, 3, 1)
-    timed(f"erf_image_{ERF_SIZE}_fp32_ms",
-          lambda: get_input_grad(feature_fn, image), 2, 1, 3)
+    # the image syncs with the host: where the host is slower than the
+    # device the events read the host's time, the busy time the device's
+    maps = timed(f"erf_image_{ERF_SIZE}_fp32_ms",
+                 lambda: get_input_grad(feature_fn, image), 2, 1, 3,
+                 busy=True)
+    d, r = rel_err(torch.from_numpy(maps["change"]),
+                   torch.from_numpy(maps["base"]))
+    print(f"[dwconv_ab] ERF map, change vs base: max abs {d:.4g}, rel "
+          f"{r:.4g} (tol {TOL_ERF_MAP})", flush=True)
+    _check(r <= TOL_ERF_MAP, f"dwconv_ab: ERF map rel err {r:.3g}")
     del model, image
     torch.cuda.empty_cache()
     for name, ms in rows.items():
@@ -2512,7 +2663,7 @@ def main(argv=None) -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
           f" cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     cfg = config_for("SLaK_tiny", **MODEL_KW)
-    totals, counts = None, None
+    totals, counts, counts_fp32 = None, None, None
     train_totals, train_counts = None, None
     erf_totals, k9_bf16, erf_run = None, None, None
     dual_totals, dual_counts, dual_by, probe_counts = None, None, None, None
@@ -2524,7 +2675,7 @@ def main(argv=None) -> int:
             totals = phase_kernels(cfg, MAIN_BATCH)
         model = None
         if "forward" in phases:
-            model, counts = phase_forward(MAIN_BATCH)
+            model, counts, counts_fp32 = phase_forward(MAIN_BATCH)
         if "timing" in phases:
             if model is None:
                 from slak_tpu_torch.models import create_model
@@ -2695,7 +2846,7 @@ def main(argv=None) -> int:
                     for r in k9_bf16})
         # the ERF path's share of the older kernels; the yardstick is the
         # library call (K1), none (K2/K3), the unfused autograd (K8)
-        for name, lib in (("dwconv", "erf_library_ms"), ("fused_mlp", None),
+        for name, lib in (("fused_mlp", None),
                           ("mlp_bwd", "erf_unfused_torch_ms")):
             per = erf_totals[name]
             for k in kernels:
@@ -2721,10 +2872,40 @@ def main(argv=None) -> int:
                                                  "library_ms", "bound_ms")})
         if erf_run is not None:
             for k in kernels:
-                if k["name"] in ("dwconv", "fused_mlp", "mlp_bwd"):
+                if k["name"] in ("fused_mlp", "mlp_bwd"):
                     k["erf_launches"] = erf_run[0][k["name"]]
                 if k["name"] == "fused_mlp":
                     k["erf_tf32_launches"] = erf_run[0]["fused_mlp_tf32"]
+    if erf_totals is not None:
+        # fp32 K1 on its band kernel: the ERF image's forward and dgrad
+        fw, dg = erf_totals["dwconv"], erf_totals["dwconv_dgrad"]
+        both = {k: fw[k] + dg[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms",
+            "ops_ms_3xtf32", "ops_ms_ffma")}
+        kernels.append(dict(
+            name="dwconv_f32", route="cuda",
+            source="slak_tpu_torch/ops/csrc/dwconv_f32.cu",
+            replaces="slak_tpu/ops/pallas_banded.py:168",
+            launches=None if erf_run is None else erf_run[0]["dwconv_tf32"],
+            max_abs_err=max(fw["err"], dg["err"]), ms=both["ms"],
+            plain_ms=both["plain_ms"], bound_ms=both["bound_ms"],
+            bound_by=("bytes" if both["bytes_ms"] >= both["ops_ms"]
+                      else "operations"),
+            library_ms=both["library_ms"], library="F.conv2d(groups=C)",
+            band_f32_route=F32_ROUTE,
+            ops_bound="the lesser of 3xTF32 (3 passes at 495 TFLOP/s) and "
+            "FFMA (67 TFLOP/s)", ops_ms_3xtf32=both["ops_ms_3xtf32"],
+            ops_ms_ffma=both["ops_ms_ffma"],
+            forward={k: fw[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms")},
+            dgrad={k: dg[k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms")},
+            fp32_forward_launches=None if counts_fp32 is None
+            else counts_fp32[4],
+            times_per="one float32 ERF image at %d^2 (forward and dgrad, "
+            "36 launches each)" % ERF_SIZE,
+            launches_in="the ERF path: %d float32 images at %d^2"
+            % (ERF_IMAGES, ERF_SIZE)))
     if dual_totals is not None:
         totals_d, extra_d = dual_totals
         per_fwd = "one bf16 dual forward at batch %d" % MAIN_BATCH

@@ -40,13 +40,19 @@ at most ``BAND_MAX`` take the band kernel (``slak_dwconv_band``,
 per-channel banded products on the tensor cores, counted in
 ``band_launch_count`` / ``band_stats_launch_count`` besides
 ``launch_count`` / ``stats_launch_count``); everything else (fp32, larger
-maps, other taps) takes the tiled kernel. :func:`launch` and
-:func:`launch_stats` launch one named route (the probes hold the two
-against each other). :func:`dwconv_band_mirror` and
-:func:`dwconv_band_stats_mirror` repeat the band kernel's decomposition in
-plain PyTorch: the Toeplitz band tiles, the staged operand with its zero
-halo rows, the shifted rows, the padded tiles, and the K4 partial sums in
-the kernel's order.
+maps, other taps) takes the tiled kernel. fp32 K1 with (K, 5) or (5, K)
+taps at any map size (:func:`band_f32_route`) takes the 3xTF32 band
+kernel of ``csrc/dwconv_f32.cu`` (``slak_dwconv_band_f32``, counted in
+``tf32_launch_count`` besides ``launch_count``); fp32 K4 stays on the
+tiled kernel. :func:`launch` and :func:`launch_stats` launch one named
+route (the probes hold them against each other).
+:func:`dwconv_band_mirror` and :func:`dwconv_band_stats_mirror` repeat the
+band kernel's decomposition in plain PyTorch: the Toeplitz band tiles, the
+staged operand with its zero halo rows, the shifted rows, the padded
+tiles, and the K4 partial sums in the kernel's order;
+:func:`dwconv_band_f32_mirror` repeats the fp32 kernel's (the TF32 split
+of both operands, the live diagonals, the row tiles with their halo, the
+three products, the scatter back).
 """
 
 from __future__ import annotations
@@ -63,8 +69,11 @@ stats_launch_count = 0         # K4 launches (the stats variant)
 probe_launch_count = 0         # K13 launches (the tap-limited probe)
 band_launch_count = 0          # K1 launches on the band route (also above)
 band_stats_launch_count = 0    # K4 launches on the band route (also above)
+tf32_launch_count = 0          # fp32 K1 launches on the 3xTF32 band route
+                               # (also in launch_count)
 
 BAND_MAX = 64                  # the band kernel's map axes: 4 tiles of 16
+F32_ND_MAX = 9                 # the fp32 band kernel's live diagonals
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -306,6 +315,209 @@ def dwconv_band_stats_mirror(x: torch.Tensor, w: torch.Tensor):
     return (y, *band_stats_sums(y, w.shape[1], w.shape[2]))
 
 
+# --- the fp32 band kernel's decomposition in plain PyTorch -----------------
+
+_F32_WARPS = 8                   # warps a block of the fp32 band kernel
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _f32_band(K: int, L: int):
+    """(ND, s, e_lo, LTs): the fewest live diagonals of 8 x 8 band tiles
+    over the k-tiles' shifts s (k-tile kt holds k = 8 kt - s + [0, 8); the
+    first of equals), the first live diagonal e = kt - nt and the map's
+    k-tiles at that shift (``f32_geom`` in csrc/dwconv_f32.cu)."""
+    pk, lt = K // 2, _cdiv(L, 8)
+    best = None
+    for s in range(8):
+        lts = (L - 1 + s) // 8 + 1
+        lo = max((s - pk) // 8, 1 - lt)
+        hi = min((7 + pk + s) // 8, lts - 1)
+        if best is None or hi - lo + 1 < best[0]:
+            best = (hi - lo + 1, s, lo, lts)
+    return best
+
+
+def band_f32_geometry(N: int, C: int, H: int, W: int, kh: int, kw: int
+                      ) -> dict:
+    """The fp32 band kernel's launch geometry (``f32_geom`` in
+    csrc/dwconv_f32.cu): long_h ((K, 5) taps), the long axis L, the other
+    F, LT n-tiles of 8 along L, the live diagonals ND, the k-tiles' shift
+    s, the first live diagonal e_lo and the map's k-tiles LTs (see
+    :func:`_f32_band`), MW n-tiles of 8 a warp tile (4, or LT below),
+    warp tiles (32 rows x 8 MW columns, a warp each) a block WL along L
+    and WF along the rows, the blocks lblocks along L,
+    fblocks along F and gblocks of images a channel (``stack``: NB whole
+    images a block, RPI = F + 2 rows each; else BF rows of F a block), the
+    staged rows SR, k columns KC and pitch P, the taps' table length, the
+    shared bytes and the blocks of the launch."""
+    long_h = kw == 5
+    K, L, F = (kh, H, W) if long_h else (kw, W, H)
+    lt = _cdiv(L, 8)
+    nd, shift, e_lo, lts = _f32_band(K, L)
+    mw = lt if lt < 3 else 4
+    wl = min(_cdiv(lt, mw), _F32_WARPS)
+    wf_max = max(1, _F32_WARPS // wl)
+    nb = min(N, (32 * wf_max + 2) // (F + 2))
+    stack = nb >= 2
+    if stack:
+        wf, rpi, bf, fblocks, gblocks = (_cdiv(nb * (F + 2) - 2, 32), F + 2,
+                                         F, 1, _cdiv(N, nb))
+    else:
+        nb, rpi = 1, 0
+        wf = min(wf_max, _cdiv(F, 32))
+        bf, fblocks, gblocks = 32 * wf, _cdiv(F, 32 * wf), N
+    sr, kc = 32 * wf + 4, 8 * min(lts, mw * wl + nd - 1)
+    p = (sr + (8 - sr) % 32) if long_h else (kc + (4 - kc) % 32)
+    tab = 8 * nd + 8
+    x_off = _cdiv(10 * tab, 32) * 32
+    lblocks = _cdiv(lt, mw * wl)
+    return dict(long_h=long_h, K=K, L=L, F=F, LT=lt, ND=nd, s=shift,
+                e_lo=e_lo, LTs=lts, MW=mw, WL=wl, WF=wf,
+                lblocks=lblocks, fblocks=fblocks, gblocks=gblocks,
+                stack=stack, NB=nb, RPI=rpi, BF=bf, SR=sr, KC=kc, P=p,
+                tab=tab, warps=wf * wl,
+                smem=4 * (x_off + (kc if long_h else sr) * p),
+                blocks=C * gblocks * fblocks * lblocks)
+
+
+def band_f32_blocks(g: dict, N: int):
+    """The blocks of a channel in launch order: (n0, nimg, f_lo, rows,
+    nt_lo, nt_hi, kt_lo, kt_hi) -- the images, the first row of F and the
+    output rows (stacked: image n0 + r // RPI, row r % RPI), the n-tiles
+    along L and the k-tiles staged (k-tile kt: k = 8 kt - s + [0, 8))."""
+    for gb in range(g["gblocks"]):
+        for fb in range(g["fblocks"]):
+            for lb in range(g["lblocks"]):
+                if g["stack"]:
+                    n0 = gb * g["NB"]
+                    nimg = min(g["NB"], N - n0)
+                    f_lo, rows = 0, nimg * g["RPI"] - 2
+                else:
+                    n0, nimg, f_lo = gb, 1, fb * g["BF"]
+                    rows = min(g["BF"], g["F"] - f_lo)
+                nt_lo = lb * g["WL"] * g["MW"]
+                nt_hi = min(g["LT"], nt_lo + g["WL"] * g["MW"])
+                yield (n0, nimg, f_lo, rows, nt_lo, nt_hi,
+                       max(0, nt_lo + g["e_lo"]),
+                       min(g["LTs"], nt_hi + g["e_lo"] + g["ND"] - 1))
+
+
+def _f32_rows(g: dict, blk, r: torch.Tensor):
+    """(image, f, inside) of a block's output-row coordinates r: inside =
+    a row of an image of the block (stacked: not between images)."""
+    n0, nimg, f_lo = blk[:3]
+    if g["stack"]:
+        img = torch.div(r, g["RPI"], rounding_mode="floor")
+        f = r - img * g["RPI"]
+    else:
+        img, f = torch.zeros_like(r), f_lo + r
+    return img, f, (img >= 0) & (img < nimg) & (f >= 0) & (f < g["F"])
+
+
+def band_f32_tile_index(g: dict, blk, H: int, W: int) -> torch.Tensor:
+    """(32 WF, 8 (nt_hi - nt_lo)) flat indices n H W + h W + w of the
+    outputs a block stores from its tile (rows r, columns m from 8 nt_lo),
+    -1 where it stores none."""
+    n0, _, _, rows, nt_lo, nt_hi = blk[:6]
+    r = torch.arange(32 * g["WF"])[:, None]
+    m = 8 * nt_lo + torch.arange(8 * (nt_hi - nt_lo))[None, :]
+    img, f, ok = _f32_rows(g, blk, r)
+    ok = ok & (r < rows) & (m < g["L"])
+    pos = m * W + f if g["long_h"] else f * W + m
+    return torch.where(ok, (n0 + img) * (H * W) + pos, -1)
+
+
+def _tf32_planes(v: torch.Tensor):
+    """(big, small) TF32 planes of v, as ``split`` in csrc/dwconv_f32.cu
+    (``ops/mlp.py``'s :func:`tf32_split_plain`)."""
+    from slak_tpu_torch.ops.mlp import tf32_split_plain
+    return tf32_split_plain(v.reshape(1, -1)).reshape(2, *v.shape).unbind(0)
+
+
+def band_f32_table(w: torch.Tensor, g: dict) -> torch.Tensor:
+    """The taps' band table a channel, (C, 5, 2, TAB), big and small TF32
+    planes: entry u of tap j is t(u + 8 e_lo - 7 + K/2 - s, j), zero off
+    the taps."""
+    t = (w if g["long_h"] else w.transpose(1, 2)).float()      # (C, K, 5)
+    ti = torch.arange(g["tab"], device=w.device) + 8 * g["e_lo"] - 7 \
+        + g["K"] // 2 - g["s"]
+    ok = (ti >= 0) & (ti < g["K"])
+    tab = t[:, ti.clamp(0, g["K"] - 1)] * ok[None, :, None]    # (C, TAB, 5)
+    return torch.stack(_tf32_planes(tab.transpose(1, 2)), 2)
+
+
+def dwconv_band_f32_mirror(x: torch.Tensor, w: torch.Tensor,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The fp32 band kernel's decomposition in plain PyTorch (any device):
+    the same function as :func:`dwconv_plain` for float32 x and (K, 5) or
+    (5, K) taps within F32_ND_MAX live diagonals. Block by block: the
+    staged rows (the outputs' rows and 2 more on each side, zero outside
+    the map and between stacked images) over the (shifted) k-tiles the
+    block's band reaches, both operands split into TF32 planes, for each
+    tap j the band of live 8 x 8 tiles D_j[e], e_lo <= e < e_lo + ND, and
+    the three products (small x big, big x small, big x big) into a
+    partial added into the sums, scattered back to the map; with ``out``,
+    added to it."""
+    _check(x, w, out)
+    if x.dtype != torch.float32:
+        raise TypeError(f"the fp32 band kernel takes float32, not {x.dtype}")
+    N, C, H, W = x.shape
+    kh, kw = w.shape[1], w.shape[2]
+    if not band_f32_route(x, w):
+        raise ValueError(f"the fp32 band kernel takes (K, 5) or (5, K) taps "
+                         f"within {F32_ND_MAX} live diagonals, not "
+                         f"{(kh, kw)} on {(H, W)}")
+    g = band_f32_geometry(N, C, H, W, kh, kw)
+    dev = x.device
+    # (N, C, F, L) shifted by s and padded to whole k-tiles: column k' holds
+    # k = k' - s
+    xs = x.transpose(2, 3) if g["long_h"] else x
+    xs = F.pad(xs, (g["s"], 8 * g["LTs"] - g["L"] - g["s"]))
+    tab = band_f32_table(w.to(dev), g)                         # (C, 5, 2, T)
+    R, e_lo = 32 * g["WF"], g["e_lo"]
+    y = torch.zeros(C, N * H * W, device=dev)
+    for blk in band_f32_blocks(g, N):
+        n0, _, _, _, nt_lo, nt_hi, kt_lo, kt_hi = blk
+        img, f, ok = _f32_rows(g, blk, torch.arange(-2, R + 2))
+        staged = xs[(n0 + img).clamp(0, N - 1), :, f.clamp(0, g["F"] - 1),
+                    8 * kt_lo:8 * kt_hi] * ok[:, None, None]    # (SR, C, kc)
+        ab, a_s = _tf32_planes(staged.transpose(0, 1))
+        k = 8 * kt_lo + torch.arange(8 * (kt_hi - kt_lo), device=dev)
+        m = 8 * nt_lo + torch.arange(8 * (nt_hi - nt_lo), device=dev)
+        e = k[:, None] // 8 - m[None, :] // 8 - e_lo
+        live = (e >= 0) & (e < g["ND"])
+        u = (8 * e + k[:, None] % 8 - m[None, :] % 8 + 7).clamp(
+            0, g["tab"] - 1)
+        acc = torch.zeros(C, R, m.numel(), device=dev)
+        for j in range(5):
+            tb, ts = (tab[:, j, p][:, u] * live for p in (0, 1))
+            a, s_ = ab[:, j:j + R], a_s[:, j:j + R]
+            acc += s_ @ tb + a @ ts + a @ tb
+        idx = band_f32_tile_index(g, blk, H, W).to(dev)
+        y[:, idx[idx >= 0]] = acc[:, idx >= 0]
+    y = y.reshape(C, N, H, W).transpose(0, 1)
+    if out is None:
+        return y.contiguous()
+    out.copy_(out + y)
+    return out
+
+
+def band_f32_route(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """True where the CUDA wrappers launch the fp32 band kernel: float32,
+    taps (K, 5) or (5, K) with K != 5, at most F32_ND_MAX live diagonals
+    (every K up to 65, any K where the long axis is at most 40), any map
+    size."""
+    kh, kw = w.shape[1], w.shape[2]
+    if x.dtype != torch.float32 or (kh == 5) == (kw == 5):
+        return False
+    K, L = (kh, x.shape[2]) if kw == 5 else (kw, x.shape[3])
+    return _f32_band(K, L)[0] <= F32_ND_MAX
+
+
 def band_route(x: torch.Tensor, w: torch.Tensor) -> bool:
     """True where the CUDA wrappers launch the band kernel: bf16, taps
     (K, 5) or (5, K) with K != 5, both map axes at most BAND_MAX."""
@@ -354,6 +566,34 @@ def _band_entries():
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     st.restype = ctypes.c_int
     return fn, st
+
+
+@functools.lru_cache(maxsize=None)
+def _band_f32_entries():
+    from slak_tpu_torch.ops._build import load
+    lib = load("dwconv_f32")
+    fn = lib.slak_dwconv_band_f32
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    geom = lib.slak_dwconv_band_f32_geom
+    geom.argtypes = ([ctypes.c_longlong] + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p])
+    geom.restype = ctypes.c_int
+    return fn, geom
+
+
+def band_f32_kernel_geometry(N: int, C: int, H: int, W: int, kh: int,
+                             kw: int) -> dict:
+    """The geometry the fp32 band kernel's host code computes (built on
+    first use), the keys of :func:`band_f32_geometry` it reports."""
+    v = (ctypes.c_longlong * 10)()
+    if _band_f32_entries()[1](N, C, H, W, kh, kw, v) != 0:
+        raise ValueError(f"the fp32 band kernel takes no {(N, C, H, W)} "
+                         f"with taps {(kh, kw)}")
+    keys = ("blocks", "warps", "ND", "smem", "stack", "NB", "fblocks",
+            "lblocks", "s", "e_lo")
+    return {k: (bool(n) if k == "stack" else int(n)) for k, n in zip(keys, v)}
 
 
 def _check_cuda(name, x, w, out=None):
@@ -421,12 +661,24 @@ def dwconv_stats(x: torch.Tensor, w: torch.Tensor):
     return launch_stats("band" if band_route(x, w) else "tiled", x, w)
 
 
+def _route_of(x: torch.Tensor, w: torch.Tensor) -> str:
+    return ("band" if band_route(x, w) else
+            "band_f32" if band_f32_route(x, w) else "tiled")
+
+
 def launch(route: str, x: torch.Tensor, w: torch.Tensor,
            out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One K1 launch on ``route`` ("band" or "tiled"), counted: conv(x, w)
-    (+ out, in place, when given). :func:`dwconv` picks the route; probes
-    call this to hold one route against another at the same shapes."""
-    band = _is_band(route, x)
+    """One K1 launch on ``route`` ("band", "band_f32" or "tiled"), counted:
+    conv(x, w) (+ out, in place, when given). :func:`dwconv` picks the
+    route; probes call this to hold one route against another at the same
+    shapes."""
+    if route not in ("band", "band_f32", "tiled"):
+        raise ValueError(f"route is 'band', 'band_f32' or 'tiled', not "
+                         f"{route!r}")
+    f32 = route == "band_f32"
+    if f32 and x.dtype != torch.float32:
+        raise TypeError(f"the fp32 band kernel takes float32, not {x.dtype}")
+    band = not f32 and _is_band(route, x)
     _on_cuda("dwconv", x)
     _check_cuda("dwconv", x, w, out)
     N, C, H, W = x.shape
@@ -438,13 +690,15 @@ def launch(route: str, x: torch.Tensor, w: torch.Tensor,
     tail = (N, C, H, W, kh, kw, int(accumulate),
             torch.cuda.current_stream(x.device).cuda_stream)
     err = (_band_entries()[0](*ptrs, *tail) if band
+           else _band_f32_entries()[0](*ptrs, *tail) if f32
            else _entry()(_DTYPES[x.dtype], *ptrs, *tail))
     if err != 0:
         raise RuntimeError(f"dwconv {route} kernel launch failed: cudaError "
                            f"{err}")
-    global launch_count, band_launch_count
+    global launch_count, band_launch_count, tf32_launch_count
     launch_count += 1
     band_launch_count += band
+    tf32_launch_count += f32
     return out
 
 
@@ -455,7 +709,7 @@ def dwconv(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return dwconv_plain(x, w, out)
     _on_cuda("dwconv", x)
-    return launch("band" if band_route(x, w) else "tiled", x, w, out)
+    return launch(_route_of(x, w), x, w, out)
 
 
 def _check_probe(x, w, ntaps):

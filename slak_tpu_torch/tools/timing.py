@@ -82,14 +82,17 @@ def conv_macs(n: int, c: int, h: int, w: int, kh: int, kw: int) -> int:
     return n * c * span(h, kh) * span(w, kw)
 
 
-def build_variants(name: str, variants: Dict[str, List[Tuple[str, str]]]
+def build_variants(name: str, variants: Dict[str, List[Tuple[str, str]]],
+                   logs: Optional[Dict[str, str]] = None
                    ) -> Dict[str, ctypes.CDLL]:
     """``ops/csrc/<name>.cu`` with each variant's (text, replacement) edits
     (each text must be in the source or in one of the headers under
     ``csrc/``, which are searched in that order), each built with nvcc into
     its own library under ``slak_tpu_torch/_build/probe/``, all at once:
     {variant: its loaded library}. A variant's edited source and headers
-    go into a directory of its own, where its includes find them first."""
+    go into a directory of its own, where its includes find them first.
+    With ``logs`` (a dict), each build also reports ptxas's registers and
+    spills, kept there under the variant's name."""
     from slak_tpu_torch.ops import _build
 
     def read(f):
@@ -118,13 +121,17 @@ def build_variants(name: str, variants: Dict[str, List[Tuple[str, str]]]
                 fh.write(text)
         so = os.path.join(out_dir, f"lib{name}_{variant}.so")
         procs.append((variant, so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o",
-             so, os.path.join(vdir, cu)], stdout=subprocess.PIPE,
+            [_build._nvcc(), *_build.NVCC_FLAGS,
+             *(["-Xptxas", "-v"] if logs is not None else []),
+             f"-I{_build.CSRC}", "-o", so, os.path.join(vdir, cu)],
+            stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for variant, so, p in procs:
         log, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"{variant}: nvcc failed\n{log}")
+        if logs is not None:
+            logs[variant] = log
         libs[variant] = ctypes.CDLL(so)
     return libs
