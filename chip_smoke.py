@@ -9,6 +9,8 @@
     python3 chip_smoke.py --phases build,mlp_bwd_ab --base PARENT_CHECKOUT
     python3 chip_smoke.py --phases build,dwconv_ab --base PARENT_CHECKOUT
     python3 chip_smoke.py --phases build,wgrad_ab --base PARENT_CHECKOUT
+    python3 chip_smoke.py --phases build,dual_kernels,dual,dwpair_ab \
+        --base PARENT_CHECKOUT
 
 Phases (any failure exits non-zero):
   build    nvcc-build every kernel under slak_tpu_torch/ops/csrc/.
@@ -92,7 +94,11 @@ Phases (any failure exits non-zero):
            the dual eval path's kernels and the probes' kernels against
            their plain versions at the flagship's four stage shapes (bf16
            and fp32, batch 64): K10 (the one-pass pair) in its four modes
-           summed and in the two dual-out modes raw, K12 (the dual tail)
+           summed and in the two dual-out modes raw (the dual stage's
+           launch, dualboth raw, each row naming its route: in bf16 the
+           band kernel, also at batches 1, 3 and 8 and at the
+           DW_EDGES_PAIR maps, the same bits twice, the kernel's geometry
+           that of pair_band_geometry), K12 (the dual tail)
            with and without the q output (also at the ragged batches 1 and
            3), K11 (the tap-stacked banded
            conv) and K13 (K1 with 0, 1 and all 5 tap columns); K10's modes
@@ -101,8 +107,9 @@ Phases (any failure exits non-zero):
   dual     the dual eval path: create_model(eval_layout="dual") +
            make_eval_step on the batches of `forward`, bf16 and fp32, the
            launch counters set to 0 just before and read just after (18 K10
-           + 18 K12 a forward, no K1, no K2/K3); logits held against the
-           plain dual route and against the default (split) route.
+           + 18 K12 a forward, no K1, no K2/K3; bf16 every K10 launch on the
+           band kernel, fp32 none); logits held against the plain dual
+           route and against the default (split) route.
   dual_timing
            bf16 eval at batch 256: the dual route against the split route
            (tools/probe_eval_ab.py) and the dual route's plain versions.
@@ -140,6 +147,14 @@ Phases (any failure exits non-zero):
            step and one fp32 ERF image at 1024^2 (CUDA events and the
            device's busy time, maps compared), each tree's ops/dwconv.py
            wrappers and kernels swapped in.
+  dwpair_ab
+           (not in the default run; needs --base) K10 of another checkout
+           against this tree's in one process, in turns base, change,
+           change, base: the bf16 dual stage's launch (dualboth, raw) at
+           each stage shape at batches 64 and 256 and its sum over a dual
+           forward, then the bs256 bf16 dual forward and the split forward
+           (tools/probe_eval_ab.py's timing), each tree's dwpair swapped
+           into models/slak.py.
   wgrad_ab (not in the default run; needs --base) K5/K7 of another
            checkout against this tree's in one process, in turns base,
            change, change, base: the bf16 weight gradient at each stage
@@ -213,6 +228,13 @@ F32_ROUTE = ("fp32, (K, 5) or (5, K) taps, K != 5, at most 9 live "
              "diagonals (every K up to 65), any map size (the ERF's 1024^2 "
              "stages, the fp32 eval, the fp32 dgrad): dwconv_band_f32_kernel "
              "(per-channel banded products, 3xTF32 on mma.sync m16n8k8)")
+PAIR_BAND_ROUTE = ("bf16, dualboth, the raw pair (the dual stage's launch), "
+                   "(K, 5) / (5, K) taps with K > 5, square maps of side <= 64 "
+                   "(all four stages at 224^2): dwpair_band_kernel (both "
+                   "branches as per-channel banded products, mma.sync "
+                   "m16n8k16, no transpose in staging or store); fp32, the "
+                   "summed modes, other taps, larger or non-square maps: "
+                   "dwpair_kernel")
 WGRAD_ROUTE = ("bf16, (K, 5) or (5, K) taps, both map axes <= 64 (all four "
                "stages at 224^2): wgrad_band_kernel (per-channel correlation "
                "matrices over the long tap axis, mma.sync m16n8k16, their "
@@ -233,6 +255,21 @@ DW_EDGES = ((3, 16, 48, 48, 47, "band"),      # MT 3, pairs
             (3, 16, 14, 13, 47, "band"),      # non-square, odd W
             (2, 16, 40, 20, 49, "band"),      # MT 3 or 2 by orientation
             (2, 124, 112, 112, 51, "tiled"))  # stage 1's taps at 448^2
+# bf16 K10 maps off the stage maps (the dual stage's launch: dualboth, raw),
+# (N, C, H, W, K, route): every band-kernel instantiation (MT = 1-4 m-tiles
+# of the side, with and without 4-byte pairs: the side even or odd), taps
+# longer than the map, and the shapes the band route leaves to
+# dwpair_kernel (a non-square map, a map above BAND_MAX)
+DW_EDGES_PAIR = ((3, 16, 12, 12, 51, "band"),     # MT 1, pairs, long taps
+                 (3, 16, 9, 9, 13, "band"),       # MT 1, odd
+                 (3, 16, 32, 32, 31, "band"),     # MT 2, pairs
+                 (3, 16, 27, 27, 49, "band"),     # MT 2, odd
+                 (3, 16, 48, 48, 47, "band"),     # MT 3, pairs
+                 (3, 16, 45, 45, 47, "band"),     # MT 3, odd
+                 (2, 16, 64, 64, 63, "band"),     # MT 4, pairs
+                 (1, 16, 63, 63, 51, "band"),     # MT 4, odd
+                 (3, 16, 14, 13, 47, "simt"),     # H != W
+                 (2, 16, 80, 80, 51, "simt"))     # above BAND_MAX
 # fp32 K1 maps off the stage maps, (N, C, H, W, K), all on the fp32 band
 # kernel: whole images stacked along F (pairs, odd maps, 4 images), one
 # image on a map not a multiple of 8, taps longer than the map, non-square
@@ -685,11 +722,15 @@ def mlp_fwd_bounds(T, C, F4, dtype):
 
 
 def same_bits_twice(fn, tag):
-    """Two launches of fn on the same inputs give the same bits."""
+    """Two launches of fn on the same inputs give the same bits (a tensor,
+    or each of a tuple of them)."""
     import torch
     first, second = fn(), fn()
     torch.cuda.synchronize()
-    _check(torch.equal(first, second), f"{tag}: two launches differ")
+    pairs = zip(first, second) if isinstance(first, tuple) else \
+        [(first, second)]
+    _check(all(torch.equal(a, b) for a, b in pairs),
+           f"{tag}: two launches differ")
 
 
 def mlp_bwd_rows(tag, name, bwd, plain, y, dout, pk, dtype,
@@ -1151,19 +1192,24 @@ def phase_train_kernels(cfg, batch):
             lib_ms = time_ms(lambda: [F.conv2d(
                 dy, w.to(dtype)[:, None], padding=(kh // 2, kw // 2),
                 groups=C) for w, (kh, kw) in zip(flipped, taps)])
+            # fp32 runs on the 3xTF32 band kernel: the operations bound is
+            # the lesser of 3xTF32 and FFMA, both given
             b_ms = o_ms = bound = 0.0
+            ops = {}
             for kh, kw in taps:
-                bb, oo = bounds(2 * x.numel() * item + 4 * C * kh * kw,
-                                2 * dwconv_macs(batch, C, H, H, kh, kw),
-                                dtype)
+                bb, oo, more = conv_bounds(
+                    2 * x.numel() * item + 4 * C * kh * kw,
+                    2 * dwconv_macs(batch, C, H, H, kh, kw), dtype)
                 b_ms, o_ms, bound = b_ms + bb, o_ms + oo, bound + max(bb, oo)
+                for k, v in more.items():
+                    ops[k] = ops.get(k, 0.0) + v
             row = dict(kernel="dwconv_dgrad", dtype=dn, stage=i + 1, C=C,
                        H=H, taps=[K, s], batch=batch,
                        route=[route_of(dy, w) for w in flipped],
                        max_abs_err=d_max, rel_err_by_batch=by_batch,
                        tol=TOL_KERNEL[dn], ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound,
-                       launches_per_step=2 * depth)
+                       library_ms=lib_ms, bound_ms=bound, bytes_ms=b_ms,
+                       ops_ms=o_ms, **ops, launches_per_step=2 * depth)
             print("[train_kernels] " + json.dumps(row), flush=True)
             if dtype == torch.bfloat16:
                 add("dwconv_dgrad", row, depth, b_ms, o_ms)
@@ -1346,7 +1392,8 @@ def reset_counts():
     K1.tf32_launch_count = 0
     K2.launch_count = K2.bwd_launch_count = K2.wide_bwd_launch_count = 0
     K2.bwd_dy_launch_count = K2.wide_bwd_dy_launch_count = 0
-    K10.pair_launch_count = K2.dual_launch_count = 0
+    K10.pair_launch_count = K10.pair_band_launch_count = 0
+    K2.dual_launch_count = 0
     K2.tf32_launch_count = 0
     K11.stacked_launch_count = K1.probe_launch_count = 0
 
@@ -1358,6 +1405,7 @@ def read_dual_counts():
     from slak_tpu_torch.ops import dwpair as K10
     K1, _, K2 = _counters()
     return {"dwpair": K10.pair_launch_count,
+            "dwpair_band": K10.pair_band_launch_count,
             "fused_mlp_dual": K2.dual_launch_count,
             "dwconv_stacked": K11.stacked_launch_count,
             "dwconv_probe": K1.probe_launch_count,
@@ -1807,6 +1855,62 @@ def probe_macs(N, C, H, W, K, s, ntaps) -> int:
     return N * C * rows * cols
 
 
+def pair_route_of(x, w1, w2, tmode, xq, sum_out) -> str:
+    """The kernel ``ops/dwpair.py`` launches for this K10 call: "band" or
+    "simt"."""
+    from slak_tpu_torch.ops import dwpair as K10
+    return "band" if K10.pair_band_route(x, w1, w2, tmode, sum_out) \
+        else "simt"
+
+
+def pair_geometry(N, C, H, W, K) -> dict:
+    """The band kernel's launch geometry as its host code computes it;
+    fails unless it is ``pair_band_geometry``'s."""
+    from slak_tpu_torch.ops import dwpair as K10
+    got = K10.pair_band_kernel_geometry(N, C, H, W, K)
+    want = K10.pair_band_geometry(N, C, H, W, K)
+    _check(all(want[k] == v for k, v in got.items()),
+           f"dwpair band {(N, C, H, W)} taps {K}: kernel geometry {got}, "
+           f"pair_band_geometry {want}")
+    return got
+
+
+def check_dwpair_edges(phase: str):
+    """bf16 K10's dual stage launch (dualboth, raw) at DW_EDGES_PAIR
+    against its plain version, each on the route it names; the band route
+    also the same bits twice and the kernel's geometry that of
+    ``pair_band_geometry``. Prints a row a map."""
+    import torch
+    from slak_tpu_torch.ops import dwpair as K10
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(72)
+    bf, dn = torch.bfloat16, "bfloat16"
+    for N, C, H, W, K, route in DW_EDGES_PAIR:
+        x = torch.randn(N, C, H, W, generator=g, device=dev).to(bf)
+        xq = x.transpose(2, 3).contiguous()
+        w1, w2 = ((torch.randn(C, *t, generator=g, device=dev) * 0.05
+                   ).to(bf).float() for t in ((K, 5), (5, K)))
+        raw = (w1, w2, "dualboth", xq, False)
+        tag = f"dwpair {N}x{C}x{H}x{W} taps {K}"
+        got_route = pair_route_of(x, *raw)
+        _check(got_route == route, f"{tag}: route {got_route}, want {route}")
+        got, want = K10.dwpair(x, *raw), K10.dwpair_plain(x, *raw)
+        torch.cuda.synchronize()
+        d = r = 0.0
+        for a, b in zip(got, want):
+            da, ra = rel_err(a, b)
+            d, r = max(d, da), max(r, ra)
+        _check(r <= TOL_KERNEL[dn], f"{tag}: rel err {r:.3g}")
+        row = dict(shape=[N, C, H, W], K=K, route=route, max_abs_err=d,
+                   rel_err=r, tol=TOL_KERNEL[dn])
+        if route == "band":
+            same_bits_twice(lambda: K10.dwpair(x, *raw), tag)
+            row.update(MT=pair_geometry(N, C, H, W, K)["MT"],
+                       pairs=W % 2 == 0, same_bits_twice=True)
+        print(f"[{phase}] " + json.dumps(row), flush=True)
+        del x, xq
+
+
 def phase_dual_kernels(cfg, batch):
     """K10, K12, K11 and K13 against their plain versions at the four stage
     shapes, bf16 and fp32 at the main batch; K10's modes at 256^2 fp32.
@@ -1874,14 +1978,37 @@ def phase_dual_kernels(cfg, batch):
                         TOL_KERNEL[dn])
                     errs[mode + ("" if sum_out else "_raw")] = r
                     d_max = max(d_max, d)
+            # the dual stage's launch (dualboth, raw): its route; on the
+            # band route also at the other batches, the same bits twice and
+            # the kernel's geometry that of pair_band_geometry
+            raw = (w1, w2, "dualboth", xq, False)
+            route = pair_route_of(x, *raw)
+            _check(route == ("band" if bf16 else "simt"),
+                   f"dwpair dualboth raw stage {i + 1} {dn}: route {route}")
+            band = {}
+            if route == "band":
+                by_batch = {}
+                for nb in DW_BATCHES:
+                    xb, xqb = x[:nb].contiguous(), xq[:nb].contiguous()
+                    _, by_batch[f"batch{nb}"] = check_all(
+                        f"dwpair dualboth raw batch {nb} stage {i + 1} {dn}",
+                        K10.dwpair(xb, w1, w2, "dualboth", xqb, False),
+                        K10.dwpair_plain(xb, w1, w2, "dualboth", xqb, False),
+                        TOL_KERNEL[dn])
+                same_bits_twice(lambda: K10.dwpair(x, *raw),
+                                f"dwpair band stage {i + 1}")
+                band = dict(rel_err_by_batch=by_batch, same_bits_twice=True,
+                            geometry=pair_geometry(batch, C, H, H, K))
             mode_ms = {m: time_ms(lambda m=m: K10.dwpair(
                 x, w1, w2, m, xq if K10.MODES[m][0] else None))
                 for m in PAIR_MODES}
+            # x and xq read once, y1 and y2q written once
             b_ms, o_ms = bounds(4 * act + 8 * C * K * s, 4 * macs, dtype)
             row = dict(
                 kernel="dwpair", dtype=dn, stage=i + 1, C=C, H=H,
                 taps=[K, s], batch=batch, max_abs_err=d_max, rel_err=errs,
                 tol=TOL_KERNEL[dn], mode="dualboth raw (the dual stage's)",
+                route=route, **band,
                 ms=time_ms(lambda: K10.dwpair(x, w1, w2, "dualboth", xq,
                                               False)),
                 summed_mode_ms=mode_ms,
@@ -1891,7 +2018,9 @@ def phase_dual_kernels(cfg, batch):
                     x, wl1, padding=(K // 2, s // 2), groups=C) + F.conv2d(
                     x, wl2, padding=(s // 2, K // 2), groups=C)),
                 k1_pair_ms=time_ms(lambda: K1.conv_taps(x, [w1, w2])),
-                bound_ms=max(b_ms, o_ms), launches_per_forward=depth)
+                bound_ms=max(b_ms, o_ms), bytes_ms=b_ms, ops_ms=o_ms,
+                launches_per_forward=depth)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             print("[dual_kernels] " + json.dumps(row), flush=True)
             if bf16:
                 add("dwpair", depth, row, b_ms, o_ms)
@@ -2027,6 +2156,7 @@ def phase_dual_kernels(cfg, batch):
             del y1, y2, res, pk
             torch.cuda.empty_cache()
 
+    check_dwpair_edges("dual_kernels")
     # K10 on maps larger than a block's shared memory: row tiles
     C, K, s = cfg.widened_dims[0], cfg.stage_kernel(0), cfg.small_kernel
     x = torch.randn(2, C, PAIR_BIG, PAIR_BIG, generator=g, device=dev)
@@ -2081,6 +2211,8 @@ def phase_dual(batch):
         sec = time.perf_counter() - t0
         got = read_dual_counts()
         want = {"dwpair": n_blocks * N_BATCHES,
+                "dwpair_band": n_blocks * N_BATCHES
+                if dtype == torch.bfloat16 else 0,
                 "fused_mlp_dual": n_blocks * N_BATCHES,
                 "dwconv_stacked": 0, "dwconv_probe": 0, "dwconv": 0,
                 "fused_mlp": 0}
@@ -2600,6 +2732,79 @@ def phase_wgrad_ab(cfg, base: str):
     return out
 
 
+def phase_dwpair_ab(cfg, base: str):
+    """K10 of another checkout against this tree's, in one process, in
+    turns base, change, change, base: the bf16 dual stage's launch
+    (dualboth, the raw pair) at each stage shape at the main batch and at
+    the timing batch (and their sum over one dual forward's 18 launches),
+    then the bf16 dual forward at the timing batch and the default (split)
+    forward, timed as ``tools/probe_eval_ab.py`` times them, each tree's
+    ``dwpair`` swapped into ``models/slak.py``. The two trees' raw pairs
+    agree within TOL_KERNEL. Returns the rows."""
+    import torch
+    from slak_tpu_torch.models import create_model
+    from slak_tpu_torch.models import slak as S
+    from slak_tpu_torch.ops import dwpair as K10
+    from slak_tpu_torch.tools import probe_eval_ab
+    mod = base_module(base, "dwpair", "dwpair", ("_entries", "_band_entries"),
+                      "dwpair_ab")
+    fns = {"base": mod.dwpair, "change": K10.dwpair}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(61)
+    bf = torch.bfloat16
+    cases, depths = [], {}
+    for i, C, H, K, s, depth in stage_shapes(cfg):
+        w1, w2 = ((torch.randn(C, *t, generator=g, device=dev) * 0.05
+                   ).to(bf).float() for t in ((K, s), (s, K)))
+        for batch in (MAIN_BATCH, TIMING_BATCH):
+            x = torch.randn(batch, C, H, H, generator=g, device=dev).to(bf)
+            xq = x.transpose(2, 3).contiguous()
+            name = f"k10_bs{batch}_stage{i + 1}_ms"
+            depths[name] = (batch, depth)
+
+            def fn(f, x=x, xq=xq, w1=w1, w2=w2):
+                return f(x, w1, w2, "dualboth", xq, False)
+            cases.append((name, fn))
+            d, r = 0.0, 0.0
+            for a, b in zip(fn(fns["change"]), fn(fns["base"])):
+                da, ra = rel_err(a, b)
+                d, r = max(d, da), max(r, ra)
+            _check(r <= TOL_KERNEL["bfloat16"], f"dwpair_ab {name}: change "
+                   f"vs base rel err {r:.3g}")
+    order = ("base", "change", "change", "base")
+    rows = {name: [] for name, _ in cases}
+    for route in order:
+        for name, fn in cases:
+            rows[name].append(time_ms(lambda: fn(fns[route])))
+    for batch in (MAIN_BATCH, TIMING_BATCH):
+        rows[f"k10_forward_bs{batch}_ms"] = [
+            sum(depths[n][1] * rows[n][t] for n in depths
+                if depths[n][0] == batch) for t in range(len(order))]
+    del cases
+    torch.cuda.empty_cache()
+    model = create_model("SLaK_tiny", dtype=bf, seed=0, eval_layout="dual",
+                         **MODEL_KW)
+    own = S.dwpair
+    for v in ("dual", "split"):
+        rows[f"{v}_bs{TIMING_BATCH}_ms"] = []
+    try:
+        for route in order:
+            S.dwpair = fns[route]
+            for r in probe_eval_ab.run(TIMING_BATCH, model=model, rounds=3):
+                rows[f"{r['eval_layout']}_bs{TIMING_BATCH}_ms"].append(
+                    r["ms"])
+    finally:
+        S.dwpair = own
+    del model
+    torch.cuda.empty_cache()
+    for name, ms in rows.items():
+        print(f"[dwpair_ab] {name}: " + " / ".join(f"{v:.4f}" for v in ms)
+              + "  (" + ", ".join(order) + ")", flush=True)
+    out = dict(order=order, **rows)
+    print("[dwpair_ab] " + json.dumps(out), flush=True)
+    return out
+
+
 def phase_probes():
     """The four kernel probes with the launch counters set to 0 just before
     and read just after; returns {probe: counts}."""
@@ -2639,7 +2844,7 @@ def main(argv=None) -> int:
                     "train_kernels,train,train_timing,erf_kernels,erf,"
                     "dual_kernels,dual,dual_timing,probes")
     ap.add_argument("--base", help="mlp_ab, mlp_bwd_ab, dwconv_ab, "
-                    "wgrad_ab: another checkout of the repository (e.g. the "
+                    "wgrad_ab, dwpair_ab: another checkout of the repository (e.g. the "
                     "parent commit from git archive, in a git-ignored "
                     "directory)")
     args = ap.parse_args(argv)
@@ -2722,6 +2927,9 @@ def main(argv=None) -> int:
         if "wgrad_ab" in phases:
             _check(args.base is not None, "wgrad_ab needs --base")
             phase_wgrad_ab(cfg, args.base)
+        if "dwpair_ab" in phases:
+            _check(args.base is not None, "dwpair_ab needs --base")
+            phase_dwpair_ab(cfg, args.base)
     except Exception as e:                      # report and fail the run
         import traceback
         traceback.print_exc()
@@ -2916,7 +3124,10 @@ def main(argv=None) -> int:
                  "slak_tpu/ops/pallas_banded.py:632", per_fwd,
                  None if dual_counts is None else dual_counts["dwpair"],
                  {"library": "two F.conv2d(groups=C) and the add",
-                  "mode": "dualboth, raw pair"}),
+                  "mode": "dualboth, raw pair",
+                  "band_route": PAIR_BAND_ROUTE,
+                  "band_launches": None if dual_counts is None
+                  else dual_counts["dwpair_band"]}),
                 ("fused_mlp_dual", "slak_tpu_torch/ops/csrc/mlp.cu",
                  "slak_tpu/ops/pallas_mlp.py:681", per_fwd,
                  None if dual_counts is None

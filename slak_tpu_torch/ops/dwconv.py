@@ -156,28 +156,30 @@ def band_tiles(w: torch.Tensor, long_h: bool, mt: int) -> torch.Tensor:
     return D.permute(0, 4, 1, 2, 3).to(torch.bfloat16).float()
 
 
-def _band_tile_products(x, w, g):
-    """The fp32 output tile of every image (N, C, H*W) as the kernel forms
-    it: the staged operand with each image's F rows (long axis contiguous,
-    F padded to 8) between 2 zero halo rows, stacked over the images; each
-    n-tile's 8 rows shifted by the tap j; the band tiles' products summed
-    over the k-tiles on the band; the tile scattered back to [h][w]."""
-    N, C, H, W = x.shape
+def band_acc(xs: torch.Tensor, D: torch.Tensor, g: dict) -> torch.Tensor:
+    """The fp32 output tiles of every image as a band kernel forms them,
+    as they lie: xs (N, C, F, L), each plane with the long tap axis L
+    contiguous; D the band tiles (:func:`band_tiles`); returns (N, C, L,
+    F), C[m][f] of each image. The staged operand holds each image's F rows
+    (F padded to 8) between 2 zero halo rows, stacked over the images; each
+    n-tile's 8 rows are shifted by the tap j; the band tiles' products are
+    summed over the k-tiles on the band. g: the geometry's MT, NTI, RPI
+    and K."""
+    N, C, F, L = xs.shape
+    dev = xs.device
     mt, nti, rpi = g["MT"], g["NTI"], g["RPI"]
-    L, F, Lp = g["L"], g["F"], 16 * g["MT"]
-    D = band_tiles(w.to(x.device), g["long_h"], mt)
-    # xs: (N, C, F, L); staged: (C, N * RPI, Lp), row img * RPI + 2 + f
-    xs = x.float().transpose(2, 3) if g["long_h"] else x.float()
-    staged = torch.zeros(C, N, rpi, Lp, device=x.device)
-    staged[:, :, 2:2 + F, :L] = xs.transpose(0, 1)
+    Lp = 16 * mt
+    # staged: (C, N * RPI, Lp), row img * RPI + 2 + f
+    staged = torch.zeros(C, N, rpi, Lp, device=dev)
+    staged[:, :, 2:2 + F, :L] = xs.float().transpose(0, 1)
     staged = staged.reshape(C, N * rpi, Lp)
     T = N * nti
-    nt = torch.arange(T, device=x.device)
+    nt = torch.arange(T, device=dev)
     img, f0 = nt // nti, (nt % nti) * 8
     rows = img * rpi + f0                               # (T,)
-    acc = torch.zeros(C, T, Lp, 8, device=x.device)
+    acc = torch.zeros(C, T, Lp, 8, device=dev)
     for j in range(5):
-        B = staged[:, (rows[:, None] + j + torch.arange(8, device=x.device)
+        B = staged[:, (rows[:, None] + j + torch.arange(8, device=dev)
                        )]                               # (C, T, 8, Lp)
         for m in range(mt):
             for k in range(mt):
@@ -186,16 +188,27 @@ def _band_tile_products(x, w, g):
                 A = D[:, j, k - m + mt - 1]             # (C, 16, 16)
                 acc[:, :, 16 * m:16 * m + 16] += torch.einsum(
                     "crk,ctnk->ctrn", A, B[..., 16 * k:16 * k + 16])
-    # tile (m, f) of n-tile nt -> image img, out[m][f] or out[f][m]
-    m = torch.arange(Lp, device=x.device)
-    f = f0[:, None] + torch.arange(8, device=x.device)  # (T, 8)
+    # tile (m, f) of n-tile nt -> image img, C[m][f]
+    m = torch.arange(Lp, device=dev)
+    f = f0[:, None] + torch.arange(8, device=dev)       # (T, 8)
     ok = (m[None, :, None] < L) & (f[:, None, :] < F)   # (T, Lp, 8)
-    pos = (m[None, :, None] * W + f[:, None, :] if g["long_h"]
-           else f[:, None, :] * W + m[None, :, None])
-    flat = (img[:, None, None] * (H * W) + pos)[ok]
-    os = torch.zeros(C, N * H * W, device=x.device)
+    flat = (img[:, None, None] * (L * F) + m[None, :, None] * F
+            + f[:, None, :])[ok]
+    os = torch.zeros(C, N * L * F, device=dev)
     os[:, flat] = acc[:, ok]
-    return os.reshape(C, N, H * W).transpose(0, 1)
+    return os.reshape(C, N, L, F).transpose(0, 1)
+
+
+def _band_tile_products(x, w, g):
+    """The fp32 output tile of every image (N, C, H*W) as the band kernel
+    forms it (:func:`band_acc`): (K, 5) stages x transposed and its tiles
+    are out[h][w], (5, K) stages x as it lies and its tiles are out
+    transposed."""
+    N, C, H, W = x.shape
+    D = band_tiles(w.to(x.device), g["long_h"], g["MT"])
+    if g["long_h"]:
+        return band_acc(x.transpose(2, 3), D, g).reshape(N, C, H * W)
+    return band_acc(x, D, g).transpose(2, 3).reshape(N, C, H * W)
 
 
 def dwconv_band_mirror(x: torch.Tensor, w: torch.Tensor,
