@@ -17,9 +17,13 @@ Phases (any failure exits non-zero):
   kernels  each kernel against its plain PyTorch version on the card at the
            flagship's shapes (SLaK-T 51x51 w1.3, the main path's batch): the
            dwconv pair at the four stages' (K,5)/(5,K) taps (also at
-           batches 1, 3 and 8; each launch's route, the band kernel, the
-           fp32 band kernel or the tiled kernel, named in its row; the fp32
-           pair also at the DW_EDGES_F32 maps, the same bits twice; the
+           batches 1, 3 and 8; each launch's route, K6's Toeplitz kernel
+           (stage 4's 7x7, with the band kernel's time at the same shapes,
+           the same bits twice), the band kernel, the fp32 band kernel or
+           the tiled kernel, named in its row; the Toeplitz kernel also at
+           the DW_EDGES_2D maps and taps and batches 1, 3, 8, 64, 65, 128,
+           its geometry that of dwconv2d_geometry, the same bits twice; the
+           fp32 pair also at the DW_EDGES_F32 maps, the same bits twice; the
            fp32 bound bytes against the lesser of 3xTF32 and FFMA), the
            fused MLP
            in NCHW, NHWC and (C, M) strides, bf16 and fp32, also without
@@ -29,9 +33,10 @@ Phases (any failure exits non-zero):
            time and the library yardstick's.
   forward  the main path: create_model + make_eval_step on a few batches of
            synthetic labels, bf16 and fp32, with the launch counters set to 0
-           just before and read just after (bf16: every K1 launch on the
-           band kernel; fp32: every K1 launch on the fp32 band kernel and
-           every K2/K3 launch on the 3xTF32 route); logits held against
+           just before and read just after (bf16: every stage-4 K1 launch
+           on K6's Toeplitz kernel, 18 in 3 forwards, every other one on
+           the band kernel; fp32: every K1 launch on the fp32 band kernel
+           and every K2/K3 launch on the 3xTF32 route); logits held against
            the same weights through the plain versions.
   timing   bf16 eval forward at batch 256 (bench.py's batch): img/s.
   train_kernels
@@ -39,11 +44,14 @@ Phases (any failure exits non-zero):
            shapes (batch 128): the stats-fused conv (K4), the weight
            gradient (K5/K7) and K1 as the dgrad (flipped taps) at the four
            stages' (K,5)/(5,K) taps (in bf16 also at batches 1, 3 and 8;
-           K4's sums must be the same bits on a second launch and, on the
-           band kernel, the bits band_stats_sums adds from its y in its
-           order; the weight gradient the same bits on a second launch,
+           K4's sums must be the same bits on a second launch and the bits
+           its route's mirror adds from its y in its order, band_stats_sums
+           or, on stage 4's Toeplitz kernel, dwconv2d_stats_sums; stage 4's
+           K4 and dgrad rows give the band kernel's time at the same
+           shapes; the weight gradient the same bits on a second launch,
            the taps that only read padding exactly 0, each row naming its
-           route; all three also at the DW_EDGES maps), the fused MLP
+           route; all three also at the DW_EDGES maps, K4 and the dgrad at
+           the DW_EDGES_2D maps), the fused MLP
            backward in NCHW, K8 at
            C = 124 and 249 and K9 at C = 499 and 998 (also at the ragged
            batches 1 and 3; two launches must give the same bits); bf16
@@ -52,8 +60,9 @@ Phases (any failure exits non-zero):
            create_train_state (SNIP masks at 40% sparsity, random growth,
            refresh every 2 steps, EMA) + make_train_step, 4 bf16 steps at
            batch 128 with the launch counters set to 0 just before and read
-           just after (every K4, K1 dgrad and bf16 weight-gradient launch
-           on its band kernel; K8
+           just after (every stage-4 K4 and K1 dgrad launch on K6's
+           Toeplitz kernel, 24 + 24 in 4 steps; every other K4, K1 dgrad
+           and bf16 weight-gradient launch on its band kernel; K8
            on stages 1-2; K2 + K9 on stages 3-4 where TRAIN_WIDE_MLP_BWD
            routes them); DST refreshes, mask counts and
            masked weights checked; one step from the same state held
@@ -85,8 +94,9 @@ Phases (any failure exits non-zero):
            every image's map finite (all 4 averaged), the map nonzero and
            largest at the centre; one image on
            each route, maps within 1e-3; then one eval-mode backward (bf16,
-           batch 8, 224^2, K1 forward and dgrad and the weight gradient on
-           their band kernels) with
+           batch 8, 224^2, K1 forward and dgrad on stage 4 on K6's
+           Toeplitz kernel, the others and the weight gradient on their
+           band kernels) with
            every parameter requiring a gradient, each
            gradient held against the plain route's; ms an image on both
            routes.
@@ -142,11 +152,13 @@ Phases (any failure exits non-zero):
            checkout against this tree's in one process, in turns base,
            change, change, base: the bf16 K1 pair at each stage shape at
            batches 64 and 256, the K4 pair and the K1 dgrad pair at batch
-           128, the fp32 K1 pair and dgrad pair at the four 1024^2 ERF
-           shapes, then the bs256 bf16 eval forward, the bs128 bf16 train
-           step and one fp32 ERF image at 1024^2 (CUDA events and the
-           device's busy time, maps compared), each tree's ops/dwconv.py
-           wrappers and kernels swapped in.
+           128 (on stage 4's 7x7 maps all three at batches 64, 128 and
+           256), the fp32 K1 pair and dgrad pair at the four 1024^2 ERF
+           shapes, then this tree's route A/B on the 7x7 maps (band,
+           toeplitz2d, toeplitz2d, band), then the bs256 bf16 eval forward,
+           the bs128 bf16 train step and one fp32 ERF image at 1024^2
+           (CUDA events and the device's busy time, maps compared), each
+           tree's ops/dwconv.py wrappers and kernels swapped in.
   dwpair_ab
            (not in the default run; needs --base) K10 of another checkout
            against this tree's in one process, in turns base, change,
@@ -220,10 +232,15 @@ MLP_BWD_NAMES = ("dy", "dW1", "dW2", "db1", "db2", "dgamma", "dln_scale",
                  "dln_bias")
 PAIR_MODES = ("kernel", "input", "dualout", "dualboth")
 PAIR_BIG = 256                              # K10's row-tiled maps (fp32)
-BAND_ROUTE = ("bf16, (K, 5) or (5, K) taps, both map axes <= 64 (all four "
-              "stages at 224^2): dwconv_band_kernel (per-channel banded "
-              "products, mma.sync m16n8k16); larger maps: "
-              "dwconv_tiled_kernel; fp32: F32_ROUTE")
+BAND_ROUTE = ("bf16, (K, 5) or (5, K) taps, both map axes <= 64 (stages "
+              "1-3 at 224^2; stage 4 takes TOEPLITZ_ROUTE): "
+              "dwconv_band_kernel (per-channel banded products, mma.sync "
+              "m16n8k16); larger maps: dwconv_tiled_kernel; fp32: F32_ROUTE")
+TOEPLITZ_ROUTE = ("bf16, H * W <= 64, any odd taps (stage 4's 7x7 maps at "
+                  "224^2: the eval pair, K4, the dgrad), checked first: "
+                  "dwconv2d_kernel (one dense product a channel, the batch "
+                  "on the 64 rows, mma.sync m16n8k16, A2 built in shared "
+                  "memory)")
 F32_ROUTE = ("fp32, (K, 5) or (5, K) taps, K != 5, at most 9 live "
              "diagonals (every K up to 65), any map size (the ERF's 1024^2 "
              "stages, the fp32 eval, the fp32 dgrad): dwconv_band_f32_kernel "
@@ -255,6 +272,16 @@ DW_EDGES = ((3, 16, 48, 48, 47, "band"),      # MT 3, pairs
             (3, 16, 14, 13, 47, "band"),      # non-square, odd W
             (2, 16, 40, 20, 49, "band"),      # MT 3 or 2 by orientation
             (2, 124, 112, 112, 51, "tiled"))  # stage 1's taps at 448^2
+# K6's maps off stage 4's (bf16, H * W <= 64, any odd taps), all on the
+# Toeplitz kernel: one pixel, a non-square map, stage 4's 7x7 and 8 x 8 (the
+# most pixels, 8 n-tiles), each with taps longer than the map, square and
+# short; at batches that leave the 64-row tile ragged or whole; C = 5 makes
+# the last run of channels a single one and the runs' offsets in their
+# 16-byte chunks vary with the image
+DW_EDGES_2D_MAPS = ((1, 1), (3, 5), (7, 7), (8, 8))
+DW_EDGES_2D_TAPS = ((13, 5), (5, 13), (5, 5), (13, 13), (3, 3))
+DW_EDGES_2D_BATCHES = (1, 3, 8, 64, 65, 128)
+DW_EDGES_2D_C = 5
 # bf16 K10 maps off the stage maps (the dual stage's launch: dualboth, raw),
 # (N, C, H, W, K, route): every band-kernel instantiation (MT = 1-4 m-tiles
 # of the side, with and without 4-byte pairs: the side even or odd), taps
@@ -408,8 +435,8 @@ def dwconv_macs(N, C, H, W, kh, kw) -> int:
 
 
 def route_of(x, w) -> str:
-    """The kernel ``ops/dwconv.py`` launches for these operands: "band",
-    "band_f32" or "tiled"."""
+    """The kernel ``ops/dwconv.py`` launches for these operands:
+    "toeplitz2d", "band", "band_f32" or "tiled"."""
     from slak_tpu_torch.ops import dwconv as K1
     return K1._route_of(x, w)
 
@@ -435,11 +462,13 @@ def check_dwconv_pair(x, ws, dn, tag):
 def check_dwconv_stats(x, w, dn, tag):
     """K4 against its plain version: y within TOL_KERNEL, both sums within
     TOL_SUMS of max_c sum |y|, the sums the same bits on a second launch
-    and, on the band route, the same bits as ``band_stats_sums`` adds the
-    kernel's own y in the kernel's order. Returns (max abs err of y, sums
-    rel err)."""
+    and the same bits as the route's mirror adds the kernel's own y in the
+    kernel's order (the band route: ``band_stats_sums``; the Toeplitz
+    route: ``dwconv2d_stats_sums``). Returns (max abs err of y, sums rel
+    err)."""
     import torch
     from slak_tpu_torch.ops import dwconv as K1
+    from slak_tpu_torch.ops import dwconv2d as K6
     y, s1, s2 = K1.dwconv_stats(x, w)
     _, t1, t2 = K1.dwconv_stats(x, w)
     yp, p1, p2 = K1.dwconv_stats_plain(x, w)
@@ -453,11 +482,13 @@ def check_dwconv_stats(x, w, dn, tag):
     _check(s_err <= TOL_SUMS[dn], f"{tag} {dn}: sums rel err {s_err:.3g}")
     _check(torch.equal(s1, t1) and torch.equal(s2, t2),
            f"{tag} {dn}: the sums differ on a second launch")
-    if K1.band_route(x, w):
-        m1, m2 = K1.band_stats_sums(y, *w.shape[1:])
+    route = K1._stats_route_of(x, w)
+    if route in ("band", "toeplitz2d"):
+        m1, m2 = (K1.band_stats_sums(y, *w.shape[1:]) if route == "band"
+                  else K6.dwconv2d_stats_sums(y))
         _check(torch.equal(s1, m1) and torch.equal(s2, m2),
-               f"{tag} {dn}: the band kernel's sums are not the bits "
-               f"band_stats_sums gives")
+               f"{tag} {dn}: the {route} kernel's sums are not the bits "
+               f"its mirror gives")
     return d, s_err
 
 
@@ -513,14 +544,98 @@ def check_dwconv_f32_edges(phase: str, train: bool):
     torch.cuda.empty_cache()
 
 
+def check_dwconv2d_edges(phase: str, train: bool):
+    """bf16 K1/K4 on K6's Toeplitz kernel at the DW_EDGES_2D maps and taps,
+    at each of DW_EDGES_2D_BATCHES, against their plain versions: the
+    kernel's launch geometry that of ``dwconv2d_geometry``; ``kernels``:
+    a launch and a second one adding into its output (other taps), the same
+    bits twice; ``train_kernels``: K4 (y, sums, the same bits twice, the
+    sums the bits ``dwconv2d_stats_sums`` adds from its y) and the dgrad on
+    the flipped taps. At batch 3 also x and out as views that start off
+    their 16-byte granule. Prints a row a map and taps."""
+    import torch
+    from slak_tpu_torch.ops import dwconv as K1
+    from slak_tpu_torch.ops import dwconv2d as K6
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(72)
+    bf, dn, C = torch.bfloat16, "bfloat16", DW_EDGES_2D_C
+
+    def view(t, off):
+        """t's values in a contiguous view ``off`` elements into a buffer."""
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=dev)
+        v = buf[off:off + t.numel()].view(t.shape)
+        v.copy_(t)
+        return v
+    for H, W in DW_EDGES_2D_MAPS:
+        for kh, kw in DW_EDGES_2D_TAPS:
+            w = (torch.randn(C, kh, kw, generator=g, device=dev) * 0.1
+                 ).to(bf).float()
+            w2 = w.flip(1, 2).contiguous()
+            tag = f"dwconv2d {H}x{W} taps {(kh, kw)}"
+            for acc in (False, True):
+                got = K6.kernel_geometry(64, C, H, W, kh, kw, acc)
+                want = K6.dwconv2d_geometry(64, C, H, W, kh, kw, acc)
+                _check(got == want, f"{tag}: kernel geometry {got}, "
+                       f"dwconv2d_geometry {want}")
+            row = dict(map=[H, W], taps=[kh, kw], C=C,
+                       batches=list(DW_EDGES_2D_BATCHES), route="toeplitz2d",
+                       tol=TOL_KERNEL[dn], geometry_checked=True)
+            errs = []
+            for N in DW_EDGES_2D_BATCHES:
+                x = torch.randn(N, C, H, W, generator=g, device=dev).to(bf)
+                _check(route_of(x, w) == "toeplitz2d",
+                       f"{tag}: route {route_of(x, w)}")
+                cases = [(x, None)]
+                if N == 3:                  # off the 16-byte granule
+                    cases.append((view(x, 3), 5))
+                for xx, o_off in cases:
+                    bt = f"{tag} batch {N}" + ("" if o_off is None else
+                                               " off granule")
+                    if not train:
+                        def pair(conv=K1.dwconv, xx=xx, o_off=o_off):
+                            y = conv(xx, w)
+                            if o_off is not None:
+                                y = view(y, o_off)
+                            return conv(xx, w2, out=y)
+                        want = pair(K1.dwconv_plain)
+                        got = pair()
+                        torch.cuda.synchronize()
+                        d, r = rel_err(got, want)
+                        _check(r <= TOL_KERNEL[dn], f"{bt}: pair rel err "
+                               f"{r:.3g}")
+                        same_bits_twice(pair, bt)
+                        errs.append(d)
+                        continue
+                    d, e = check_dwconv_stats(xx, w, dn, bt + " stats")
+                    errs.append(d)
+                    row["sums_rel_err"] = max(row.get("sums_rel_err", 0.0),
+                                              e)
+                    got, want = K1.dwconv(xx, w2), K1.dwconv_plain(xx, w2)
+                    torch.cuda.synchronize()
+                    d, r = rel_err(got, want)
+                    _check(r <= TOL_KERNEL[dn], f"{bt}: dgrad rel err "
+                           f"{r:.3g}")
+                    errs.append(d)
+                del x
+            row["max_abs_err"] = max(errs)
+            row["same_bits_twice"] = True
+            if train:
+                row.update(tol_sums=TOL_SUMS[dn], sums_same_bits_twice=True,
+                           sums_are_mirror_bits=True)
+            print(f"[{phase}] " + json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+
+
 def check_dwconv_edges(phase: str, train: bool):
     """bf16 K1/K4 at DW_EDGES against their plain versions, each on the
     route it names: the K1 pair (``kernels``), or K4 on both orientations
     (y, sums, the same bits twice) and the K1 dgrad on their flipped taps
     (``train_kernels``); then fp32 K1 at DW_EDGES_F32
-    (``check_dwconv_f32_edges``). Prints a row a map."""
+    (``check_dwconv_f32_edges``) and K6's maps (``check_dwconv2d_edges``).
+    Prints a row a map."""
     import torch
     from slak_tpu_torch.ops import dwconv as K1
+    check_dwconv2d_edges(phase, train)
     check_dwconv_f32_edges(phase, train)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(70)
@@ -808,12 +923,15 @@ def phase_kernels(cfg, batch):
     check_dwconv_edges("kernels", train=False)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    totals = {"dwconv": dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                             bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-                             err=0.0),
+    # the bf16 K1 pairs by kernel: dwconv.cu's band kernel (stages 1-3)
+    # and K6's Toeplitz kernel (stage 4)
+    totals = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                      bytes_ms=0.0, ops_ms=0.0, err=0.0, band_ms=0.0)
+              for n in ("dwconv", "dwconv2d")}
+    totals.update({
               "fused_mlp": dict(ms=0.0, plain_ms=0.0, unfused_torch_ms=0.0,
                                 bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-                                err=0.0)}
+                                err=0.0)})
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         item = torch.tensor([], dtype=dtype).element_size()
@@ -853,18 +971,26 @@ def phase_kernels(cfg, batch):
                 ops_ms += o_ms
                 for k, v in ops.items():
                     more[k] = more.get(k, 0.0) + v
-            row = dict(kernel="dwconv", dtype=dn, stage=i + 1, C=C, H=H,
-                       taps=[K, s], batch=batch,
-                       route=[route_of(x, w1), route_of(x, w2)],
-                       max_abs_err=d, rel_err=r, **more,
+            routes = [route_of(x, w1), route_of(x, w2)]
+            k6 = routes[0] == "toeplitz2d"
+            if k6:
+                # the route A/B: the same pair on the band kernel
+                def band(xx, ww, out=None):
+                    return K1.launch("band", xx, ww, out)
+                more["band_ms"] = time_ms(lambda: pair(band))
+                same_bits_twice(pair, f"dwconv stage {i + 1} {dn}")
+            row = dict(kernel="dwconv2d" if k6 else "dwconv", dtype=dn,
+                       stage=i + 1, C=C, H=H, taps=[K, s], batch=batch,
+                       route=routes, max_abs_err=d, rel_err=r, **more,
                        tol=TOL_KERNEL[dn], ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound,
                        launches_per_forward=2 * depth)
             print("[kernels] " + json.dumps(row), flush=True)
             if dtype == torch.bfloat16:
-                t = totals["dwconv"]
+                t = totals["dwconv2d" if k6 else "dwconv"]
                 for k in ("ms", "plain_ms", "library_ms"):
                     t[k] += depth * row[k]
+                t["band_ms"] += depth * row.get("band_ms", row["ms"])
                 t["bound_ms"] += depth * bound
                 t["bytes_ms"] += depth * bytes_ms
                 t["ops_ms"] += depth * ops_ms
@@ -952,10 +1078,20 @@ def randomize(model, seed: int):
                 b.copy_(1.0 + 0.2 * torch.rand(b.shape, generator=g))
 
 
+def k6_convs(cfg, per_block: int = 2) -> int:
+    """The bf16 K1 (or K4) launches of one pass on K6's Toeplitz kernel:
+    ``per_block`` a block of the stages whose maps have H * W <= P_MAX at
+    224^2 (stage 4's 7x7)."""
+    from slak_tpu_torch.ops import dwconv as K1
+    return sum(per_block * depth for _, _, H, _, _, depth in
+               stage_shapes(cfg) if H * H <= K1.P_MAX)
+
+
 def phase_forward(batch):
     """The main path; returns the model and the launch counts of the bf16
     run and of the fp32 run (K1, K2/K3, K1 on the band kernel, K2/K3 on
-    the 3xTF32 route, K1 on the fp32 band kernel)."""
+    the 3xTF32 route, K1 on the fp32 band kernel, K1 on K6's Toeplitz
+    kernel)."""
     import torch
     from slak_tpu_torch.models import apply, create_model
     from slak_tpu_torch.ops import dwconv as K1
@@ -981,29 +1117,33 @@ def phase_forward(batch):
         step(batches[0])                     # pack weights, warm up
         torch.cuda.synchronize()
         K1.launch_count = K1.band_launch_count = K1.tf32_launch_count = 0
+        K1.toeplitz_launch_count = 0
         K2.launch_count = K2.tf32_launch_count = 0
         t0 = time.perf_counter()
         outs = [step(b) for b in batches]
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         got = (K1.launch_count, K2.launch_count, K1.band_launch_count,
-               K2.tf32_launch_count, K1.tf32_launch_count)
+               K2.tf32_launch_count, K1.tf32_launch_count,
+               K1.toeplitz_launch_count)
         if dtype == torch.bfloat16:
             counts = got
         else:
             counts_fp32 = got
         print(f"[forward] {dn}: {N_BATCHES} batches of {batch} in "
               f"{sec:.3f} s; launches dwconv {got[0]} (on the band kernel "
-              f"{got[2]}, on the fp32 band kernel {got[4]}), fused_mlp "
-              f"{got[1]} (on the 3xTF32 route {got[3]})")
-        # bf16: every K1 launch on the band kernel (all four stages' maps
-        # fit it); fp32: every K1 launch on the fp32 band kernel and every
-        # K2/K3 launch on the 3xTF32 route
+              f"{got[2]}, on K6's Toeplitz kernel {got[5]}, on the fp32 "
+              f"band kernel {got[4]}), fused_mlp {got[1]} (on the 3xTF32 "
+              f"route {got[3]})")
+        # bf16: every K1 launch of stage 4 (7x7) on K6's Toeplitz kernel,
+        # every other one on the band kernel; fp32: every K1 launch on the
+        # fp32 band kernel and every K2/K3 launch on the 3xTF32 route
         bf16 = dtype == torch.bfloat16
+        k6 = k6_convs(model.cfg) * N_BATCHES if bf16 else 0
         want = (n_conv * N_BATCHES, n_blocks * N_BATCHES,
-                n_conv * N_BATCHES if bf16 else 0,
+                n_conv * N_BATCHES - k6 if bf16 else 0,
                 0 if bf16 else n_blocks * N_BATCHES,
-                0 if bf16 else n_conv * N_BATCHES)
+                0 if bf16 else n_conv * N_BATCHES, k6)
         _check(got == want, f"{dn} launch counts {got}, want {want}")
         for j, (o, (x, y)) in enumerate(zip(outs, batches)):
             lg = o["logits"]
@@ -1053,15 +1193,23 @@ def phase_train_kernels(cfg, batch):
     g = torch.Generator(device=dev).manual_seed(10)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
             "ops_ms")
+    # K4 and the dgrad by kernel: dwconv.cu's (stages 1-3) and K6's
+    # Toeplitz kernel (stage 4, "dwconv2d_*", with the band route's time
+    # at the same shapes)
     totals = {n: dict({k: 0.0 for k in keys}, err=0.0)
               for n in ("dwconv_stats", "dwconv_wgrad", "dwconv_dgrad",
                         "mlp_bwd", "mlp_bwd_wide")}
+    totals.update({n: dict({k: 0.0 for k in keys}, err=0.0, band_ms=0.0)
+                   for n in ("dwconv2d_stats", "dwconv2d_dgrad")})
     # the 7x7 maps' share (stage 4: the TPU's K6 forward/dgrad and K7)
     on_7x7 = {n: dict.fromkeys(keys[:4], 0.0) for n in totals
               if n.startswith("dwconv")}
     k9_bf16 = []
 
     def add(name, row, depth, b_ms, o_ms):
+        if row.get("route", [None])[0] == "toeplitz2d":
+            name = name.replace("dwconv_", "dwconv2d_")
+            totals[name]["band_ms"] += depth * row["band_ms"]
         t = totals[name]
         for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
             t[k] += depth * row[k]
@@ -1099,6 +1247,11 @@ def phase_train_kernels(cfg, batch):
             ms = time_ms(lambda: [K1.dwconv_stats(x, w) for w in ws])
             plain_ms = time_ms(lambda: [K1.dwconv_stats_plain(x, w)
                                         for w in ws])
+            # the route A/B on stage 4: the same launches on the band kernel
+            k6 = {}
+            if route_of(x, ws[0]) == "toeplitz2d":
+                k6["band_ms"] = time_ms(lambda: [K1.launch_stats("band", x, w)
+                                                 for w in ws])
             wl = [w.to(dtype)[:, None] for w in ws]
 
             def lib():
@@ -1119,7 +1272,7 @@ def phase_train_kernels(cfg, batch):
                        sums_rel_err=s_err, sums_rel_err_by_batch=by_batch,
                        sums_same_bits_twice=True, tol=TOL_KERNEL[dn],
                        tol_sums=TOL_SUMS[dn], ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound,
+                       library_ms=lib_ms, bound_ms=bound, **k6,
                        launches_per_step=2 * depth)
             print("[train_kernels] " + json.dumps(row), flush=True)
             if dtype == torch.bfloat16:
@@ -1189,6 +1342,13 @@ def phase_train_kernels(cfg, batch):
             ms = time_ms(lambda: [K1.dwconv(dy, w) for w in flipped])
             plain_ms = time_ms(lambda: [K1.dwconv_plain(dy, w)
                                         for w in flipped])
+            k6 = {}
+            if route_of(dy, flipped[0]) == "toeplitz2d":
+                k6["band_ms"] = time_ms(lambda: [K1.launch("band", dy, w)
+                                                 for w in flipped])
+                for w in flipped:
+                    same_bits_twice(lambda: K1.dwconv(dy, w),
+                                    f"dwconv dgrad stage {i + 1} {dn}")
             lib_ms = time_ms(lambda: [F.conv2d(
                 dy, w.to(dtype)[:, None], padding=(kh // 2, kw // 2),
                 groups=C) for w, (kh, kw) in zip(flipped, taps)])
@@ -1209,7 +1369,7 @@ def phase_train_kernels(cfg, batch):
                        max_abs_err=d_max, rel_err_by_batch=by_batch,
                        tol=TOL_KERNEL[dn], ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, bytes_ms=b_ms,
-                       ops_ms=o_ms, **ops, launches_per_step=2 * depth)
+                       ops_ms=o_ms, **ops, **k6, launches_per_step=2 * depth)
             print("[train_kernels] " + json.dumps(row), flush=True)
             if dtype == torch.bfloat16:
                 add("dwconv_dgrad", row, depth, b_ms, o_ms)
@@ -1389,6 +1549,7 @@ def reset_counts():
     K1.launch_count = K1.stats_launch_count = KW.launch_count = 0
     KW.band_launch_count = 0
     K1.band_launch_count = K1.band_stats_launch_count = 0
+    K1.toeplitz_launch_count = K1.toeplitz_stats_launch_count = 0
     K1.tf32_launch_count = 0
     K2.launch_count = K2.bwd_launch_count = K2.wide_bwd_launch_count = 0
     K2.bwd_dy_launch_count = K2.wide_bwd_dy_launch_count = 0
@@ -1416,8 +1577,10 @@ def read_counts():
     K1, KW, K2 = _counters()
     return {"dwconv": K1.launch_count, "dwconv_stats": K1.stats_launch_count,
             "dwconv_band": K1.band_launch_count,
+            "dwconv_toeplitz": K1.toeplitz_launch_count,
             "dwconv_tf32": K1.tf32_launch_count,
             "dwconv_stats_band": K1.band_stats_launch_count,
+            "dwconv_stats_toeplitz": K1.toeplitz_stats_launch_count,
             "dwconv_wgrad": KW.launch_count,
             "dwconv_wgrad_band": KW.band_launch_count,
             "fused_mlp": K2.launch_count,
@@ -1517,12 +1680,16 @@ def phase_train(batch):
                  if c <= 256)
     # the wide tails run FusedMlp (K2 + K9) where the route says so
     wide = (n_blocks - narrow) if S.TRAIN_WIDE_MLP_BWD else 0
-    # every K4, K1 dgrad and weight-gradient launch of the bf16 step on
-    # its band kernel
+    # every K4 and K1 dgrad launch of the bf16 step on stage 4 (7x7) on
+    # K6's Toeplitz kernel, every other one and every weight-gradient
+    # launch on its band kernel
+    k6 = k6_convs(model.cfg) * TRAIN_STEPS
     want = {"dwconv": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_stats": 2 * n_blocks * TRAIN_STEPS,
-            "dwconv_band": 2 * n_blocks * TRAIN_STEPS, "dwconv_tf32": 0,
-            "dwconv_stats_band": 2 * n_blocks * TRAIN_STEPS,
+            "dwconv_band": 2 * n_blocks * TRAIN_STEPS - k6,
+            "dwconv_toeplitz": k6, "dwconv_tf32": 0,
+            "dwconv_stats_band": 2 * n_blocks * TRAIN_STEPS - k6,
+            "dwconv_stats_toeplitz": k6,
             "dwconv_wgrad": 2 * n_blocks * TRAIN_STEPS,
             "dwconv_wgrad_band": 2 * n_blocks * TRAIN_STEPS,
             "fused_mlp": (narrow + wide) * TRAIN_STEPS,
@@ -1650,8 +1817,9 @@ def phase_erf():
     # fp32: every K1 launch (forward and dgrad) on the fp32 band kernel,
     # none on the bf16 one
     want = {"dwconv": 4 * n_blocks * ERF_IMAGES, "dwconv_stats": 0,
-            "dwconv_band": 0,
+            "dwconv_band": 0, "dwconv_toeplitz": 0,
             "dwconv_tf32": 4 * n_blocks * ERF_IMAGES, "dwconv_stats_band": 0,
+            "dwconv_stats_toeplitz": 0,
             "dwconv_wgrad": 0, "dwconv_wgrad_band": 0,
             "fused_mlp": n_blocks * ERF_IMAGES,
             "fused_mlp_tf32": n_blocks * ERF_IMAGES,
@@ -1712,11 +1880,14 @@ def phase_erf():
         torch.cuda.synchronize()
         if not plain:
             got = read_counts()
-            # bf16: K1 forward and dgrad and the weight gradient all on
-            # their band kernels
+            # bf16: K1 forward and dgrad on stage 4 (7x7) on K6's
+            # Toeplitz kernel, the others and the weight gradient on their
+            # band kernels
+            k6 = k6_convs(cfg, 4)
             want = {"dwconv": 4 * n_blocks, "dwconv_stats": 0,
-                    "dwconv_band": 4 * n_blocks, "dwconv_tf32": 0,
-                    "dwconv_stats_band": 0,
+                    "dwconv_band": 4 * n_blocks - k6,
+                    "dwconv_toeplitz": k6, "dwconv_tf32": 0,
+                    "dwconv_stats_band": 0, "dwconv_stats_toeplitz": 0,
                     "dwconv_wgrad": 2 * n_blocks,
                     "dwconv_wgrad_band": 2 * n_blocks, "fused_mlp": n_blocks,
                     "fused_mlp_tf32": 0, "mlp_bwd": narrow,
@@ -1767,6 +1938,7 @@ _GROUPS = (("tf32_gemm.cuh (fp32 K2/K3, K8/K9)", ("tf32_gemm_kernel",
                                    "wide_lnb_kernel", "wide_simt_kernel",
                                    "mlp_bwd_gemm_f32", "dgamma_kernel",
                                    "sum_chunks", "sum_partials")),
+           ("dwconv2d.cu (K6)", ("dwconv2d_",)),
            ("dwconv.cu (K1/K4)", ("dwconv_kernel", "dwconv_tiled",
                                   "dwconv_band", "dwconv_stats_reduce")),
            ("dwconv_wgrad.cu (K5/K7)", ("wgrad_",)),
@@ -2549,8 +2721,12 @@ def phase_dwconv_ab(cfg, base: str):
     turns base, change, change, base: the bf16 K1 pair (the second launch
     into the first's output) at each stage shape at the main batch and at
     the timing batch; the K4 pair and the K1 dgrad pair at the train
-    batch; the fp32 K1 pair and dgrad pair at the four 1024^2 ERF shapes
-    (batch 1); then the bs256 bf16 eval forward, the bs128 bf16 train step
+    batch (on stage 4's 7x7 maps all three at all three batches: the
+    parent's band kernel against K6's Toeplitz kernel); the fp32 K1 pair
+    and dgrad pair at the four 1024^2 ERF shapes (batch 1); then this
+    tree's route A/B on the 7x7 maps, the same three at the same batches
+    on the band kernel and on the Toeplitz kernel in turns band, toeplitz2d,
+    toeplitz2d, band; then the bs256 bf16 eval forward, the bs128 bf16 train step
     and one fp32 ERF image at 1024^2 (the input gradient, weights frozen;
     on CUDA events and as the device's busy time; the two trees' maps
     within TOL_ERF_MAP), each with the tree's ``dwconv`` /
@@ -2572,22 +2748,41 @@ def phase_dwconv_ab(cfg, base: str):
     g = torch.Generator(device=dev).manual_seed(60)
     bf = torch.bfloat16
     cases = []                             # (name, fn(dwconv, dwconv_stats))
+    k6_cases = []                          # stage 4: (name, fn(route))
     for i, C, H, K, s, _ in stage_shapes(cfg):
         ws = [(torch.randn(C, *t, generator=g, device=dev) * 0.05
                ).to(bf).float() for t in ((K, s), (s, K))]
         flipped = [w.flip(1, 2).contiguous() for w in ws]
-        for batch in (MAIN_BATCH, TIMING_BATCH):
+        # K6's maps (stage 4): all three uses at all three batches
+        k6 = H * H <= K1.P_MAX
+        all3 = (MAIN_BATCH, TRAIN_BATCH, TIMING_BATCH)
+        for batch in (all3 if k6 else (MAIN_BATCH, TIMING_BATCH)):
             x = torch.randn(batch, C, H, H, generator=g, device=dev).to(bf)
             cases.append((f"k1_pair_bs{batch}_stage{i + 1}_ms",
                           lambda f, x=x, ws=ws: f[0](x, ws[1],
                                                      out=f[0](x, ws[0]))))
-        x, dy = (torch.randn(TRAIN_BATCH, C, H, H, generator=g, device=dev
-                             ).to(bf) for _ in range(2))
-        cases.append((f"k4_pair_bs{TRAIN_BATCH}_stage{i + 1}_ms",
-                      lambda f, x=x, ws=ws: [f[1](x, w) for w in ws]))
-        cases.append((f"dgrad_pair_bs{TRAIN_BATCH}_stage{i + 1}_ms",
-                      lambda f, dy=dy, fl=flipped: [f[0](dy, w)
-                                                    for w in fl]))
+            if k6:
+                k6_cases.append((
+                    f"k1_pair_bs{batch}_stage{i + 1}_ms",
+                    lambda r, x=x, ws=ws: K1.launch(
+                        r, x, ws[1], K1.launch(r, x, ws[0]))))
+        for batch in (all3 if k6 else (TRAIN_BATCH,)):
+            x, dy = (torch.randn(batch, C, H, H, generator=g, device=dev
+                                 ).to(bf) for _ in range(2))
+            cases.append((f"k4_pair_bs{batch}_stage{i + 1}_ms",
+                          lambda f, x=x, ws=ws: [f[1](x, w) for w in ws]))
+            cases.append((f"dgrad_pair_bs{batch}_stage{i + 1}_ms",
+                          lambda f, dy=dy, fl=flipped: [f[0](dy, w)
+                                                        for w in fl]))
+            if k6:
+                k6_cases.append((
+                    f"k4_pair_bs{batch}_stage{i + 1}_ms",
+                    lambda r, x=x, ws=ws: [K1.launch_stats(r, x, w)
+                                           for w in ws]))
+                k6_cases.append((
+                    f"dgrad_pair_bs{batch}_stage{i + 1}_ms",
+                    lambda r, dy=dy, fl=flipped: [K1.launch(r, dy, w)
+                                                  for w in fl]))
     # the ERF's fp32 pairs at 1024^2 (batch 1): forward and dgrad
     for i, C, H, K, s, _ in stage_shapes(cfg, ERF_SIZE):
         ws = [torch.randn(C, *t, generator=g, device=dev) * 0.05
@@ -2606,7 +2801,14 @@ def phase_dwconv_ab(cfg, base: str):
     for route in order:
         for name, fn in cases:
             rows[name].append(time_ms(lambda: fn(fns[route])))
-    del cases
+    # the route A/B on K6's maps within this tree: the band kernel against
+    # the Toeplitz kernel at the same shapes, in turns
+    k6_order = ("band", "toeplitz2d", "toeplitz2d", "band")
+    k6_rows = {"route_" + name: [] for name, _ in k6_cases}
+    for route in k6_order:
+        for name, fn in k6_cases:
+            k6_rows["route_" + name].append(time_ms(lambda: fn(route)))
+    del cases, k6_cases
     torch.cuda.empty_cache()
 
     def timed(name, fn, *timing, busy=False):
@@ -2667,7 +2869,10 @@ def phase_dwconv_ab(cfg, base: str):
     for name, ms in rows.items():
         print(f"[dwconv_ab] {name}: " + " / ".join(f"{v:.4f}" for v in ms)
               + "  (" + ", ".join(order) + ")", flush=True)
-    out = dict(order=order, **rows)
+    for name, ms in k6_rows.items():
+        print(f"[dwconv_ab] {name}: " + " / ".join(f"{v:.4f}" for v in ms)
+              + "  (" + ", ".join(k6_order) + ")", flush=True)
+    out = dict(order=order, **rows, route_order=k6_order, **k6_rows)
     print("[dwconv_ab] " + json.dumps(out), flush=True)
     return out
 
@@ -2940,17 +3145,16 @@ def main(argv=None) -> int:
     if totals is not None:
         for name, src, repl, extra in (
                 ("dwconv", "slak_tpu_torch/ops/csrc/dwconv.cu",
-                 "slak_tpu/ops/pallas_banded.py:168",
-                 {"also_replaces": "slak_tpu/ops/pallas_banded.py:753 "
-                  "(K6, the 7x7 maps' forward and dgrad)"}),
+                 "slak_tpu/ops/pallas_banded.py:168", {}),
                 ("fused_mlp", "slak_tpu_torch/ops/csrc/mlp.cu",
                  "slak_tpu/ops/pallas_mlp.py:527",
                  {"also_replaces": "slak_tpu/ops/pallas_mlp.py:149"})):
             t = totals[name]
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=repl,
+                # dwconv.cu's: K1's launches less those on K6's kernel
                 launches=None if counts is None else
-                counts[0 if name == "dwconv" else 1],
+                counts[0] - counts[5] if name == "dwconv" else counts[1],
                 max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"],
                 bound_by=("bytes" if t["bytes_ms"] >= t["ops_ms"]
@@ -2964,8 +3168,10 @@ def main(argv=None) -> int:
                     else train_counts["dwconv_band"]}
                    if name == "dwconv" else {}),
                 train_launches=None if train_counts is None
-                else train_counts[name],
-                times_per="one bf16 forward at batch %d" % MAIN_BATCH,
+                else train_counts[name] - (train_counts["dwconv_toeplitz"]
+                                           if name == "dwconv" else 0),
+                times_per="one bf16 forward at batch %d" % MAIN_BATCH
+                + (" (stages 1-3)" if name == "dwconv" else ""),
                 launches_in="the eval path: %d bf16 forwards at batch %d"
                 % (N_BATCHES, MAIN_BATCH)))
         if train_totals is not None:
@@ -2977,6 +3183,40 @@ def main(argv=None) -> int:
                 train_max_abs_err=t["err"],
                 train_times_per="the dgrad launches of one bf16 train step "
                 "at batch %d" % TRAIN_BATCH)
+    if totals is not None:
+        # K6: the 7x7 maps' eval pair, K4 and dgrad on the Toeplitz kernel
+        t = totals["dwconv2d"]
+        k6 = dict(
+            name="dwconv2d", route="cuda",
+            source="slak_tpu_torch/ops/csrc/dwconv2d.cu",
+            replaces="slak_tpu/ops/pallas_banded.py:753",
+            launches=None if counts is None else counts[5],
+            max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"],
+            bound_by=("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                      else "operations"),
+            library_ms=t["library_ms"], library="F.conv2d(groups=C)",
+            band_route_ms=t["band_ms"], toeplitz_route=TOEPLITZ_ROUTE,
+            times_per="one bf16 forward at batch %d (stage 4's pairs)"
+            % MAIN_BATCH,
+            launches_in="the eval path: %d bf16 forwards at batch %d"
+            % (N_BATCHES, MAIN_BATCH))
+        if train_totals is not None:
+            for use in ("stats", "dgrad"):
+                u = train_totals["dwconv2d_" + use]
+                k6[f"train_{use}"] = {f: u[f] for f in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "band_ms")}
+                k6["train_max_abs_err"] = max(k6.get("train_max_abs_err",
+                                                     0.0), u["err"])
+            k6["train_times_per"] = ("the stage-4 K4 (library: F.conv2d + "
+                                     "the two sums) and dgrad launches of "
+                                     "one bf16 train step at batch %d"
+                                     % TRAIN_BATCH)
+        if train_counts is not None:
+            k6["train_launches"] = {
+                "dwconv_stats": train_counts["dwconv_stats_toeplitz"],
+                "dwconv_dgrad": train_counts["dwconv_toeplitz"]}
+        kernels.append(k6)
     if train_totals is not None:
         for name, src, repl, extra in (
                 ("dwconv_stats", "slak_tpu_torch/ops/csrc/dwconv.cu",
@@ -2984,7 +3224,8 @@ def main(argv=None) -> int:
                  {"library": "F.conv2d(groups=C) + sum + sum of squares",
                   "band_route": BAND_ROUTE,
                   "band_launches": None if train_counts is None
-                  else train_counts["dwconv_stats_band"]}),
+                  else train_counts["dwconv_stats_band"],
+                  "times_per_stages": "1-3"}),
                 ("dwconv_wgrad", "slak_tpu_torch/ops/csrc/dwconv_wgrad.cu",
                  "slak_tpu/ops/pallas_banded.py:888",
                  {"also_replaces": "slak_tpu/ops/pallas_banded.py:806",
@@ -3004,7 +3245,9 @@ def main(argv=None) -> int:
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=repl,
                 launches=None if train_counts is None
-                else train_counts[name],
+                else train_counts[name] - (
+                    train_counts["dwconv_stats_toeplitz"]
+                    if name == "dwconv_stats" else 0),
                 max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"],
                 bound_by=("bytes" if t["bytes_ms"] >= t["ops_ms"]

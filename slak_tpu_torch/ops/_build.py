@@ -27,7 +27,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 KERNELS = ("dwconv", "mlp", "dwconv_wgrad", "mlp_bwd", "dwpair",
-           "dwconv_stacked", "dwconv_f32")
+           "dwconv_stacked", "dwconv_f32", "dwconv2d")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -44,8 +44,14 @@ maps, other taps) takes the tiled kernel. fp32 K1 with (K, 5) or (5, K)
 taps at any map size (:func:`band_f32_route`) takes the 3xTF32 band
 kernel of ``csrc/dwconv_f32.cu`` (``slak_dwconv_band_f32``, counted in
 ``tf32_launch_count`` besides ``launch_count``); fp32 K4 stays on the
-tiled kernel. :func:`launch` and :func:`launch_stats` launch one named
-route (the probes hold them against each other).
+tiled kernel. bf16 K1 and K4 on maps with H * W <= ``P_MAX`` (stage 4's
+7x7), any odd taps (:func:`toeplitz2d_route`, checked first), take K6's
+kernel, ``csrc/dwconv2d.cu`` (``ops/dwconv2d.py``: one dense product a
+channel with the batch on the tensor cores' rows, counted in
+``toeplitz_launch_count`` / ``toeplitz_stats_launch_count`` besides
+``launch_count`` / ``stats_launch_count``). :func:`launch` and
+:func:`launch_stats` launch one named route (the probes hold them against
+each other).
 :func:`dwconv_band_mirror` and :func:`dwconv_band_stats_mirror` repeat the
 band kernel's decomposition in plain PyTorch: the Toeplitz band tiles, the
 staged operand with its zero halo rows, the shifted rows, the padded
@@ -71,9 +77,12 @@ band_launch_count = 0          # K1 launches on the band route (also above)
 band_stats_launch_count = 0    # K4 launches on the band route (also above)
 tf32_launch_count = 0          # fp32 K1 launches on the 3xTF32 band route
                                # (also in launch_count)
+toeplitz_launch_count = 0      # K1 launches on K6's kernel (also above)
+toeplitz_stats_launch_count = 0    # K4 launches on K6's kernel (also above)
 
 BAND_MAX = 64                  # the band kernel's map axes: 4 tiles of 16
 F32_ND_MAX = 9                 # the fp32 band kernel's live diagonals
+P_MAX = 64                     # K6's kernel: H * W, 8 n-tiles of pixels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -531,6 +540,14 @@ def band_f32_route(x: torch.Tensor, w: torch.Tensor) -> bool:
     return _f32_band(K, L)[0] <= F32_ND_MAX
 
 
+def toeplitz2d_route(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """True where the CUDA wrappers launch K6's kernel
+    (``csrc/dwconv2d.cu``): bf16 and H * W <= P_MAX, any odd taps (stage
+    4's 7x7 maps, taken before the band route)."""
+    return (x.dtype == torch.bfloat16
+            and x.shape[2] * x.shape[3] <= P_MAX)
+
+
 def band_route(x: torch.Tensor, w: torch.Tensor) -> bool:
     """True where the CUDA wrappers launch the band kernel: bf16, taps
     (K, 5) or (5, K) with K != 5, both map axes at most BAND_MAX."""
@@ -634,9 +651,20 @@ def _is_band(route: str, x: torch.Tensor) -> bool:
 
 
 def launch_stats(route: str, x: torch.Tensor, w: torch.Tensor):
-    """One K4 launch on ``route`` ("band" or "tiled"), counted: (conv(x,
-    w), s1, s2). :func:`dwconv_stats` picks the route; probes call this
-    to hold one route against another at the same shapes."""
+    """One K4 launch on ``route`` ("toeplitz2d", "band" or "tiled"),
+    counted: (conv(x, w), s1, s2). :func:`dwconv_stats` picks the route;
+    probes call this to hold one route against another at the same
+    shapes."""
+    global stats_launch_count, band_stats_launch_count
+    global toeplitz_stats_launch_count
+    if route == "toeplitz2d":
+        from slak_tpu_torch.ops import dwconv2d
+        _on_cuda("dwconv_stats", x)
+        _check_cuda("dwconv_stats", x, w)
+        res = dwconv2d.run_stats(x, w)
+        stats_launch_count += 1
+        toeplitz_stats_launch_count += 1
+        return res
     band = _is_band(route, x)
     _on_cuda("dwconv_stats", x)
     _check_cuda("dwconv_stats", x, w)
@@ -659,7 +687,6 @@ def launch_stats(route: str, x: torch.Tensor, w: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"dwconv_stats {route} kernel launch failed: "
                            f"cudaError {err}")
-    global stats_launch_count, band_stats_launch_count
     stats_launch_count += 1
     band_stats_launch_count += band
     return out, sums[0], sums[1]
@@ -671,23 +698,39 @@ def dwconv_stats(x: torch.Tensor, w: torch.Tensor):
     if x.device.type == "cpu":
         return dwconv_stats_plain(x, w)
     _on_cuda("dwconv_stats", x)
-    return launch_stats("band" if band_route(x, w) else "tiled", x, w)
+    return launch_stats(_stats_route_of(x, w), x, w)
+
+
+def _stats_route_of(x: torch.Tensor, w: torch.Tensor) -> str:
+    return ("toeplitz2d" if toeplitz2d_route(x, w) else
+            "band" if band_route(x, w) else "tiled")
 
 
 def _route_of(x: torch.Tensor, w: torch.Tensor) -> str:
-    return ("band" if band_route(x, w) else
+    return ("toeplitz2d" if toeplitz2d_route(x, w) else
+            "band" if band_route(x, w) else
             "band_f32" if band_f32_route(x, w) else "tiled")
 
 
 def launch(route: str, x: torch.Tensor, w: torch.Tensor,
            out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One K1 launch on ``route`` ("band", "band_f32" or "tiled"), counted:
-    conv(x, w) (+ out, in place, when given). :func:`dwconv` picks the
-    route; probes call this to hold one route against another at the same
-    shapes."""
-    if route not in ("band", "band_f32", "tiled"):
-        raise ValueError(f"route is 'band', 'band_f32' or 'tiled', not "
-                         f"{route!r}")
+    """One K1 launch on ``route`` ("toeplitz2d", "band", "band_f32" or
+    "tiled"), counted: conv(x, w) (+ out, in place, when given).
+    :func:`dwconv` picks the route; probes call this to hold one route
+    against another at the same shapes."""
+    global launch_count, band_launch_count, tf32_launch_count
+    global toeplitz_launch_count
+    if route not in ("toeplitz2d", "band", "band_f32", "tiled"):
+        raise ValueError(f"route is 'toeplitz2d', 'band', 'band_f32' or "
+                         f"'tiled', not {route!r}")
+    if route == "toeplitz2d":
+        from slak_tpu_torch.ops import dwconv2d
+        _on_cuda("dwconv", x)
+        _check_cuda("dwconv", x, w, out)
+        out = dwconv2d.run(x, w, out)
+        launch_count += 1
+        toeplitz_launch_count += 1
+        return out
     f32 = route == "band_f32"
     if f32 and x.dtype != torch.float32:
         raise TypeError(f"the fp32 band kernel takes float32, not {x.dtype}")
@@ -708,7 +751,6 @@ def launch(route: str, x: torch.Tensor, w: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"dwconv {route} kernel launch failed: cudaError "
                            f"{err}")
-    global launch_count, band_launch_count, tf32_launch_count
     launch_count += 1
     band_launch_count += band
     tf32_launch_count += f32
