@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases build,wgrad_ab --base PARENT_CHECKOUT
     python3 chip_smoke.py --phases build,dual_kernels,dual,dwpair_ab \
         --base PARENT_CHECKOUT
+    python3 chip_smoke.py --phases build,stacked_ab --base PARENT_CHECKOUT
 
 Phases (any failure exits non-zero):
   build    nvcc-build every kernel under slak_tpu_torch/ops/csrc/.
@@ -110,8 +111,13 @@ Phases (any failure exits non-zero):
            DW_EDGES_PAIR maps, the same bits twice, the kernel's geometry
            that of pair_band_geometry), K12 (the dual tail)
            with and without the q output (also at the ragged batches 1 and
-           3), K11 (the tap-stacked banded
-           conv) and K13 (K1 with 0, 1 and all 5 tap columns); K10's modes
+           3), K11 (the tap-stacked banded conv; bf16 on
+           stacked_band_kernel: also at batches 1, 3 and 8, within one bf16
+           ulp of its mirror, the same bits twice, its geometry that of
+           stacked_band_geometry) and K13 (K1 with 0, 1 and all 5 tap
+           columns; bf16 on the band route: all 5 the bits of K1's band
+           launch, 1 within one ulp of its band mirror; the copy exact),
+           each row naming its route and counter; K10's modes
            also at 256^2 in fp32 (row tiles); times, bound, plain and
            library (or unfused) times.
   dual     the dual eval path: create_model(eval_layout="dual") +
@@ -125,8 +131,10 @@ Phases (any failure exits non-zero):
            (tools/probe_eval_ab.py) and the dual route's plain versions.
   probes   the kernel probes as a user runs them, with the launch counters
            set to 0 just before and read just after: tools/probe_stacked
-           (K11 against K1), probe_overhead and probe_floor (K13),
-           probe_pair_ab (the PAIR_IMPL modes of K10 on the NCHW route).
+           (K11 against K1's band launch; bf16 and fp32 runs apart),
+           probe_overhead and probe_floor (K13), probe_pair_ab (the
+           PAIR_IMPL modes of K10 on the NCHW route); every bf16 K11 and
+           K13 launch on its band kernel, by the counters.
   profile  (not in the default run) one eval forward and one train step
            under torch.profiler: device time by kernel, idle share, traces
            in chiprun_out/.
@@ -167,6 +175,13 @@ Phases (any failure exits non-zero):
            forward, then the bs256 bf16 dual forward and the split forward
            (tools/probe_eval_ab.py's timing), each tree's dwpair swapped
            into models/slak.py.
+  stacked_ab
+           (not in the default run; needs --base) K11 and K13 of another
+           checkout against this tree's in one process, in turns base,
+           change, change, base: bf16 K11 and K13 at 0, 1 and 5 taps at
+           each stage shape at batches 64 and 128 (and their sums), each
+           tree's wrappers and kernels; then this tree's K11 against K1's
+           band launch at the same shapes (band, stacked, stacked, band).
   wgrad_ab (not in the default run; needs --base) K5/K7 of another
            checkout against this tree's in one process, in turns base,
            change, change, base: the bf16 weight gradient at each stage
@@ -252,6 +267,17 @@ PAIR_BAND_ROUTE = ("bf16, dualboth, the raw pair (the dual stage's launch), "
                    "m16n8k16, no transpose in staging or store); fp32, the "
                    "summed modes, other taps, larger or non-square maps: "
                    "dwpair_kernel")
+STACKED_ROUTE = ("bf16, maps up to 64 a side (all four stages at 224^2): "
+                 "stacked_band_kernel (g = min(kw, 64 // H) tap columns' "
+                 "bands stacked along M, mma.sync m16n8k16 over a chunk of "
+                 "images, one B fragment a k-tile for all g taps, a "
+                 "warp-local shift-add); fp32: stacked_f32_kernel")
+PROBE_ROUTE = ("bf16, (K, 5) taps, maps up to 64 a side: the band route, "
+               "all 5 taps K1's dwconv_band_kernel launch, fewer "
+               "dwconv_band_probe_kernel (the band kernel with the later "
+               "taps' tiles and products left out; 0 taps the staged "
+               "operand moved by movmatrix); fp32: the tiled kernel with "
+               "a tap limit")
 WGRAD_ROUTE = ("bf16, (K, 5) or (5, K) taps, both map axes <= 64 (all four "
                "stages at 224^2): wgrad_band_kernel (per-channel correlation "
                "matrices over the long tap axis, mma.sync m16n8k16, their "
@@ -846,6 +872,28 @@ def same_bits_twice(fn, tag):
         [(first, second)]
     _check(all(torch.equal(a, b) for a, b in pairs),
            f"{tag}: two launches differ")
+
+
+def within_ulp(got, want, tag) -> float:
+    """max |got - want|, which must be at most one bf16 ulp of want's scale
+    (the same fp32 sums in another order, one rounding that may flip)."""
+    d = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+    _check(d <= ulp, f"{tag}: max abs {d:.4g} > one bf16 ulp {ulp:.4g}")
+    return d
+
+
+def stacked_geometry(N, C, H, W, kh, kw) -> dict:
+    """K11's bf16 launch geometry as its host code computes it; fails
+    unless it is ``stacked_band_geometry``'s."""
+    from slak_tpu_torch.ops import dwconv_stacked as K11
+    got = K11.stacked_band_kernel_geometry(N, C, H, W, kh, kw)
+    want = K11.stacked_band_geometry(N, C, H, W, kh, kw)
+    _check(want is not None and all(want[k] == v for k, v in got.items()),
+           f"dwconv_stacked {(N, C, H, W)} taps {(kh, kw)}: kernel geometry "
+           f"{got}, stacked_band_geometry {want}")
+    return got
 
 
 def mlp_bwd_rows(tag, name, bwd, plain, y, dout, pk, dtype,
@@ -1557,6 +1605,7 @@ def reset_counts():
     K2.dual_launch_count = 0
     K2.tf32_launch_count = 0
     K11.stacked_launch_count = K1.probe_launch_count = 0
+    K11.stacked_band_launch_count = K1.probe_band_launch_count = 0
 
 
 def read_dual_counts():
@@ -1569,7 +1618,9 @@ def read_dual_counts():
             "dwpair_band": K10.pair_band_launch_count,
             "fused_mlp_dual": K2.dual_launch_count,
             "dwconv_stacked": K11.stacked_launch_count,
+            "dwconv_stacked_band": K11.stacked_band_launch_count,
             "dwconv_probe": K1.probe_launch_count,
+            "dwconv_probe_band": K1.probe_band_launch_count,
             "dwconv": K1.launch_count, "fused_mlp": K2.launch_count}
 
 
@@ -2197,16 +2248,48 @@ def phase_dual_kernels(cfg, batch):
             if bf16:
                 add("dwpair", depth, row, b_ms, o_ms)
 
-            # K11 (the (K, s) branch) against K1 and its plain version
-            d, r = check_all(f"dwconv_stacked stage {i + 1} {dn}",
-                             K11.dwconv_stacked(x, w1),
+            # K11 (the (K, s) branch): its route and counter, against its
+            # plain version and (bf16) its mirror, the same bits twice, at
+            # the other batches, its geometry the host code's
+            route = K11.stacked_route(x, w1)
+            _check(route == ("band" if bf16 else "simt"),
+                   f"dwconv_stacked stage {i + 1} {dn}: route {route}")
+            n0 = K11.stacked_band_launch_count
+            got = K11.dwconv_stacked(x, w1)
+            _check(K11.stacked_band_launch_count - n0 == int(bf16),
+                   f"dwconv_stacked stage {i + 1} {dn}: "
+                   f"stacked_band_launch_count moved by "
+                   f"{K11.stacked_band_launch_count - n0}")
+            d, r = check_all(f"dwconv_stacked stage {i + 1} {dn}", got,
                              K1.dwconv_plain(x, w1), TOL_KERNEL[dn])
+            band = {}
+            if bf16:
+                dm = within_ulp(got, K11.dwconv_stacked_mirror(x, w1),
+                                f"dwconv_stacked stage {i + 1} vs mirror")
+                by_batch = {}
+                for nb in DW_BATCHES:
+                    xb = x[:nb].contiguous()
+                    _, by_batch[f"batch{nb}"] = check_all(
+                        f"dwconv_stacked batch {nb} stage {i + 1} {dn}",
+                        K11.dwconv_stacked(xb, w1), K1.dwconv_plain(xb, w1),
+                        TOL_KERNEL[dn])
+                    same_bits_twice(lambda: K11.dwconv_stacked(xb, w1),
+                                    f"dwconv_stacked batch {nb} stage {i + 1}")
+                same_bits_twice(lambda: K11.dwconv_stacked(x, w1),
+                                f"dwconv_stacked stage {i + 1}")
+                band = dict(max_abs_vs_mirror=dm, rel_err_by_batch=by_batch,
+                            same_bits_twice=True,
+                            geometry=stacked_geometry(batch, C, H, H, K, s))
             b_ms, o_ms = bounds(2 * act + 4 * C * K * s, 2 * macs, dtype)
             row = dict(
                 kernel="dwconv_stacked", dtype=dn, stage=i + 1, C=C, H=H,
-                taps=[K, s], batch=batch, max_abs_err=d, rel_err=r,
-                tol=TOL_KERNEL[dn],
+                taps=[K, s], batch=batch, g=K11.stack_group(H, s),
+                route=route, counter="stacked_band_launch_count" if bf16
+                else "stacked_launch_count", max_abs_err=d, rel_err=r,
+                tol=TOL_KERNEL[dn], **band,
                 ms=time_ms(lambda: K11.dwconv_stacked(x, w1)),
+                k1_band_ms=time_ms(lambda: K1.launch("band", x, w1))
+                if bf16 else None,
                 k1_ms=time_ms(lambda: K1.dwconv(x, w1)),
                 plain_ms=time_ms(lambda: K1.dwconv_plain(x, w1), 3,
                                  warmup=1),
@@ -2218,16 +2301,37 @@ def phase_dual_kernels(cfg, batch):
             if bf16:
                 add("dwconv_stacked", 1, row, b_ms, o_ms)
                 extra["stacked_vs_k1"][f"stage{i + 1}"] = dict(
-                    stacked_ms=row["ms"], k1_ms=row["k1_ms"],
-                    bound_ms=row["bound_ms"],
+                    g=row["g"], stacked_ms=row["ms"],
+                    k1_band_ms=row["k1_band_ms"], bound_ms=row["bound_ms"],
                     bound_share=row["bound_share"])
 
-            # K13 at 0, 1 and all tap columns
+            # K13 at 0, 1 and all tap columns: its route and counter; the
+            # copy exact, all taps (bf16) the bits of K1's band launch, one
+            # tap (bf16) its band mirror's
+            proute = K1.probe_route(x, w1, s)
+            _check(proute == ("band" if bf16 else "tiled"),
+                   f"dwconv_probe stage {i + 1} {dn}: route {proute}")
             for nt in (0, 1, s):
-                d, r = check_all(f"dwconv_probe ntaps={nt} stage {i + 1} "
-                                 f"{dn}", K1.dwconv_probe(x, w1, nt),
-                                 K1.dwconv_probe_plain(x, w1, nt),
-                                 TOL_KERNEL[dn])
+                tag = f"dwconv_probe ntaps={nt} stage {i + 1} {dn}"
+                n0 = K1.probe_band_launch_count
+                got = K1.dwconv_probe(x, w1, nt)
+                _check(K1.probe_band_launch_count - n0 == int(bf16),
+                       f"{tag}: probe_band_launch_count moved by "
+                       f"{K1.probe_band_launch_count - n0}")
+                plain = K1.dwconv_probe_plain(x, w1, nt)
+                d, r = check_all(tag, got, plain, TOL_KERNEL[dn])
+                checks = {}
+                if nt == 0:
+                    _check(torch.equal(got, plain), f"{tag}: copy not exact")
+                    checks["exact_copy"] = True
+                elif nt == s and bf16:
+                    _check(torch.equal(got, K1.launch("band", x, w1)),
+                           f"{tag}: not the bits of K1's band launch")
+                    checks["same_bits_as_band_launch"] = True
+                elif bf16:
+                    checks["max_abs_vs_mirror"] = within_ulp(
+                        got, K1.dwconv_probe_band_mirror(x, w1, nt),
+                        f"{tag} vs mirror")
                 if nt == 0:
                     def lib():
                         return F.pad(x, (s // 2, -(s // 2)))
@@ -2242,12 +2346,15 @@ def phase_dual_kernels(cfg, batch):
                                     dtype)
                 row = dict(
                     kernel="dwconv_probe", dtype=dn, stage=i + 1, C=C, H=H,
-                    taps=[K, s], ntaps=nt, batch=batch, max_abs_err=d,
-                    rel_err=r, tol=TOL_KERNEL[dn],
+                    taps=[K, s], ntaps=nt, batch=batch, route=proute,
+                    counter="probe_band_launch_count" if bf16
+                    else "probe_launch_count", max_abs_err=d, rel_err=r,
+                    tol=TOL_KERNEL[dn], **checks,
                     ms=time_ms(lambda: K1.dwconv_probe(x, w1, nt)),
                     plain_ms=time_ms(lambda: K1.dwconv_probe_plain(
                         x, w1, nt), 3, warmup=1),
                     library_ms=time_ms(lib), bound_ms=max(b_ms, o_ms))
+                row["bound_share"] = row["bound_ms"] / row["ms"]
                 print("[dual_kernels] " + json.dumps(row), flush=True)
                 if bf16:
                     extra["probe_ms_by_ntaps"].setdefault(
@@ -2386,7 +2493,8 @@ def phase_dual(batch):
                 "dwpair_band": n_blocks * N_BATCHES
                 if dtype == torch.bfloat16 else 0,
                 "fused_mlp_dual": n_blocks * N_BATCHES,
-                "dwconv_stacked": 0, "dwconv_probe": 0, "dwconv": 0,
+                "dwconv_stacked": 0, "dwconv_stacked_band": 0,
+                "dwconv_probe": 0, "dwconv_probe_band": 0, "dwconv": 0,
                 "fused_mlp": 0}
         if dtype == torch.bfloat16:
             counts = got
@@ -3010,25 +3118,106 @@ def phase_dwpair_ab(cfg, base: str):
     return out
 
 
+def phase_stacked_ab(cfg, base: str):
+    """K11 and K13 of another checkout against this tree's, in one process,
+    in turns base, change, change, base: bf16 K11 and K13 at 0, 1 and all 5
+    tap columns at each stage shape at the main and the train batch (and
+    their sums over the four shapes), each tree's ``dwconv_stacked`` /
+    ``dwconv_probe`` with its own kernels; the two trees' outputs agree
+    within TOL_KERNEL, the copies exactly. Then this tree's K11 against
+    K1's band launch (``dwconv.launch("band", ...)``) at the same shapes,
+    in turns band, stacked, stacked, band. Returns the rows."""
+    import torch
+    from slak_tpu_torch.ops import dwconv as K1
+    from slak_tpu_torch.ops import dwconv_stacked as K11
+    m11 = base_module(base, "dwconv_stacked", "dwconv_stacked",
+                      ("_entries",), "stacked_ab")
+    m13 = base_module(base, "dwconv", "dwconv", ("_probe_entry",),
+                      "stacked_ab")
+    fns = {"base": (m11.dwconv_stacked, m13.dwconv_probe),
+           "change": (K11.dwconv_stacked, K1.dwconv_probe)}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(62)
+    bf = torch.bfloat16
+    cases, vs_band = [], []              # (name, fn(stacked, probe))
+    for i, C, H, K, s, _ in stage_shapes(cfg):
+        w1 = (torch.randn(C, K, s, generator=g, device=dev) * 0.05
+              ).to(bf).float()
+        for batch in (MAIN_BATCH, TRAIN_BATCH):
+            x = torch.randn(batch, C, H, H, generator=g, device=dev).to(bf)
+            tag = f"bs{batch}_stage{i + 1}"
+            cases.append((f"k11_{tag}_ms",
+                          lambda st, pr, x=x, w1=w1: st(x, w1)))
+            for nt in (0, 1, s):
+                cases.append((f"k13_ntaps{nt}_{tag}_ms",
+                              lambda st, pr, x=x, w1=w1, nt=nt:
+                              pr(x, w1, nt)))
+            vs_band.append((tag, x, w1))
+    for name, fn in cases:
+        a, b = fn(*fns["change"]), fn(*fns["base"])
+        if "ntaps0" in name:
+            _check(torch.equal(a, b), f"stacked_ab {name}: copies differ")
+        d, r = rel_err(a, b)
+        _check(r <= TOL_KERNEL["bfloat16"], f"stacked_ab {name}: change vs "
+               f"base rel err {r:.3g}")
+    order = ("base", "change", "change", "base")
+    rows = {name: [] for name, _ in cases}
+    for tree in order:
+        for name, fn in cases:
+            rows[name].append(time_ms(lambda: fn(*fns[tree])))
+    for batch in (MAIN_BATCH, TRAIN_BATCH):
+        for kind in ("k11", "k13_ntaps0", "k13_ntaps1", "k13_ntaps5"):
+            parts = [n for n, _ in cases
+                     if n.startswith(f"{kind}_bs{batch}_")]
+            rows[f"{kind}_bs{batch}_sum_ms"] = [
+                sum(rows[n][t] for n in parts) for t in range(len(order))]
+    del cases
+    band_order = ("band", "stacked", "stacked", "band")
+    for tag, x, w1 in vs_band:
+        rows[f"k1band_vs_k11_{tag}_ms"] = [time_ms(
+            (lambda: K1.launch("band", x, w1)) if r == "band"
+            else (lambda: K11.dwconv_stacked(x, w1))) for r in band_order]
+    for batch in (MAIN_BATCH, TRAIN_BATCH):
+        parts = [n for n in rows if n.startswith("k1band_vs_k11_bs%d_"
+                                                 % batch)]
+        rows[f"k1band_vs_k11_bs{batch}_sum_ms"] = [
+            sum(rows[n][t] for n in parts) for t in range(len(band_order))]
+    del vs_band
+    torch.cuda.empty_cache()
+    for name, ms in rows.items():
+        turns = band_order if name.startswith("k1band") else order
+        print(f"[stacked_ab] {name}: " + " / ".join(f"{v:.4f}" for v in ms)
+              + "  (" + ", ".join(turns) + ")", flush=True)
+    out = dict(order=order, band_order=band_order, **rows)
+    print("[stacked_ab] " + json.dumps(out), flush=True)
+    return out
+
+
 def phase_probes():
     """The four kernel probes with the launch counters set to 0 just before
-    and read just after; returns {probe: counts}."""
+    and read just after (probe_stacked once a dtype): each must launch its
+    kernel, and every bf16 K11 and K13 launch must take its band kernel
+    (stacked_band_kernel, K13's band route). Returns {probe: counts}."""
     import torch
     from slak_tpu_torch.tools import (probe_floor, probe_overhead,
                                       probe_pair_ab, probe_stacked)
     out = {}
-    for name, fn, want in (
-            ("probe_stacked", lambda: probe_stacked.run(TRAIN_BATCH,
-                                                        rounds=3),
-             "dwconv_stacked"),
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, fn, want, band in (
+            ("probe_stacked", lambda: probe_stacked.run(
+                TRAIN_BATCH, dtypes=(bf,), rounds=3),
+             "dwconv_stacked", "dwconv_stacked_band"),
+            ("probe_stacked_fp32", lambda: probe_stacked.run(
+                TRAIN_BATCH, dtypes=(f32,), rounds=3),
+             "dwconv_stacked", None),
             ("probe_overhead", lambda: probe_overhead.run(TRAIN_BATCH,
                                                           rounds=3),
-             "dwconv_probe"),
+             "dwconv_probe", "dwconv_probe_band"),
             ("probe_floor", lambda: probe_floor.run(TRAIN_BATCH, rounds=3),
-             "dwconv_probe"),
+             "dwconv_probe", "dwconv_probe_band"),
             ("probe_pair_ab", lambda: probe_pair_ab.run(TIMING_BATCH,
                                                         rounds=3),
-             "dwpair")):
+             "dwpair", None)):
         torch.cuda.synchronize()
         reset_counts()
         rows = fn()
@@ -3038,6 +3227,12 @@ def phase_probes():
             print(f"[probes] {name} " + json.dumps(r), flush=True)
         print(f"[probes] {name} launches {counts}", flush=True)
         _check(counts[want] > 0, f"{name} launched no {want}")
+        if band is not None:
+            _check(counts[band] == counts[want], f"{name}: {counts[want]} "
+                   f"{want} launches, {counts[band]} on the band kernel")
+        elif want == "dwconv_stacked":
+            _check(counts["dwconv_stacked_band"] == 0,
+                   f"{name}: fp32 launches on the band kernel")
         out[name] = counts
         torch.cuda.empty_cache()
     return out
@@ -3049,7 +3244,8 @@ def main(argv=None) -> int:
                     "train_kernels,train,train_timing,erf_kernels,erf,"
                     "dual_kernels,dual,dual_timing,probes")
     ap.add_argument("--base", help="mlp_ab, mlp_bwd_ab, dwconv_ab, "
-                    "wgrad_ab, dwpair_ab: another checkout of the repository (e.g. the "
+                    "wgrad_ab, dwpair_ab, stacked_ab: another checkout of "
+                    "the repository (e.g. the "
                     "parent commit from git archive, in a git-ignored "
                     "directory)")
     args = ap.parse_args(argv)
@@ -3135,6 +3331,9 @@ def main(argv=None) -> int:
         if "dwpair_ab" in phases:
             _check(args.base is not None, "dwpair_ab needs --base")
             phase_dwpair_ab(cfg, args.base)
+        if "stacked_ab" in phases:
+            _check(args.base is not None, "stacked_ab needs --base")
+            phase_stacked_ab(cfg, args.base)
     except Exception as e:                      # report and fail the run
         import traceback
         traceback.print_exc()
@@ -3383,8 +3582,14 @@ def main(argv=None) -> int:
                  None if probe_counts is None
                  else probe_counts["probe_stacked"]["dwconv_stacked"],
                  {"library": "F.conv2d(groups=C)",
-                  "vs_k1": extra_d["stacked_vs_k1"],
-                  "launches_in": "tools/probe_stacked.py"}),
+                  "band_route": STACKED_ROUTE,
+                  "band_launches": None if probe_counts is None
+                  else probe_counts["probe_stacked"]["dwconv_stacked_band"],
+                  "fp32_launches": None if probe_counts is None
+                  else probe_counts["probe_stacked_fp32"]["dwconv_stacked"],
+                  "vs_k1_band": extra_d["stacked_vs_k1"],
+                  "launches_in": "tools/probe_stacked.py (bf16; fp32 "
+                  "beside)"}),
                 ("dwconv_probe", "slak_tpu_torch/ops/csrc/dwconv.cu",
                  "tools/probe_overhead.py:65", per_stage + " (all 5 taps)",
                  None if probe_counts is None else
@@ -3392,6 +3597,10 @@ def main(argv=None) -> int:
                  + probe_counts["probe_floor"]["dwconv_probe"],
                  {"library": "F.conv2d(groups=C) on the truncated taps "
                   "(F.pad for the copy)",
+                  "band_route": PROBE_ROUTE,
+                  "band_launches": None if probe_counts is None else
+                  probe_counts["probe_overhead"]["dwconv_probe_band"]
+                  + probe_counts["probe_floor"]["dwconv_probe_band"],
                   "ms_by_ntaps": extra_d["probe_ms_by_ntaps"],
                   "launches_in": "tools/probe_overhead.py and "
                   "tools/probe_floor.py"})):

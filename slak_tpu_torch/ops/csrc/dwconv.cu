@@ -47,12 +47,20 @@
 // that only read padding are real outputs and count like any other.
 //
 // Probe entry (slak_dwconv_probe) replaces tools/probe_overhead.py:
-// run_variant (variant_kernel), the TPU's probe of K1's fixed cost: the
-// (K, 5) tiled kernel instantiated with a tap limit, computing K1 with
-// only the first ntaps of the 5 tap columns; ntaps = 0 runs no tap and
-// copies the W-padded input's first W columns, as the TPU copy-only twin
-// does (x_ref[i, :, 0:W, :]): out[h][w] = x[h][w - 2], zero for w < 2.
-// K1's own instantiations (PROBE = false) are unchanged.
+// run_variant (variant_kernel), the TPU's probe of K1's fixed cost: K1
+// with only the first ntaps of the 5 tap columns of (K, 5) taps; ntaps = 0
+// runs no tap and copies the W-padded input's first W columns, as the TPU
+// copy-only twin does (x_ref[i, :, 0:W, :]): out[h][w] = x[h][w - 2], zero
+// for w < 2. bf16 probes the band route (below), the kernel every bf16
+// (K, 5) K1 launch on maps up to 64 takes: ntaps = 5 is K1's own band
+// launch (the same bits), ntaps < 5 dwconv_band_probe_kernel, the band
+// kernel with the band tiles and products of taps j >= ntaps left out;
+// with ntaps = 0 its accumulators take the staged operand's j = 0 rows,
+// each 8 x 8 block transposed in registers by one movmatrix (the (5, K)
+// store's transpose; no identity product), so the copy costs the band
+// kernel's staging, stores and one fragment load a tile. fp32 probes the
+// (K, 5) tiled kernel instantiated with the tap limit (PROBE = true). K1's
+// own instantiations (PROBE = false) are unchanged.
 //
 // Band route (slak_dwconv_band, slak_dwconv_band_stats: bf16, taps (K, 5)
 // or (5, K), both map axes at most 64): dwconv_band_kernel, the same two
@@ -694,11 +702,15 @@ __device__ __forceinline__ void band_put(const BandGeom& g, bf16* out,
 // (m-tile, k-tile = m-tile + d). The accumulators are the output tile:
 // (K, 5) stores them as they lie (row m = h, columns f = w), (5, K) after
 // a movmatrix transpose of each 8 x 8 block (its fp32 values as two 16-bit
-// halves), so both store value pairs along w.
-template <int MT, bool PAIR>
+// halves), so both store value pairs along w. The probe (PROBE) runs the
+// taps j < ntaps only, and with ntaps = 0 the (K, 5) copy: the j = 0 B
+// fragments of each k-tile transposed into the accumulators of the m-tile
+// of the same index (out[h][w] = x[h][w - 2]).
+template <int MT, bool PAIR, bool PROBE = false>
 __device__ __forceinline__ void band_products(
     const BandGeom& g, const bf16* band, const bf16* bs, bf16* out, int n,
-    int c, int T, int accumulate, bool stats, float& s, float& q) {
+    int c, int T, int accumulate, bool stats, float& s, float& q,
+    int ntaps = kShort) {
   constexpr int WN = band_wn(MT), ND = 2 * MT - 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -724,8 +736,24 @@ __device__ __forceinline__ void band_products(
       brow[p] = (img * g.RPI + f0 + (lane & 7)) * g.P +
                 ((lane >> 3) & 1) * 8;
     }
+    if (PROBE && ntaps == 0) {
+#pragma unroll
+      for (int kt = 0; kt < MT; ++kt)
+#pragma unroll
+        for (int p = 0; p < WN / 2; ++p) {
+          unsigned r[4];
+          ldsm_x4(r, bs + brow[p] + kt * 16);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {    // n-tile 2 p + i / 2, half i % 2
+            const unsigned v = movt(r[i]);
+            acc[kt][2 * p + i / 2][2 * (i % 2)] = bf_lo(v);
+            acc[kt][2 * p + i / 2][2 * (i % 2) + 1] = bf_hi(v);
+          }
+        }
+    }
 #pragma unroll
     for (int j = 0; j < kShort; ++j) {
+      if (PROBE && j >= ntaps) break;
       unsigned b[MT][WN][2];
 #pragma unroll
       for (int kt = 0; kt < MT; ++kt)
@@ -890,6 +918,73 @@ dwconv_band_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// K13 on the band route, (K, 5) taps, ntaps < 5 (see the header):
+// dwconv_band_kernel's blocks, chunks, staging and stores, with the band
+// tiles of the taps j < ntaps only built and multiplied; no accumulate, no
+// stats.
+template <int MT, bool PAIR>
+__global__ void __launch_bounds__(kThreads, band_min_blocks(MT))
+dwconv_band_probe_kernel(const bf16* __restrict__ x,
+                         const float* __restrict__ w, bf16* __restrict__ out,
+                         BandGeom g, int ntaps) {
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  constexpr int ND = 2 * MT - 1, PRE = band_pre(MT);
+  bf16* band = reinterpret_cast<bf16*>(band_smem);
+  bf16* bsb[2] = {reinterpret_cast<bf16*>(band_smem + g.b_off),
+                  reinterpret_cast<bf16*>(band_smem + g.b_off + g.b_bytes)};
+  const int c = blockIdx.x % g.C, grp = blockIdx.x / g.C;
+  const int n_begin = grp * g.CPB * g.NB;
+  const int n_end = min(g.N, n_begin + g.CPB * g.NB);
+  const int nq = (n_end - n_begin + g.NB - 1) / g.NB;
+  const int pk = g.K / 2;
+
+  __shared__ int4 blk[PRE * kWarps];
+  band_blocks(g, blk);
+  __syncthreads();
+  unsigned pre[PRE];
+  band_load<PRE, PAIR>(g, blk, x, n_begin, min(g.NB, n_end - n_begin), c,
+                       pre);
+  for (int i = threadIdx.x; i < 2 * g.b_bytes / 16; i += kThreads)
+    reinterpret_cast<uint4*>(bsb[0])[i] = make_uint4(0u, 0u, 0u, 0u);
+  const float* wc = w + (long long)c * g.K * kShort;
+  for (int i = threadIdx.x; i < ntaps * ND * 32; i += kThreads) {
+    const int jd = i >> 5, r = (i >> 1) & 15, c0 = (i & 1) * 8;
+    const int j = jd / ND, d = jd - j * ND - (MT - 1);
+    if (16 * (d < 0 ? -d : d) - 15 > pk) continue;
+    unsigned v[4];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int k = 16 * d + c0 + e - r + pk;
+      const float t = k >= 0 && k < g.K ? wc[k * kShort + j] : 0.f;
+      const unsigned h = __bfloat16_as_ushort(__float2bfloat16(t));
+      v[e >> 1] = e & 1 ? v[e >> 1] | h << 16 : h;
+    }
+    *reinterpret_cast<uint4*>(band + jd * kBandTile + r * kBandPitch + c0) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  __syncthreads();
+  band_stage<PRE>(g, blk, bsb[0], min(g.NB, n_end - n_begin), pre);
+  if (nq > 1)
+    band_load<PRE, PAIR>(g, blk, x, n_begin + g.NB,
+                         min(g.NB, n_end - n_begin - g.NB), c, pre);
+  __syncthreads();
+
+  float s = 0.f, q = 0.f;
+  for (int qi = 0; qi < nq; ++qi) {
+    const int n = n_begin + qi * g.NB, nimg = min(g.NB, n_end - n);
+    if (qi + 1 < nq) {
+      band_stage<PRE>(g, blk, bsb[(qi + 1) & 1],
+                      min(g.NB, n_end - n - g.NB), pre);
+      if (qi + 2 < nq)
+        band_load<PRE, PAIR>(g, blk, x, n + 2 * g.NB,
+                             min(g.NB, n_end - n - 2 * g.NB), c, pre);
+    }
+    band_products<MT, PAIR, true>(g, band, bsb[qi & 1], out, n, c,
+                                  nimg * g.NTI, 0, false, s, q, ntaps);
+    __syncthreads();
+  }
+}
+
 int round_up(int a, int m) { return (a + m - 1) / m * m; }
 
 // The band route's geometry: false when the shapes do not fit it. MT =
@@ -995,6 +1090,61 @@ cudaError_t launch_band(const void* x, const float* w, void* out,
                                      part, stream);
 }
 
+template <int MT, bool PAIR>
+cudaError_t launch_band_probe_t(const BandGeom& g, int bpc, size_t smem,
+                                const void* x, const float* w, void* out,
+                                int ntaps, cudaStream_t stream) {
+  auto kernel = dwconv_band_probe_kernel<MT, PAIR>;
+  static bool raised = false;                 // once an instantiation
+  if (smem > 48 * 1024 && !raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kBandSmemMax);
+    if (e != cudaSuccess) return e;
+    raised = true;
+  }
+  kernel<<<(unsigned)(g.C * bpc), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), w, static_cast<bf16*>(out), g, ntaps);
+  return cudaGetLastError();
+}
+
+// K13 on the band route: ntaps = 5 is K1's band launch, ntaps < 5 the
+// probe kernel on the same geometry; (K, 5) taps only.
+cudaError_t launch_band_probe(const void* x, const float* w, void* out,
+                              long long N, int C, int H, int W, int kh,
+                              int kw, int ntaps, cudaStream_t stream) {
+  if (ntaps == kShort) {
+    int bpc;
+    return launch_band(x, w, out, N, C, H, W, kh, kw, 0, nullptr, &bpc,
+                       stream);
+  }
+  BandGeom g;
+  int MT, bpc;
+  bool PAIR;
+  size_t smem;
+  if (!band_geom(N, C, H, W, kh, kw, x, out, &g, &MT, &PAIR, &bpc, &smem))
+    return cudaErrorInvalidValue;
+  switch (MT * 2 + (int)PAIR) {
+    case 2: return launch_band_probe_t<1, false>(g, bpc, smem, x, w, out,
+                                                 ntaps, stream);
+    case 3: return launch_band_probe_t<1, true>(g, bpc, smem, x, w, out,
+                                                ntaps, stream);
+    case 4: return launch_band_probe_t<2, false>(g, bpc, smem, x, w, out,
+                                                 ntaps, stream);
+    case 5: return launch_band_probe_t<2, true>(g, bpc, smem, x, w, out,
+                                                ntaps, stream);
+    case 6: return launch_band_probe_t<3, false>(g, bpc, smem, x, w, out,
+                                                 ntaps, stream);
+    case 7: return launch_band_probe_t<3, true>(g, bpc, smem, x, w, out,
+                                                ntaps, stream);
+    case 8: return launch_band_probe_t<4, false>(g, bpc, smem, x, w, out,
+                                                 ntaps, stream);
+    case 9: return launch_band_probe_t<4, true>(g, bpc, smem, x, w, out,
+                                                ntaps, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x, out: (N, C, H, W) contiguous;
@@ -1016,45 +1166,34 @@ extern "C" int slak_dwconv(int dtype, const void* x, const float* w,
 // The probe: out = conv(x, w) with only the first ntaps (0 .. 5) of the 5
 // tap columns of (K, 5) taps, 0 = copy the W-padded input (see the header).
 // dtype, x, w, out as slak_dwconv; kw must be 5 and kh another odd size.
+// bf16 runs the band route and returns cudaErrorInvalidValue for maps
+// above 64; fp32 runs the tiled kernel.
 extern "C" int slak_dwconv_probe(int dtype, const void* x, const float* w,
                                  void* out, long long N, int C, int H, int W,
                                  int kh, int kw, int ntaps, void* stream) {
   if (variant_of(kh, kw) != 1 || ntaps < 0 || ntaps > kShort)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)launch_band_probe(x, w, out, N, C, H, W, kh, kw, ntaps, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   Geom g;
   size_t smem;
   if (!make_geom(N, C, H, W, kh, kw, &g, &smem))
     return (int)cudaErrorInvalidConfiguration;
   g.ntaps = ntaps;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long blocks = (g.planes + g.G - 1) / g.G * g.n_row_tiles;
-  cudaError_t e;
-  static bool raised[2] = {false, false};             // once a dtype
-  if (dtype == 0) {
-    auto k = dwconv_tiled_kernel<float, true, true>;
-    if (!raised[0]) {
-      e = cudaFuncSetAttribute(
-          k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
-      if (e != cudaSuccess) return (int)e;
-      raised[0] = true;
-    }
-    k<<<(unsigned)blocks, kThreads, smem, s>>>(
-        static_cast<const float*>(x), w, static_cast<float*>(out), g, 0,
-        nullptr);
-  } else if (dtype == 1) {
-    auto k = dwconv_tiled_kernel<__nv_bfloat16, true, true>;
-    if (!raised[1]) {
-      e = cudaFuncSetAttribute(
-          k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
-      if (e != cudaSuccess) return (int)e;
-      raised[1] = true;
-    }
-    k<<<(unsigned)blocks, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), w,
-        static_cast<__nv_bfloat16*>(out), g, 0, nullptr);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  auto k = dwconv_tiled_kernel<float, true, true>;
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
+    if (e != cudaSuccess) return (int)e;
+    raised = true;
   }
+  k<<<(unsigned)blocks, kThreads, smem, s>>>(
+      static_cast<const float*>(x), w, static_cast<float*>(out), g, 0,
+      nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -22,10 +22,14 @@ K1 with the taps flipped on both axes, wgrad = the
 
 :func:`dwconv_probe` (K13, ``slak_dwconv_probe``, replaces
 ``tools/probe_overhead.py`` ``run_variant``, the probe of K1's fixed cost)
-is K1's (K, 5) kernel with a tap limit: only the first ``ntaps`` of the 5
+is K1 on (K, 5) taps with a tap limit: only the first ``ntaps`` of the 5
 tap columns, and with ``ntaps = 0`` a copy of the W-padded input's first W
 columns (x shifted right by 2, zero columns on the left), as the TPU
-copy-only twin writes.
+copy-only twin writes. bf16 probes the band kernel (:func:`probe_route`;
+``ntaps = 5`` is K1's band launch, fewer taps ``dwconv_band_probe_kernel``;
+counted in ``probe_band_launch_count`` besides ``probe_launch_count``),
+fp32 the tiled kernel; :func:`dwconv_probe_band_mirror` repeats the band
+route's decomposition.
 
 Taps are ``(C, kh, kw)`` float32, already rounded to the compute dtype by
 the caller (``models/slak.py`` folds and rounds them once per model), so
@@ -73,6 +77,7 @@ import torch.nn.functional as F
 launch_count = 0               # K1 launches (forward and dgrad)
 stats_launch_count = 0         # K4 launches (the stats variant)
 probe_launch_count = 0         # K13 launches (the tap-limited probe)
+probe_band_launch_count = 0    # K13 launches on the band kernel (also above)
 band_launch_count = 0          # K1 launches on the band route (also above)
 band_stats_launch_count = 0    # K4 launches on the band route (also above)
 tf32_launch_count = 0          # fp32 K1 launches on the 3xTF32 band route
@@ -789,6 +794,39 @@ def dwconv_probe_plain(x: torch.Tensor, w: torch.Tensor,
     return dwconv_plain(x, wt)
 
 
+def probe_route(x: torch.Tensor, w: torch.Tensor, ntaps: int) -> str:
+    """The kernel :func:`dwconv_probe` launches for these operands: "band"
+    (bf16: the band kernel) or "tiled" (fp32); raises ValueError for taps
+    other than (K, 5) and for bf16 maps outside :func:`band_route`."""
+    _check_probe(x, w, ntaps)
+    if x.dtype != torch.bfloat16:
+        return "tiled"
+    if not band_route(x, w):
+        raise ValueError(f"dwconv_probe: bf16 runs on the band kernel, maps "
+                         f"up to {BAND_MAX} a side, not {tuple(x.shape[2:])}")
+    return "band"
+
+
+def dwconv_probe_band_mirror(x: torch.Tensor, w: torch.Tensor,
+                             ntaps: int) -> torch.Tensor:
+    """K13's band route in plain PyTorch: :func:`dwconv_band_mirror` on the
+    taps' first ``ntaps`` columns (the later ones zero); with ``ntaps = 0``
+    the staged operand's j = 0 rows moved into the output tiles as they lie
+    (the kernel's movmatrix transposes, here the identity band tile of tap
+    0), rounded to x.dtype."""
+    _check_probe(x, w, ntaps)
+    if ntaps:
+        wt = w.clone()
+        wt[:, :, ntaps:] = 0
+        return dwconv_band_mirror(x, wt)
+    N, C, H, W = x.shape
+    g = band_geometry(N, C, H, W, w.shape[1], w.shape[2])
+    D = torch.zeros(C, 5, 2 * g["MT"] - 1, 16, 16, device=x.device)
+    D[:, 0, g["MT"] - 1] = torch.eye(16, device=x.device)
+    y = band_acc(x.transpose(2, 3), D, g)
+    return y.reshape(x.shape).to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _probe_entry():
     from slak_tpu_torch.ops._build import load
@@ -803,14 +841,15 @@ def _probe_entry():
 def dwconv_probe(x: torch.Tensor, w: torch.Tensor,
                  ntaps: int) -> torch.Tensor:
     """K13: K1 on (K, 5) taps with only the first ``ntaps`` tap columns
-    (0 = the padded-input copy). x: (N, C, H, W) float32 or bfloat16."""
+    (0 = the padded-input copy). x: (N, C, H, W) float32 or bfloat16 (bf16
+    maps up to BAND_MAX a side)."""
     if x.device.type == "cpu":
         return dwconv_probe_plain(x, w, ntaps)
     if x.device.type != "cuda":
         raise RuntimeError(f"dwconv_probe runs on cuda or cpu, not "
                            f"{x.device}")
     _check_cuda("dwconv_probe", x, w)
-    _check_probe(x, w, ntaps)
+    route = probe_route(x, w, ntaps)
     N, C, H, W = x.shape
     kh, kw = w.shape[1], w.shape[2]
     out = torch.empty_like(x)
@@ -818,10 +857,11 @@ def dwconv_probe(x: torch.Tensor, w: torch.Tensor,
                          out.data_ptr(), N, C, H, W, kh, kw, ntaps,
                          torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"dwconv_probe kernel launch failed: cudaError "
-                           f"{err}")
-    global probe_launch_count
+        raise RuntimeError(f"dwconv_probe {route} kernel launch failed: "
+                           f"cudaError {err}")
+    global probe_launch_count, probe_band_launch_count
     probe_launch_count += 1
+    probe_band_launch_count += route == "band"
     return out
 
 

@@ -7,9 +7,10 @@ harness or the kernel set the time; CUDA events time the kernels alone, so
 here it decomposes K1's time at stage 1-2 shapes (bf16, (K, 5) taps) into
 floors, each with CUDA events (median over rounds, fresh inputs): a read
 and write of the activation by PyTorch (``clone``), one elementwise pass
-(``tanh``), the copy-only probe twin (K13, ``ntaps = 0``) and the full
-probe conv (all 5 tap columns), beside the bytes bound of one read and one
-write. Needs one CUDA card.
+(``tanh``), the copy-only probe twin (K13 on the band kernel, ``ntaps =
+0``: the band kernel's staging and stores alone) and the full probe conv
+(all 5 tap columns: K1's band launch), beside the bytes bound of one read
+and one write. Needs one CUDA card.
 """
 
 from __future__ import annotations

@@ -3,11 +3,14 @@
     python3 -m slak_tpu_torch.tools.probe_overhead [--batch 128]
 
 Port of ``tools/probe_overhead.py``. At SLaK-T 51x51 w1.3's stage 1-3
-shapes (bf16, (K, 5) taps, NCHW) it times, with CUDA events (median over
-rounds, fresh inputs each round): the copy-only twin (``ntaps = 0``: K1's
-tiles staged and stored, no tap), one tap column, all 5 (the probe
-kernel's full conv) and K1 itself. The TPU probe's channel-block sweep has
-no counterpart: the port's kernel picks its own tile. Needs one CUDA card.
+shapes (bf16, (K, 5) taps, NCHW) it decomposes the band kernel's time
+(``dwconv_band_kernel``, which every bf16 (K, 5) K1 launch at these shapes
+takes) with K13 on the band route, timed with CUDA events (median over
+rounds, fresh inputs each round): the copy-only twin (``ntaps = 0``: the
+band kernel's chunks staged and stored, no band tile built, no product),
+one tap column, all 5 (K1's own band launch) and K1 through ``dwconv``.
+The TPU probe's channel-block sweep has no counterpart: the port's kernel
+picks its own tile. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ S = 5
 
 def run_variant(x: torch.Tensor, w: torch.Tensor, ntaps: int
                 ) -> torch.Tensor:
-    """K1 on (K, 5) taps with the first ``ntaps`` tap columns (0: copy)."""
+    """K1 on (K, 5) taps with the first ``ntaps`` tap columns (0: copy), on
+    the band kernel in bf16."""
     return dwconv_probe(x, w, ntaps)
 
 
