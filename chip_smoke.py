@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # all phases, needs one CUDA card
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,erf_kernels,erf
+    python3 chip_smoke.py --phases build,cli
     python3 chip_smoke.py --phases build,dual_kernels,dual,dual_timing,probes
     python3 chip_smoke.py --phases build,mlp_ab --base PARENT_CHECKOUT
     python3 chip_smoke.py --phases build,mlp_bwd_ab --base PARENT_CHECKOUT
@@ -38,7 +39,10 @@ Phases (any failure exits non-zero):
            on K6's Toeplitz kernel, 18 in 3 forwards, every other one on
            the band kernel; fp32: every K1 launch on the fp32 band kernel
            and every K2/K3 launch on the 3xTF32 route); logits held against
-           the same weights through the plain versions.
+           the same weights through the plain versions. Then ConvNeXt-T
+           (7x7 taps, decom=False, no BN: one K1 launch a block; bf16
+           stages 1-3 on the tiled kernel and stage 4 on K6's, fp32 all
+           tiled) one forward a dtype, counted and held the same way.
   timing   bf16 eval forward at batch 256 (bench.py's batch): img/s.
   train_kernels
            the train kernels against their plain versions at the train
@@ -68,9 +72,33 @@ Phases (any failure exits non-zero):
            routes them); DST refreshes, mask counts and
            masked weights checked; one step from the same state held
            against the plain route (bf16 at 128, fp32 at 32): loss, every
-           gradient, BN stats.
+           gradient, BN stats; one bf16 step with remat against one
+           without, from the same state and generator (TOL_STEP, and the
+           remat step's launches: K4 and K2 once more a block).
   train_timing
            the bf16 batch-128 train step, kernel route and plain route.
+  cli      the train CLI (slak_tpu_torch.train.main, in process) on the
+           flagship at full width and depth, bf16, batch 128, synthetic
+           224^2 images through the recipe's host transforms (RandAugment
+           rand-m9-mstd0.5-inc1, thread workers), mixup 0.8 / CutMix 1.0
+           and erasing 0.25 on the card, SNIP masks at 40% sparsity with a
+           DST refresh every 2 steps (random growth), EMA: the recipe run
+           (1 epoch of 4 steps, eval, checkpoint-0), the resumed run
+           (--epochs 2 on the same directory: auto-resumes, its first step's
+           model, optimizer, mask and EMA tensors the checkpoint's bits,
+           then epoch 1) and an Adan + remat run (2 steps, no eval); in
+           each the launch counters set to 0 just before and read just
+           after, equal to what its steps, eval forwards and float32 SNIP
+           scoring launch (cli_counts: every kernel on its route, no plain
+           version), every DST refresh moving mask entries with each live
+           count in random growth's binomial bound, the losses, weights and
+           EMA finite; img/s and ms a step with the loader feeding (the
+           CLI's own epoch clock at its default --print_freq; the step
+           hook only copies tensors on the card, and every check on them
+           runs after the CLI returns; a 4-step epoch is mostly the
+           loader's start, not a sustained rate), the host transform
+           path, the loader's workers. Checkpoints are removed at the
+           end.
   erf_kernels
            the ERF path's kernels against their plain versions in fp32 at
            the four 1024^2 stage shapes (batch 1): K9 (the wide-channel
@@ -1205,7 +1233,56 @@ def phase_forward(batch):
                   f" | vs plain: max abs {d:.4g}, rel {r:.4g} (tol "
                   f"{TOL_LOGITS[dn]}), top-1 agreement {top1:.4f}")
             _check(r <= TOL_LOGITS[dn], f"{dn} logits rel err {r:.3g}")
+    check_convnext(batches[0])
     return model, counts, counts_fp32
+
+
+def check_convnext(batch):
+    """ConvNeXt-T (7x7 taps, decom=False, no BN, no small branch: one K1
+    launch a block) through make_eval_step, bf16 and fp32, launch counters
+    set to 0 just before and read just after, the logits against the same
+    weights through the plain versions. bf16: stages 1-3 on the tiled K1
+    kernel, stage 4 on K6's Toeplitz kernel; fp32: all on the tiled
+    kernel, K2/K3 on the 3xTF32 route."""
+    import torch
+    from slak_tpu_torch.models import apply, create_model
+    from slak_tpu_torch.ops import dwconv as K1
+    from slak_tpu_torch.ops import mlp as K2
+    from slak_tpu_torch.train.engine import make_eval_step
+    model = create_model("convnext_tiny", seed=0)
+    randomize(model, 1)
+    n_blocks = sum(model.cfg.depths)
+    k6 = k6_convs(model.cfg, per_block=1)
+    x, _ = batch
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        step = make_eval_step(model, dtype)
+        step(batch)                          # pack weights, warm up
+        torch.cuda.synchronize()
+        reset_counts()
+        lg = step(batch)["logits"]
+        torch.cuda.synchronize()
+        got = read_counts()
+        bf16 = dtype == torch.bfloat16
+        want = dict({k: 0 for k in got}, dwconv=n_blocks,
+                    dwconv_toeplitz=k6 if bf16 else 0, fused_mlp=n_blocks,
+                    fused_mlp_tf32=0 if bf16 else n_blocks)
+        want_plain = apply(model, x.to("cuda", dtype), plain=True)
+        d, r = rel_err(lg, want_plain)
+        print(f"[forward] ConvNeXt-T {dn} batch {x.shape[0]}: launches "
+              f"dwconv {got['dwconv']} (on K6's Toeplitz kernel "
+              f"{got['dwconv_toeplitz']}, the rest on the tiled kernel), "
+              f"fused_mlp {got['fused_mlp']} (3xTF32 "
+              f"{got['fused_mlp_tf32']}) | vs plain: max abs {d:.4g}, rel "
+              f"{r:.4g} (tol {TOL_LOGITS[dn]})", flush=True)
+        _check(got == want, f"ConvNeXt-T {dn} launch counts {got}, want "
+               f"{want}")
+        _check(lg.shape == want_plain.shape and bool(
+            torch.isfinite(lg).all()), f"ConvNeXt-T {dn} logits bad")
+        _check(r <= TOL_LOGITS[dn], f"ConvNeXt-T {dn} logits rel err "
+               f"{r:.3g}")
+    del model
+    torch.cuda.empty_cache()
 
 
 def phase_timing(model, batch):
@@ -1643,7 +1720,7 @@ def read_counts():
 
 
 def train_setup(batch, dtype, mask_kw, seed=0, snip=True, masks=None,
-                model_state=None):
+                model_state=None, remat=False):
     """(model, train state, step fn, batches) of the flagship train path."""
     import torch
     from slak_tpu_torch.models import apply, create_model
@@ -1653,7 +1730,7 @@ def train_setup(batch, dtype, mask_kw, seed=0, snip=True, masks=None,
                                              make_train_step)
     from slak_tpu_torch.train.optim import cosine_schedule_array
     model = create_model("SLaK_tiny", dtype=dtype, seed=seed,
-                         drop_path_rate=0.1, **MODEL_KW)
+                         drop_path_rate=0.1, remat=remat, **MODEL_KW)
     if model_state is not None:
         model.load_state_dict(model_state)
     else:
@@ -1674,6 +1751,39 @@ def train_setup(batch, dtype, mask_kw, seed=0, snip=True, masks=None,
                                masks=masks, seed=seed)
     lr = cosine_schedule_array(1e-3, 1e-6, 1, 100)
     return model, state, tc, mc, lr, batches
+
+
+def cli_counts(cfg, steps=0, evals=0, snips=0, remat=False) -> dict:
+    """The launch counts (read_counts' keys) of `steps` bf16 train steps
+    (with remat K4 and K2 launch once more a block, in the backward's
+    recompute), `evals` bf16 eval forwards and `snips` float32 SNIP
+    scorings (an eval-mode forward and backward with every parameter's
+    gradient: K1 and its dgrad on the fp32 band kernel, the tiled fp32
+    weight gradient, K2/K3 on 3xTF32, K8 and K9 in the full mode) of the
+    flagship at 224^2."""
+    from slak_tpu_torch.models import slak as S
+    from slak_tpu_torch.ops.mlp import BWD_C_MAX
+    nb = sum(cfg.depths)
+    narrow = sum(d for d, c in zip(cfg.depths, cfg.widened_dims)
+                 if c <= BWD_C_MAX)
+    wide = nb - narrow if S.TRAIN_WIDE_MLP_BWD else 0
+    k6 = k6_convs(cfg)
+    fwd = 2 if remat else 1
+    return {
+        "dwconv": 2 * nb * (steps + evals) + 4 * nb * snips,
+        "dwconv_stats": 2 * nb * fwd * steps,
+        "dwconv_band": (2 * nb - k6) * (steps + evals),
+        "dwconv_toeplitz": k6 * (steps + evals),
+        "dwconv_tf32": 4 * nb * snips,
+        "dwconv_stats_band": (2 * nb - k6) * fwd * steps,
+        "dwconv_stats_toeplitz": k6 * fwd * steps,
+        "dwconv_wgrad": 2 * nb * (steps + snips),
+        "dwconv_wgrad_band": 2 * nb * steps,
+        "fused_mlp": (narrow + wide) * fwd * steps + nb * (evals + snips),
+        "fused_mlp_tf32": nb * snips,
+        "mlp_bwd": narrow * (steps + snips),
+        "mlp_bwd_wide": wide * steps + (nb - narrow) * snips,
+        "mlp_bwd_dy_only": 0, "mlp_bwd_wide_dy_only": 0}
 
 
 TRAIN_MASK = dict(sparsity=0.4, sparse_init="snip", prune_mode="magnitude",
@@ -1726,27 +1836,11 @@ def phase_train(batch):
     torch.cuda.synchronize()
     counts = read_counts()
     sec = time.perf_counter() - t0
-    n_blocks = sum(model.cfg.depths)
-    narrow = sum(d for d, c in zip(model.cfg.depths, model.cfg.widened_dims)
-                 if c <= 256)
-    # the wide tails run FusedMlp (K2 + K9) where the route says so
-    wide = (n_blocks - narrow) if S.TRAIN_WIDE_MLP_BWD else 0
     # every K4 and K1 dgrad launch of the bf16 step on stage 4 (7x7) on
     # K6's Toeplitz kernel, every other one and every weight-gradient
-    # launch on its band kernel
-    k6 = k6_convs(model.cfg) * TRAIN_STEPS
-    want = {"dwconv": 2 * n_blocks * TRAIN_STEPS,
-            "dwconv_stats": 2 * n_blocks * TRAIN_STEPS,
-            "dwconv_band": 2 * n_blocks * TRAIN_STEPS - k6,
-            "dwconv_toeplitz": k6, "dwconv_tf32": 0,
-            "dwconv_stats_band": 2 * n_blocks * TRAIN_STEPS - k6,
-            "dwconv_stats_toeplitz": k6,
-            "dwconv_wgrad": 2 * n_blocks * TRAIN_STEPS,
-            "dwconv_wgrad_band": 2 * n_blocks * TRAIN_STEPS,
-            "fused_mlp": (narrow + wide) * TRAIN_STEPS,
-            "fused_mlp_tf32": 0, "mlp_bwd": narrow * TRAIN_STEPS,
-            "mlp_bwd_wide": wide * TRAIN_STEPS,
-            "mlp_bwd_dy_only": 0, "mlp_bwd_wide_dy_only": 0}
+    # launch on its band kernel; the wide tails through FusedMlp (K2 + K9)
+    # where TRAIN_WIDE_MLP_BWD routes them
+    want = cli_counts(model.cfg, steps=TRAIN_STEPS)
     print(f"[train] {TRAIN_STEPS} bf16 steps at batch {batch} in {sec:.2f} s;"
           f" launches {counts}; refreshes {n_refresh}; TRAIN_WIDE_MLP_BWD "
           f"{S.TRAIN_WIDE_MLP_BWD}", flush=True)
@@ -1796,7 +1890,218 @@ def phase_train(batch):
         _check(ge[worst] <= tol["grad"], f"{dn} grad {worst} rel err "
                f"{ge[worst]:.3g}")
         _check(be <= tol["bn"], f"{dn} BN stats rel err {be:.3g}")
+    check_remat_step(batch, masks0, sd0)
     return counts
+
+
+def check_remat_step(batch, masks0, sd0):
+    """One bf16 step with remat (each block under torch.utils.checkpoint)
+    against one without, from the same state and drop-path generator, both
+    through the kernels: loss, every gradient and the BN stats within
+    TOL_STEP; the launches of the step with remat counted (K4 and K2 twice,
+    once more in the backward's recompute)."""
+    import torch
+    from slak_tpu_torch.train.engine import make_train_step
+    runs, counts = [], None
+    for remat in (False, True):
+        model, state, tc, mc, lr, batches = train_setup(
+            batch, torch.bfloat16, TRAIN_MASK,
+            masks={n: m.clone() for n, m in masks0.items()},
+            model_state=sd0, remat=remat)
+        step = make_train_step(model, tc, mc, lr)
+        torch.cuda.synchronize()
+        reset_counts()
+        state, met = step(state, batches[0],
+                          torch.Generator(device="cuda").manual_seed(5))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        runs.append((met["loss"].item(),
+                     {n: p.grad.detach().float().clone()
+                      for n, p in model.named_parameters()},
+                     {n: v.clone() for n, v in model.state_dict().items()
+                      if "running" in n}))
+        del model, state, step, batches
+        torch.cuda.empty_cache()
+    (l0, g0, b0), (l1, g1, b1) = runs
+    tol = TOL_STEP["bfloat16"]
+    le = abs(l1 - l0) / abs(l0)
+    ge = max(((g1[n] - g0[n]).norm() / g0[n].norm().clamp(min=1e-30)).item()
+             for n in g0)
+    be = max(rel_err(b1[n], b0[n])[1] for n in b0)
+    print(f"[train] one bf16 step at batch {batch}, remat vs none: loss "
+          f"{l1:.6f} vs {l0:.6f} (rel {le:.3g}, tol {tol['loss']}); grad "
+          f"rel norm err max {ge:.3g} (tol {tol['grad']}); BN stats rel "
+          f"{be:.3g} (tol {tol['bn']}); launches with remat {counts}",
+          flush=True)
+    _check(le <= tol["loss"], f"remat step loss rel err {le:.3g}")
+    _check(ge <= tol["grad"], f"remat step grad rel err {ge:.3g}")
+    _check(be <= tol["bn"], f"remat step BN stats rel err {be:.3g}")
+    from slak_tpu_torch.models.slak import config_for
+    want = cli_counts(config_for("SLaK_tiny", **MODEL_KW), steps=1,
+                      remat=True)
+    _check(counts == want, f"remat step launch counts {counts}, want {want}")
+
+
+CLI_ARGS = ["--model", "SLaK_tiny", "--kernel_size", "51", "49", "47", "13",
+            "5", "--width_factor", "1.3", "--Decom", "true", "--data_set",
+            "synthetic", "--input_size", "224", "--batch_size",
+            str(TRAIN_BATCH), "--sparse", "--sparse_init", "snip",
+            "--sparsity", "0.4", "-u", "2", "--model_ema", "true",
+            "--use_bf16", "true", "--warmup_epochs", "0"]
+
+
+def _device_copy(tree):
+    """A copy of every tensor in a nested dict / list, on its device."""
+    import torch
+    if torch.is_tensor(tree):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _device_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_device_copy(v) for v in tree)
+    return tree
+
+
+def _cli_run(tag, argv, want, resume_from=None):
+    """One in-process run of the train CLI with the launch counters set to
+    0 just before and read just after; every DST refresh checked (at
+    least one mask entry moved, each masked tensor's live count within
+    the binomial bound of random growth, as in `train`); with
+    `resume_from`, the first step's state held to that checkpoint, bit
+    for bit. The step hook runs inside the CLI's timed epoch, so it only
+    makes copies on the device (the masks before each step; the first
+    step's whole state), which read nothing from the card; every check
+    runs on them after the CLI returns. Returns (the CLI's result, the
+    number of refreshes, seconds)."""
+    import torch
+    from slak_tpu_torch.train import checkpoint as ckpt
+    from slak_tpu_torch.train.main import main, parse_args
+    seen = {"state": None, "masks": [], "start": None}
+
+    def hook(state, epoch, i):
+        if seen["state"] is None and resume_from is not None:
+            seen["start"] = _device_copy(ckpt.state_dict(state, epoch - 1))
+        seen["state"] = state
+        seen["masks"].append({n: m.to(torch.bool) for n, m in
+                              state.mask_state.masks.items()})
+
+    def check_resumed(now):
+        saved = torch.load(resume_from, weights_only=False,
+                           map_location=next(
+                               seen["state"].model.parameters()).device)
+        _check(now["step"] == saved["step"], f"[cli {tag}] step "
+               f"{now['step']} != saved {saved['step']}")
+        pairs = [(f"model {k}", v, saved["model"][k])
+                 for k, v in now["model"].items()]
+        for k in ("masks", "fired"):
+            pairs += [(f"{k} {n}", v, saved["mask_state"][k][n])
+                      for n, v in now["mask_state"][k].items()]
+        pairs += [(f"ema {n}", v, saved["ema"][n])
+                  for n, v in now["ema"].items()]
+        opt_now, opt_saved = (o["optimizer"]["state"] for o in (now, saved))
+        pairs += [(f"optimizer {i} {k}", v, opt_saved[i][k])
+                  for i, st in opt_now.items() for k, v in st.items()
+                  if torch.is_tensor(v)]
+        bad = [n for n, a, b in pairs if not torch.equal(a, b.to(a.device))]
+        _check(not bad and len(opt_now) == len(opt_saved),
+               f"[cli {tag}] resumed state differs from {resume_from}: "
+               f"{bad[:5]}")
+        print(f"[cli {tag}] first step of epoch {now['epoch'] + 1} starts "
+              f"from {os.path.basename(resume_from)}: {len(pairs)} tensors "
+              f"equal bit for bit", flush=True)
+
+    def check_refreshes(snaps):
+        refreshes = moved = 0
+        for before, after in zip(snaps, snaps[1:]):
+            if all(torch.equal(before[n], after[n]) for n in after):
+                continue
+            refreshes += 1
+            for n, m in after.items():
+                moved += int((before[n] != m).sum())
+                nb, na = before[n].sum().item(), m.sum().item()
+                _check(abs(na - nb) <= 6 * max(nb, 1) ** 0.5 + 1,
+                       f"[cli {tag}] {n} live count {nb} -> {na}")
+        return refreshes, moved
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = main(parse_args(argv), hook)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    state = seen["state"]
+    if resume_from is not None:
+        check_resumed(seen["start"])
+        seen["start"] = None
+    n_steps = len(seen["masks"]) // max(len(out["epochs"]), 1)
+    refreshes, moved = check_refreshes(seen["masks"] + [
+        {n: m.to(torch.bool) for n, m in state.mask_state.masks.items()}])
+    seen["masks"] = []
+    for st in out["epochs"]:
+        print(f"[cli {tag}] epoch {st['epoch']}: {st['images_per_sec']:.1f}"
+              f" img/s and {st['step_ms']:.1f} ms a step with the loader "
+              f"feeding over a {n_steps}-step epoch (host "
+              f"transform path {out['host_path']}, loader {out['loader']}); "
+              f"train loss {st['train_loss']:.5f}"
+              + (f"; val acc1 {st['test_acc1']:.4f}" if "test_acc1" in st
+                 else ""), flush=True)
+        _check(math.isfinite(st["train_loss"]), f"[cli {tag}] train loss "
+               f"{st['train_loss']}")
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in state.model.parameters()) and all(
+        bool(torch.isfinite(v).all()) for v in state.ema.values())
+    print(f"[cli {tag}] {sec:.1f} s; DST refreshes {refreshes} "
+          f"({moved} mask entries moved); launches {counts}", flush=True)
+    _check(finite, f"[cli {tag}] parameters or EMA not finite")
+    _check(counts == want, f"[cli {tag}] launch counts {counts}, want "
+           f"{want}")
+    return out, refreshes, sec
+
+
+def phase_cli():
+    """The train CLI (slak_tpu_torch.train.main) on the flagship, in
+    process: the recipe run (1 epoch of 4 steps, eval, checkpoint), the
+    resumed run (auto-resumes from checkpoint-0, runs epoch 1), the Adan +
+    remat run (2 steps, no eval). Checkpoints go under OUT_DIR and are
+    removed at the end."""
+    import shutil
+    from slak_tpu_torch.models.slak import config_for
+    cfg = config_for("SLaK_tiny", **MODEL_KW)
+    out_dir = os.path.join(OUT_DIR, "cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps = 512 // TRAIN_BATCH
+    runs = {}
+    try:
+        runs["recipe"] = _cli_run(
+            "recipe", CLI_ARGS + ["--epochs", "1", "--synthetic_len", "512",
+                                  "--output_dir", out_dir],
+            cli_counts(cfg, steps=steps, evals=1, snips=1))
+        runs["resume"] = _cli_run(
+            "resume", CLI_ARGS + ["--epochs", "2", "--synthetic_len", "512",
+                                  "--output_dir", out_dir],
+            cli_counts(cfg, steps=steps, evals=1, snips=1),
+            resume_from=os.path.join(out_dir, "checkpoint-0"))
+        _check([s["epoch"] for s in runs["resume"][0]["epochs"]] == [1],
+               "the resumed run did not run epoch 1 alone")
+        runs["adan_remat"] = _cli_run(
+            "adan_remat", CLI_ARGS + ["--epochs", "1", "--synthetic_len",
+                                      "256", "--opt", "adan", "--remat",
+                                      "true", "--disable_eval", "true"],
+            cli_counts(cfg, steps=256 // TRAIN_BATCH, snips=1, remat=True))
+        for tag, (_, refreshes, _) in runs.items():
+            _check(refreshes >= 1, f"[cli {tag}] no DST refresh")
+    finally:
+        for f in os.listdir(out_dir) if os.path.isdir(out_dir) else ():
+            if f.startswith("checkpoint-"):
+                os.remove(os.path.join(out_dir, f))
+    print(f"[cli] {smi_line()}", flush=True)
+    return {tag: dict(images_per_sec=[s["images_per_sec"]
+                                      for s in out["epochs"]],
+                      step_ms=[s["step_ms"] for s in out["epochs"]],
+                      host_path=out["host_path"], loader=out["loader"],
+                      seconds=sec)
+            for tag, (out, _, sec) in runs.items()}
 
 
 def phase_train_timing(batch):
@@ -3241,7 +3546,7 @@ def phase_probes():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,timing,"
-                    "train_kernels,train,train_timing,erf_kernels,erf,"
+                    "train_kernels,train,train_timing,cli,erf_kernels,erf,"
                     "dual_kernels,dual,dual_timing,probes")
     ap.add_argument("--base", help="mlp_ab, mlp_bwd_ab, dwconv_ab, "
                     "wgrad_ab, dwpair_ab, stacked_ab: another checkout of "
@@ -3270,7 +3575,7 @@ def main(argv=None) -> int:
           f" cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     cfg = config_for("SLaK_tiny", **MODEL_KW)
     totals, counts, counts_fp32 = None, None, None
-    train_totals, train_counts = None, None
+    train_totals, train_counts, cli_runs = None, None, None
     erf_totals, k9_bf16, erf_run = None, None, None
     dual_totals, dual_counts, dual_by, probe_counts = None, None, None, None
     t_start = time.perf_counter()
@@ -3302,6 +3607,8 @@ def main(argv=None) -> int:
             train_counts = phase_train(TRAIN_BATCH)
         if "train_timing" in phases:
             phase_train_timing(TRAIN_BATCH)
+        if "cli" in phases:
+            cli_runs = phase_cli()
         if "profile" in phases:
             phase_profile_train(TRAIN_BATCH)
         if "erf_kernels" in phases:
@@ -3621,6 +3928,8 @@ def main(argv=None) -> int:
     if erf_run is not None:
         print(f"[erf] ms an image at {ERF_SIZE}^2 fp32: kernels "
               f"{erf_run[1]:.3f}, plain {erf_run[2]:.3f}")
+    if cli_runs is not None:
+        print("[cli] " + json.dumps(cli_runs))
     if dual_by is not None:
         print(f"[dual_timing] bf16 eval bs{TIMING_BATCH} img/s: dual "
               f"{dual_by['dual']['img_per_s']:.1f}, split "

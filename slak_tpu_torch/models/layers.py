@@ -36,19 +36,30 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def drop_path_keep(n: int, rate: float, generator=None,
+                   device=None) -> torch.Tensor:
+    """The per-sample keep draws of one drop-path call: (n,) bool, True
+    with probability 1 - rate, from ``generator`` (on its own device) when
+    given, as the train step's explicit generator, else from torch's
+    default, moved to ``device``."""
+    dev = device if generator is None else generator.device
+    return (torch.rand((n,), generator=generator, device=dev) < 1.0 - rate
+            ).to(device)
+
+
 def drop_path(x: torch.Tensor, rate: float, generator=None,
-              train: bool = False) -> torch.Tensor:
+              train: bool = False, keep: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
     """Stochastic depth per sample (batch axis 0); the identity in eval.
-    The keep draws come from ``generator`` (on its own device) when given,
-    as the train step's explicit generator, else from torch's default."""
+    ``keep`` is the draw of :func:`drop_path_keep`, drawn here when not
+    given (a rematerialized block is handed the draw its first pass made,
+    so that its recompute masks the same samples)."""
     if not train or rate == 0.0:
         return x
-    keep = 1.0 - rate
-    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    dev = x.device if generator is None else generator.device
-    mask = (torch.rand(shape, generator=generator, device=dev) < keep
-            ).to(x.device)
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    if keep is None:
+        keep = drop_path_keep(x.shape[0], rate, generator, x.device)
+    mask = keep.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def trunc_normal_(t: torch.Tensor, std: float = 0.02,

@@ -45,7 +45,8 @@ forward, K8 backward) where C <= 256 (stages 1-2 of SLaK-T); above that
 (stages 3-4) :data:`TRAIN_WIDE_MLP_BWD` picks ``FusedMlp`` with the K9
 backward (True) or the plain composition under torch autograd (False, the
 JAX route's value). BN running stats update the module buffers in
-place.
+place. ``SLaKConfig.remat`` runs each train block under
+``torch.utils.checkpoint`` (:meth:`SLaK._remat_block`).
 
 The compute dtype is the input's: parameters stay float32 and are rounded
 to it where they are used, as in ``slak_tpu``, so autograd returns float32
@@ -61,10 +62,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
-from slak_tpu_torch.models.layers import (LN_EPS, drop_path, gelu,
-                                          layer_norm, trunc_normal_)
-from slak_tpu_torch.ops.batchnorm import batch_norm_train, fold_bn
+from slak_tpu_torch.models.layers import (LN_EPS, drop_path, drop_path_keep,
+                                          gelu, layer_norm, trunc_normal_)
+from slak_tpu_torch.ops.batchnorm import (batch_norm_train, fold_bn,
+                                          running_stats_frozen)
 from slak_tpu_torch.ops.depthwise import (_pad_center, bn_branch_train,
                                           depthwise_conv2d, fold_branches,
                                           run_taps)
@@ -105,6 +108,12 @@ class SLaKConfig:
     # the TPU's 128-lane axis, and the CUDA kernels address NCHW directly
     # through strides. "dual" runs the dual eval stages (module docstring).
     eval_layout: str = "auto"
+    # Per-block activation rematerialization of the train forward
+    # (slak_tpu's SLaKConfig.remat): each train block runs under
+    # torch.utils.checkpoint, so only the block boundaries stay live
+    # across the backward and each block's interior is computed again
+    # there (see SLaK._remat_block).
+    remat: bool = False
 
     def __post_init__(self):
         if self.eval_layout not in EVAL_LAYOUTS:
@@ -269,9 +278,12 @@ class Block(nn.Module):
         self._cache[key] = (ver, (taps, pk))
         return taps, pk
 
-    def forward(self, x, plain: bool = False, generator=None):
+    def forward(self, x, plain: bool = False, generator=None, keep=None):
+        """``keep``: the train forward's drop-path draw
+        (:func:`~slak_tpu_torch.models.layers.drop_path_keep`), drawn
+        from ``generator`` when not given."""
         if self.training:
-            return self._train_forward(x, plain, generator)
+            return self._train_forward(x, plain, generator, keep)
         if torch.is_grad_enabled() and (
                 x.requires_grad or any(p.requires_grad
                                        for p in self.parameters())):
@@ -297,7 +309,7 @@ class Block(nn.Module):
                               self.pwconv2.weight, self.pwconv2.bias, gamma,
                               True, plain, bias)
 
-    def _train_forward(self, x, plain, generator):
+    def _train_forward(self, x, plain, generator, keep=None):
         """``_block_forward(train=True)``: the branches, then the fused tail
         (C <= 256, or wider with :data:`TRAIN_WIDE_MLP_BWD`) or the plain
         composition in the same rounding order
@@ -314,7 +326,8 @@ class Block(nn.Module):
                     self.pwconv2.weight, self.pwconv2.bias, gamma)
             if rate > 0.0:
                 branch = FusedMlp.apply(*args, False, plain)
-                return x + drop_path(branch, rate, generator, train=True)
+                return x + drop_path(branch, rate, generator, train=True,
+                                     keep=keep)
             return FusedMlp.apply(*args, True, plain)
         cdt = y.dtype
         h = layer_norm(y, self.norm.weight, self.norm.bias, dim=1)
@@ -326,7 +339,8 @@ class Block(nn.Module):
             self.pwconv2.bias.to(cdt)
         if gamma is not None:
             h = h * gamma.to(cdt)
-        h = drop_path(h.permute(0, 3, 1, 2), rate, generator, train=True)
+        h = drop_path(h.permute(0, 3, 1, 2), rate, generator, train=True,
+                      keep=keep)
         return (x + h).contiguous()
 
 
@@ -430,6 +444,29 @@ class SLaK(nn.Module):
             del y1, y2
         return xh
 
+    @staticmethod
+    def _remat_block(blk: Block, x, plain, generator):
+        """One train block under ``torch.utils.checkpoint`` (non-reentrant):
+        the recompute in the backward must give the first pass's values
+        and leave the state as the first pass left it. So the drop-path
+        draw is made here, once, and handed to both passes (the
+        checkpoint restores torch's default generators, not the step's
+        explicit one), and the recompute leaves the BN running stats
+        alone (the first pass updated them; both normalize by the
+        batch's statistics)."""
+        keep = None
+        if blk.drop_path_rate > 0.0:
+            keep = drop_path_keep(x.shape[0], blk.drop_path_rate, generator,
+                                  x.device)
+        passes = []
+
+        def run(x):
+            with running_stats_frozen(bool(passes)):
+                passes.append(None)
+                return blk(x, plain, generator, keep)
+
+        return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+
     def forward_features(self, x, plain: bool = False, generator=None,
                          return_stages: bool = False):
         """NCHW images in the compute dtype -> pooled, normed features, or
@@ -444,6 +481,10 @@ class SLaK(nn.Module):
                 x = _conv(ds[0](x), ds[1])
             if self._stage_dual_ok(i, x):
                 x = self._stage_forward_dual(i, x, plain)
+            elif self.training and self.cfg.remat and \
+                    torch.is_grad_enabled():
+                for blk in self.stages[i]:
+                    x = self._remat_block(blk, x, plain, generator)
             else:
                 for blk in self.stages[i]:
                     x = blk(x, plain, generator)

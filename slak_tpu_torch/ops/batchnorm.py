@@ -8,16 +8,36 @@ per-channel sums the stats-fused conv kernel emits
 (:func:`batch_norm_from_sums`); both return the output in x's dtype and
 update the running buffers in place (outside autograd), the port's
 counterpart of the JAX functions' returned running stats.
+:func:`running_stats_frozen` skips that update, for a rematerialized
+block's recompute (its first pass made it).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Tuple
 
 import torch
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+
+# per thread: the autograd engine recomputes a checkpointed block on the
+# thread that runs the backward
+_FROZEN = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_frozen(frozen: bool = True):
+    """Inside, train-mode batch norm leaves the running stats as they are
+    (the output, from the batch's statistics, is unchanged)."""
+    before = getattr(_FROZEN, "on", False)
+    _FROZEN.on = frozen
+    try:
+        yield
+    finally:
+        _FROZEN.on = before
 
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -48,6 +68,8 @@ def _normalize(x, mean, mean_sq, count, scale, bias, running_mean,
     nd = x.ndim
     y = ((x.float() - _cvec(mean, nd, caxis)) * _cvec(inv * scale, nd, caxis)
          + _cvec(bias, nd, caxis))
+    if getattr(_FROZEN, "on", False):
+        return y.to(x.dtype)
     with torch.no_grad():
         unbiased = var * (count / max(count - 1, 1))
         running_mean.mul_(1 - momentum).add_(momentum * mean)

@@ -19,7 +19,9 @@ the index order is the torch layout's. Random draws come from the
     magnitude / SET / global-magnitude prune of ``ceil(rate * nnz)``, then
     the same count regrown by random / gradient / momentum / mix /
     random_unfired / momentum_neuron / global_momentum_growth, at the
-    cosine-decayed prune rate (:func:`cosine_prune_rate`).
+    cosine-decayed prune rate (:func:`cosine_prune_rate`);
+  * :func:`sparsity_report`: per-layer and overall density, ITOP's fired
+    ratio (sparse_core.py:376-402).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -365,3 +367,25 @@ def truncate_weights(state: MaskState, named: Dict[str, torch.Tensor],
     fired = {n: torch.maximum(state.fired[n], new[n]) for n in new}
     return MaskState(masks=new, fired=fired, steps=state.steps,
                      generator=gen)
+
+
+# --- observability (sparse_core.py:376-402) ----------------------------------
+
+def sparsity_report(state: MaskState) -> Dict[str, Any]:
+    """Per-layer densities, the overall density and the ITOP fired ratio
+    (the share of maskable weights ever live), as ``slak_tpu``'s
+    ``sparsity_report``; every count comes to the host in one transfer."""
+    names = list(state.masks)
+    if not names:
+        return {"layers": {}, "density": 0.0, "fired_ratio": 0.0}
+    counts = torch.stack(
+        [state.masks[n].double().sum() for n in names]
+        + [state.fired[n].double().sum() for n in names]).tolist()
+    nnz, fired = counts[:len(names)], counts[len(names):]
+    sizes = [state.masks[n].numel() for n in names]
+    total = float(sum(sizes))
+    return {
+        "layers": {n: c / s for n, c, s in zip(names, nnz, sizes)},
+        "density": sum(nnz) / max(total, 1),
+        "fired_ratio": sum(fired) / max(total, 1),
+    }

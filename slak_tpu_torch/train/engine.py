@@ -3,12 +3,12 @@ reference's engine.py:17-178 plus ``mask.step()``, sparse_core.py:300-313).
 
 One call of the step from :func:`make_train_step`:
   1. writes this iteration's lr and weight decay (from the schedule
-     arrays) into the AdamW groups;
+     arrays) into the optimizer's groups;
   2. runs forward + backward over ``update_freq`` micro-batches, the
      gradients summed and divided by ``update_freq`` (BN running stats
      carry from one micro-batch to the next);
   3. takes the global gradient norm, clips (when ``clip_grad``), and runs
-     the AdamW step;
+     the AdamW or Adan step;
   4. masks the weights, and every ``update_frequency`` optimizer steps
      prunes and regrows them at the cosine-decayed prune rate (momentum
      growth reads the updated Adam moments, gradient growth the unclipped
@@ -36,9 +36,12 @@ from slak_tpu_torch.sparsity.masking import (MaskConfig, MaskState,
                                              init_masks, truncate_weights)
 from slak_tpu_torch.train import losses as L
 from slak_tpu_torch.train.ema import ema_init, ema_update
-from slak_tpu_torch.train.optim import (adam_momentum, clip_grads,
-                                        global_grad_norm, make_adamw,
-                                        param_groups, set_lr_wd)
+from slak_tpu_torch.train.optim import (ADAN_BETAS, adam_momentum,
+                                        clip_grads, global_grad_norm,
+                                        make_adamw, make_adan, param_groups,
+                                        set_lr_wd)
+
+OPTIMIZERS = ("adamw", "adan")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,12 +79,13 @@ def create_train_state(model: SLaK, train_cfg: TrainConfig,
                        = None, seed: int = 0) -> TrainState:
     """Put ``model`` in train mode; build its masks (``masks`` given, or by
     ``mask_cfg.sparse_init``; ``snip`` needs ``snip_loss_fn``, the loss of
-    one batch with the current weights), mask the weights, then the AdamW
-    state and the EMA. The masks' random draws come from a generator on
-    the model's device seeded with ``seed``."""
-    if train_cfg.opt != "adamw":
-        raise NotImplementedError(f"optimizer {train_cfg.opt!r}: the port "
-                                  f"has AdamW (Adan comes later)")
+    one batch with the current weights), mask the weights, then the
+    optimizer (``train_cfg.opt``: AdamW or Adan) and the EMA. The masks'
+    random draws come from a generator on the model's device seeded with
+    ``seed``."""
+    if train_cfg.opt not in OPTIMIZERS:
+        raise ValueError(f"optimizer {train_cfg.opt!r}: one of "
+                         f"{'/'.join(OPTIMIZERS)}")
     model.train()
     named = dict(model.named_parameters())
     dev = next(model.parameters()).device
@@ -90,8 +94,13 @@ def create_train_state(model: SLaK, train_cfg: TrainConfig,
         gen = torch.Generator(device=dev).manual_seed(seed)
         mask_state = init_masks(named, mask_cfg, gen, snip_loss_fn, masks)
         apply_mask(named, mask_state.masks)
-    opt = make_adamw(param_groups(named.items(), train_cfg.layer_decay),
-                     train_cfg.opt_betas or (0.9, 0.999), train_cfg.opt_eps)
+    groups = param_groups(named.items(), train_cfg.layer_decay)
+    if train_cfg.opt == "adan":
+        opt = make_adan(groups, train_cfg.opt_betas or ADAN_BETAS,
+                        train_cfg.opt_eps)
+    else:
+        opt = make_adamw(groups, train_cfg.opt_betas or (0.9, 0.999),
+                         train_cfg.opt_eps)
     ema = ema_init(model) if train_cfg.ema_decay else None
     return TrainState(model=model, optimizer=opt, mask_state=mask_state,
                       ema=ema)

@@ -16,13 +16,17 @@ parameter names:
     p -= lr_g * mhat / (sqrt(vhat) + eps);
   * :func:`global_grad_norm` / :func:`clip_grads`: the global-norm clip of
     ``adamw_update`` (scale min(1, clip / (norm + 1e-6)));
+  * :class:`Adan` / :func:`make_adan`: the Adaptive Nesterov optimizer of
+    ``adan_update`` (the fork's timm1/optim/adan.py), on the same groups;
+    ``set_lr_wd`` drives it as it drives AdamW;
   * :func:`adam_momentum`: exp_avg / (sqrt(exp_avg_sq) + 1e-8), the score
-    momentum growth reads (sparse_core.py:362-370).
-Adan comes with a later slice.
+    momentum growth reads (sparse_core.py:362-370), for either optimizer
+    (Adan keeps m and n under AdamW's state names, as timm's does).
 """
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -102,6 +106,77 @@ def make_adamw(groups: List[Dict], betas=(0.9, 0.999),
                eps: float = 1e-8) -> torch.optim.AdamW:
     return torch.optim.AdamW(groups, lr=0.0, betas=tuple(betas), eps=eps,
                              weight_decay=0.0)
+
+
+ADAN_BETAS = (0.98, 0.92, 0.99)
+
+
+class Adan(torch.optim.Optimizer):
+    """Adan (arXiv 2208.06677) as ``slak_tpu.train.optim.adan_update``:
+    per parameter the state ``exp_avg`` (m), ``exp_avg_diff`` (v),
+    ``exp_avg_sq`` (n), ``pre_grad`` and ``step``; on the first step
+    pre_grad is the gradient itself (so g - pre_grad = 0). With
+    lr_g = group lr and wd_g = group weight decay:
+
+        m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) (g - pre_grad)
+        n = b3 n + (1 - b3) (g + b2 (g - pre_grad))^2
+        step = (m / bc1 + b2 v / bc2) / (sqrt(n) / sqrt(bc3) + eps)
+        p = (p - lr_g step) / (1 + lr_g wd_g)
+
+    The update runs as ``torch._foreach_*`` passes over each group."""
+
+    def __init__(self, params, lr: float = 0.0, betas=ADAN_BETAS,
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            b1, b2, b3 = group["betas"]
+            lr, wd, eps = group["lr"], group["weight_decay"], group["eps"]
+            for p in ps:
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    for k in ("exp_avg", "exp_avg_diff", "exp_avg_sq"):
+                        st[k] = torch.zeros_like(p, dtype=torch.float32)
+                    st["pre_grad"] = p.grad.float().clone()
+            count = self.state[ps[0]]["step"] + 1
+            bc1, bc2, bc3 = (1.0 - b ** count for b in (b1, b2, b3))
+            sts = [self.state[p] for p in ps]
+            g = [p.grad.float() for p in ps]
+            m, v, n, pre = ([st[k] for st in sts] for k in (
+                "exp_avg", "exp_avg_diff", "exp_avg_sq", "pre_grad"))
+            gd = torch._foreach_sub(g, pre)
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, g, alpha=1.0 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_add_(v, gd, alpha=1.0 - b2)
+            u = torch._foreach_add(g, gd, alpha=b2)
+            torch._foreach_mul_(u, u)
+            torch._foreach_mul_(n, b3)
+            torch._foreach_add_(n, u, alpha=1.0 - b3)
+            denom = torch._foreach_sqrt(n)
+            torch._foreach_div_(denom, math.sqrt(bc3))
+            torch._foreach_add_(denom, eps)
+            upd = torch._foreach_div(m, bc1)
+            torch._foreach_add_(upd, torch._foreach_div(v, bc2), alpha=b2)
+            torch._foreach_div_(upd, denom)
+            torch._foreach_add_(ps, upd, alpha=-lr)
+            torch._foreach_div_(ps, 1.0 + lr * wd)
+            for st, gi in zip(sts, g):
+                st["step"] = count
+                st["pre_grad"].copy_(gi)
+
+
+def make_adan(groups: List[Dict], betas=ADAN_BETAS,
+              eps: float = 1e-8) -> Adan:
+    return Adan(groups, lr=0.0, betas=tuple(betas), eps=eps,
+                weight_decay=0.0)
 
 
 def set_lr_wd(opt: torch.optim.Optimizer, lr: float, wd: float):

@@ -15,7 +15,12 @@ numpy arrays (or anything ``np.asarray`` takes):
 
 Layouts: depthwise (kh, kw, C) -> (C, 1, kh, kw); HWIO -> OIHW;
 (in, out) -> (out, in). :func:`masks_from_jax` maps a ``slak_tpu`` mask
-dict (keyed by dotted param paths) the same way.
+dict (keyed by dotted param paths) the same way. :func:`to_jax_params` is
+the way back for the parameters ({port name: tensor} -> ``slak_tpu``'s
+params tree); :func:`adan_state_from_jax` / :func:`adan_state_to_jax` carry
+Adan's state (m, v, n, the previous gradient, the step count) between
+``slak_tpu``'s ``opt_state`` and the port's :class:`~slak_tpu_torch.train.
+optim.Adan`.
 
 :func:`load_torch_checkpoint` unwraps a reference ``checkpoint-*.pth`` into
 the state dict ``load_state_dict`` takes: the port's names are already the
@@ -25,7 +30,7 @@ reference's, so no conversion is needed.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -38,8 +43,12 @@ def _t(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
 
 
-def from_jax_params(params: Dict[str, Any], state: Dict[str, Any]
+def from_jax_params(params: Dict[str, Any],
+                    state: Optional[Dict[str, Any]] = None
                     ) -> Dict[str, torch.Tensor]:
+    """The port's state dict of ``slak_tpu``'s (params, state); without
+    ``state`` the parameters alone (also for a params-shaped tree such as
+    an optimizer moment)."""
     sd: Dict[str, torch.Tensor] = {}
     for i, ds in enumerate(params["downsample"]):
         conv, norm = ("0", "1") if i == 0 else ("1", "0")
@@ -51,7 +60,8 @@ def from_jax_params(params: Dict[str, Any], state: Dict[str, Any]
     for i, blocks in enumerate(params["stages"]):
         for j, bp in enumerate(blocks):
             pre = f"stages.{i}.{j}."
-            lk_state = state["stages"][i][j]["lk"]
+            lk_state = None if state is None else \
+                state["stages"][i][j]["lk"]
             for br, p in bp["lk"].items():
                 w = _t(p["w"]).permute(2, 0, 1)[:, None]      # (C,1,kh,kw)
                 if br == "reparam":
@@ -61,9 +71,10 @@ def from_jax_params(params: Dict[str, Any], state: Dict[str, Any]
                 bpre = pre + f"large_kernel.{_BRANCH[br]}."
                 sd[bpre + "conv.weight"] = w
                 if "bn" in p:
-                    st = lk_state[br]["bn"]
                     sd[bpre + "bn.weight"] = _t(p["bn"]["scale"])
                     sd[bpre + "bn.bias"] = _t(p["bn"]["bias"])
+                if "bn" in p and lk_state is not None:
+                    st = lk_state[br]["bn"]
                     sd[bpre + "bn.running_mean"] = _t(st["mean"])
                     sd[bpre + "bn.running_var"] = _t(st["var"])
                     sd[bpre + "bn.num_batches_tracked"] = torch.tensor(0)
@@ -118,6 +129,124 @@ def masks_from_jax(masks: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``slak_tpu`` DST masks ({dotted path: array}) -> the port's
     ({parameter name: float32 tensor in the port's layout})."""
     return {port_name(n): to_port_layout(m) for n, m in masks.items()}
+
+
+_BRANCH_BACK = {v: k for k, v in _BRANCH.items()}
+
+
+def _np(t) -> np.ndarray:
+    return np.array(t.detach().cpu().float().numpy(), copy=True)
+
+
+def to_jax_params(named: Dict[str, Any]) -> Dict[str, Any]:
+    """{port parameter name: tensor} (a ``state_dict`` or anything keyed
+    like ``named_parameters``; buffers are ignored) -> ``slak_tpu``'s
+    params tree with numpy leaves in its layouts: the inverse of the
+    params half of :func:`from_jax_params`."""
+    ds: Dict[int, Dict] = {}
+    st: Dict[int, Dict[int, Dict]] = {}
+    params: Dict[str, Any] = {}
+    for name, t in named.items():
+        v = _np(t)
+        m = re.fullmatch(r"downsample_layers\.(\d+)\.(\d)\.(weight|bias)",
+                         name)
+        if m:
+            i, sub, wb = int(m.group(1)), int(m.group(2)), m.group(3)
+            if sub == (0 if i == 0 else 1):
+                d = ds.setdefault(i, {}).setdefault("conv", {})
+                d["w" if wb == "weight" else "b"] = (
+                    v.transpose(2, 3, 1, 0) if wb == "weight" else v)
+            else:
+                ds.setdefault(i, {}).setdefault("norm", {})[
+                    "scale" if wb == "weight" else "bias"] = v
+            continue
+        m = re.fullmatch(r"stages\.(\d+)\.(\d+)\.(.+)", name)
+        if m:
+            blk = st.setdefault(int(m.group(1)), {}).setdefault(
+                int(m.group(2)), {})
+            rest = m.group(3)
+            b = re.fullmatch(r"large_kernel\.(\w+)\.conv\.weight", rest)
+            if b:
+                blk.setdefault("lk", {}).setdefault(
+                    _BRANCH_BACK[b.group(1)], {})["w"] = \
+                    v[:, 0].transpose(1, 2, 0)
+                continue
+            b = re.fullmatch(r"large_kernel\.(\w+)\.bn\.(weight|bias)", rest)
+            if b:
+                blk.setdefault("lk", {}).setdefault(
+                    _BRANCH_BACK[b.group(1)], {}).setdefault("bn", {})[
+                    "scale" if b.group(2) == "weight" else "bias"] = v
+                continue
+            b = re.fullmatch(r"large_kernel\.lkb_reparam\.(weight|bias)", rest)
+            if b:
+                blk.setdefault("lk", {}).setdefault("reparam", {})[
+                    "w" if b.group(1) == "weight" else "b"] = (
+                    v[:, 0].transpose(1, 2, 0) if b.group(1) == "weight"
+                    else v)
+                continue
+            b = re.fullmatch(r"(norm|pwconv1|pwconv2)\.(weight|bias)", rest)
+            if b:
+                if b.group(1) == "norm":
+                    blk.setdefault("norm", {})[
+                        "scale" if b.group(2) == "weight" else "bias"] = v
+                else:
+                    blk.setdefault(b.group(1), {})[
+                        "w" if b.group(2) == "weight" else "b"] = (
+                        v.T if b.group(2) == "weight" else v)
+                continue
+            if rest == "gamma":
+                blk["gamma"] = v
+            continue
+        m = re.fullmatch(r"(norm|head)\.(weight|bias)", name)
+        if m:
+            d = params.setdefault(m.group(1), {})
+            if m.group(1) == "norm":
+                d["scale" if m.group(2) == "weight" else "bias"] = v
+            else:
+                d["w" if m.group(2) == "weight" else "b"] = (
+                    v.T if m.group(2) == "weight" else v)
+    params["downsample"] = [ds[i] for i in sorted(ds)]
+    params["stages"] = [[st[i][j] for j in sorted(st[i])] for i in sorted(st)]
+    return params
+
+
+ADAN_KEYS = (("m", "exp_avg"), ("v", "exp_avg_diff"), ("n", "exp_avg_sq"),
+             ("pre_grad", "pre_grad"))
+
+
+def adan_state_from_jax(opt_state: Dict[str, Any],
+                        named: Dict[str, torch.Tensor], optimizer) -> None:
+    """Write ``slak_tpu``'s Adan ``opt_state`` ({m, v, n, pre_grad:
+    params trees; count}) into ``optimizer`` (the port's Adan over the
+    parameters ``named``, by port name), in place. A count of 0 leaves the
+    optimizer without state, as a fresh one has."""
+    count = int(np.asarray(opt_state["count"]))
+    if count == 0:
+        return
+    trees = {k: from_jax_params(opt_state[k]) for k, _ in ADAN_KEYS}
+    for name, p in named.items():
+        st = optimizer.state[p]
+        st["step"] = count
+        for k, tk in ADAN_KEYS:
+            st[tk] = trees[k][name].to(p.device)
+
+
+def adan_state_to_jax(optimizer, named: Dict[str, torch.Tensor]
+                      ) -> Dict[str, Any]:
+    """The port's Adan state -> ``slak_tpu``'s ``opt_state`` (numpy leaves,
+    zeros where a parameter has no state yet, ``count`` an int32)."""
+    out: Dict[str, Any] = {}
+    steps: List[int] = []
+    for k, tk in ADAN_KEYS:
+        vals = {}
+        for name, p in named.items():
+            st = optimizer.state.get(p, {})
+            vals[name] = st[tk] if tk in st else torch.zeros_like(p)
+            if k == "m" and st:
+                steps.append(int(st["step"]))
+        out[k] = to_jax_params(vals)
+    out["count"] = np.int32(steps[0] if steps else 0)
+    return out
 
 
 def load_torch_checkpoint(path: str, prefer_ema: bool = False,
