@@ -1720,17 +1720,23 @@ def read_counts():
 
 
 def train_setup(batch, dtype, mask_kw, seed=0, snip=True, masks=None,
-                model_state=None, remat=False):
-    """(model, train state, step fn, batches) of the flagship train path."""
+                model_state=None, remat=False, group=None):
+    """(model, train state, step fn, batches) of the flagship train path.
+    With a process ``group`` (data parallel): the model's BNs averaged over
+    it (SyncBN), each batch this rank's shard of the global ``batch``, and
+    SNIP's gradients averaged over it."""
     import torch
     from slak_tpu_torch.models import apply, create_model
+    from slak_tpu_torch.parallel import mesh
     from slak_tpu_torch.sparsity.masking import MaskConfig
     from slak_tpu_torch.train import losses as L
     from slak_tpu_torch.train.engine import (TrainConfig, create_train_state,
                                              make_train_step)
     from slak_tpu_torch.train.optim import cosine_schedule_array
     model = create_model("SLaK_tiny", dtype=dtype, seed=seed,
-                         drop_path_rate=0.1, remat=remat, **MODEL_KW)
+                         drop_path_rate=0.1, remat=remat,
+                         bn_axis_name=None if group is None else
+                         mesh.DATA_AXIS, **MODEL_KW)
     if model_state is not None:
         model.load_state_dict(model_state)
     else:
@@ -1739,6 +1745,8 @@ def train_setup(batch, dtype, mask_kw, seed=0, snip=True, masks=None,
     batches = [(torch.randn(batch, 224, 224, 3, generator=g, device="cuda"),
                 torch.randint(0, 1000, (batch,), generator=g, device="cuda"))
                for _ in range(2)]
+    if group is not None:
+        batches = [mesh.shard_batch(b) for b in batches]
     mc = MaskConfig(**mask_kw)
     tc = TrainConfig(compute_dtype=dtype, weight_decay=0.05,
                      ema_decay=0.9999, prune_t_max=100)
@@ -1748,7 +1756,7 @@ def train_setup(batch, dtype, mask_kw, seed=0, snip=True, masks=None,
         return L.cross_entropy(apply(model, x.to(dtype)), y)
     state = create_train_state(model, tc, mc,
                                snip_loss if snip and masks is None else None,
-                               masks=masks, seed=seed)
+                               masks=masks, seed=seed, group=group)
     lr = cosine_schedule_array(1e-3, 1e-6, 1, 100)
     return model, state, tc, mc, lr, batches
 
@@ -3543,11 +3551,510 @@ def phase_probes():
     return out
 
 
+# --- data parallel with SyncBN and the channel-parallel eval ----------------
+#
+# The ranks are spawned processes (slak_tpu_torch/train/launch.py run_ranks)
+# that import this file as their main module and run the _*_rank functions
+# below. On one card several ranks can only share it through gloo (NCCL
+# takes one card a rank), so every time printed by these phases is a gloo
+# time on one card: it says nothing about data-parallel speed.
+
+DP_RANKS = 2
+DP_STEPS = 4
+DP_TIMEOUT = 600                            # s: a rank group's run
+TP_RANKS = (2, 4)
+GLOO = "gloo, one card"
+
+
+# the reference state of the one-step comparisons: masks drawn uniformly
+# at 40% sparsity from the train state's seeded generator (the same in
+# every process), not scored by SNIP (whose scores differ by rounding
+# between one process and a group)
+DP_REF_MASK = dict(TRAIN_MASK, sparse_init="uniform")
+
+
+def _same_on_ranks(tensors, what):
+    """Every tensor bit for bit rank 0's (broadcast and compare)."""
+    import torch
+    import torch.distributed as dist
+    bad = []
+    for n, t in tensors.items():
+        t0 = t.detach().clone()
+        dist.broadcast(t0, 0)
+        if not torch.equal(t0, t.detach()):
+            bad.append(n)
+    _check(not bad, f"{what} differ across ranks: {bad[:5]}")
+    return len(tensors)
+
+
+def _step_snapshot(model, state, met):
+    import torch
+    return {"loss": met["loss"].item(),
+            "grads": {n: p.grad.detach().float().clone()
+                      for n, p in model.named_parameters()},
+            "bn": {n: v.clone() for n, v in model.state_dict().items()
+                   if "running" in n},
+            "params": {n: p.detach().clone()
+                       for n, p in model.named_parameters()},
+            "masks": {n: m.clone() for n, m in
+                      state.mask_state.masks.items()},
+            "opt": {f"{i} {k}": v.clone() for i, st in
+                    state.optimizer.state_dict()["state"].items()
+                    for k, v in st.items() if torch.is_tensor(v)}}
+
+
+def step_errors(got, want):
+    """(loss rel err, max and worst of the gradients' relative norm
+    errors, BN running stats' rel err) of one step against another."""
+    le = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    ge = {n: ((got["grads"][n] - w).norm() / w.norm().clamp(min=1e-30)
+              ).item() for n, w in want["grads"].items()}
+    worst = max(ge, key=ge.get)
+    be = max(rel_err(got["bn"][n], w)[1] for n, w in want["bn"].items())
+    return le, ge[worst], worst, be
+
+
+def _check_step(tag, dn, errs):
+    le, ge, worst, be = errs
+    tol = TOL_STEP[dn]
+    print(f"[dp] {tag} {dn}: loss rel {le:.3g} (tol {tol['loss']}); grad "
+          f"rel norm err max {ge:.3g} ({worst}, tol {tol['grad']}); BN "
+          f"running stats rel {be:.3g} (tol {tol['bn']})", flush=True)
+    _check(le <= tol["loss"], f"{tag} {dn} loss rel err {le:.3g}")
+    _check(ge <= tol["grad"], f"{tag} {dn} grad {worst} rel err {ge:.3g}")
+    _check(be <= tol["bn"], f"{tag} {dn} BN stats rel err {be:.3g}")
+
+
+def _dp_rank(ref_dir):
+    """One rank of `dp` (b): DP_STEPS sparse bf16 steps over the group
+    (SNIP masks scored over it), then one step from the reference state in
+    bf16 and fp32 against the one-process step saved in ref_dir."""
+    import torch
+    from slak_tpu_torch.parallel import mesh
+    from slak_tpu_torch.parallel.syncbn import make_syncbn_train_step
+    group = mesh.axis_group()
+    r = mesh.rank()
+    model, state, tc, mc, lr, batches = train_setup(
+        TRAIN_BATCH, torch.bfloat16, TRAIN_MASK, group=group)
+    n_masks = _same_on_ranks(state.mask_state.masks, "SNIP masks")
+    step = make_syncbn_train_step(model, tc, mc, lr)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    refreshes, losses = 0, []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for k in range(DP_STEPS):
+        before = {n: m.clone() for n, m in state.mask_state.masks.items()}
+        state, met = step(state, batches[k % 2], gen)
+        losses.append(met["loss"].item())
+        _check(math.isfinite(losses[-1]), f"rank {r} step {k}: loss "
+               f"{losses[-1]}")
+        masks = state.mask_state.masks
+        if any(not torch.equal(before[n], masks[n]) for n in masks):
+            refreshes += 1
+            _same_on_ranks(masks, f"masks after the refresh of step {k}")
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    want = cli_counts(model.cfg, steps=DP_STEPS)
+    _check(counts == want, f"rank {r}: launch counts {counts}, want {want}")
+    _check(refreshes == DP_STEPS // mc.update_frequency,
+           f"rank {r}: {refreshes} DST refreshes")
+    n_params = _same_on_ranks(dict(model.named_parameters()), "parameters")
+    out = {"steps": dict(losses=losses, counts=counts, seconds=sec,
+                         refreshes=refreshes, masks=n_masks,
+                         params=n_params)}
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    for dtype, b in ((torch.bfloat16, TRAIN_BATCH),
+                     (torch.float32, CHECK_BATCH_FP32)):
+        dn = str(dtype).split(".")[1]
+        model, state, tc, mc, lr, batches = train_setup(
+            b, dtype, DP_REF_MASK, group=group)
+        step = make_syncbn_train_step(model, tc, mc, lr)
+        state, met = step(state, batches[0],
+                          torch.Generator(device="cuda").manual_seed(5))
+        got = _step_snapshot(model, state, met)
+        _same_on_ranks(got["grads"], f"{dn} gradients")
+        want = torch.load(os.path.join(ref_dir, f"step_{dn}.pt"),
+                          map_location="cuda", weights_only=False)
+        out[dn] = step_errors(got, want)
+        del model, state, step, batches, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_reference(ref_dir):
+    """The one-process steps the ranks are held to: one step from the
+    reference state (DP_REF_MASK) at the global batch, bf16 at TRAIN_BATCH
+    and fp32 at CHECK_BATCH_FP32, saved to ref_dir."""
+    import torch
+    from slak_tpu_torch.train.engine import make_train_step
+    for dtype, b in ((torch.bfloat16, TRAIN_BATCH),
+                     (torch.float32, CHECK_BATCH_FP32)):
+        dn = str(dtype).split(".")[1]
+        model, state, tc, mc, lr, batches = train_setup(b, dtype,
+                                                        DP_REF_MASK)
+        step = make_train_step(model, tc, mc, lr)
+        state, met = step(state, batches[0],
+                          torch.Generator(device="cuda").manual_seed(5))
+        snap = _step_snapshot(model, state, met)
+        torch.save({k: snap[k] for k in ("loss", "grads", "bn")},
+                   os.path.join(ref_dir, f"step_{dn}.pt"))
+        del model, state, step, batches, snap
+        torch.cuda.empty_cache()
+
+
+def dp_nccl_world1(tmp):
+    """`dp` (a): a group of one rank on NCCL. Two bf16 steps through the
+    group (SyncBN's all-reduces, the gradient all-reduce) against the same
+    steps without one, from the same state and generator: every gradient,
+    parameter, BN stat, mask and optimizer tensor bit for bit; the
+    launches counted. cuDNN is deterministic for the check (the 5x5
+    branch's conv)."""
+    import torch
+    from slak_tpu_torch.parallel import mesh
+    from slak_tpu_torch.parallel.syncbn import make_syncbn_train_step
+    from slak_tpu_torch.train.engine import make_train_step
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mesh.init_distributed("nccl", f"file://{tmp}/nccl_world1", 0, 1, 0)
+    try:
+        group = mesh.axis_group()
+        runs, counts = {}, None
+        for tag in ("plain", "group"):
+            g = group if tag == "group" else None
+            model, state, tc, mc, lr, batches = train_setup(
+                TRAIN_BATCH, torch.bfloat16, DP_REF_MASK, group=g)
+            step = (make_syncbn_train_step(model, tc, mc, lr) if g is not None
+                    else make_train_step(model, tc, mc, lr))
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            torch.cuda.synchronize()
+            reset_counts()
+            for k in range(2):
+                state, met = step(state, batches[k], gen)
+            torch.cuda.synchronize()
+            if g is not None:
+                counts = read_counts()
+            runs[tag] = _step_snapshot(model, state, met)
+            del model, state, step, batches
+            torch.cuda.empty_cache()
+    finally:
+        mesh.destroy()
+        torch.backends.cudnn.deterministic = det
+
+    def differ(a, b):
+        bad = [] if a["loss"] == b["loss"] else ["loss"]
+        for part in ("grads", "bn", "params", "masks", "opt"):
+            bad += [f"{part} {n}" for n, v in a[part].items()
+                    if not torch.equal(v, b[part][n])]
+        return bad
+    bad = differ(runs["group"], runs["plain"])
+    n = sum(len(runs["plain"][p]) for p in ("grads", "bn", "params",
+                                             "masks", "opt"))
+    print(f"[dp] (a) NCCL, world size 1: 2 bf16 steps at batch {TRAIN_BATCH}"
+          f" through the group vs without: {n - len(bad)} of {n} tensors "
+          f"and the loss bit for bit; launches {counts}", flush=True)
+    _check(not bad, f"NCCL world-1 steps differ from the ungrouped ones: "
+           f"{bad[:5]}")
+    from slak_tpu_torch.models.slak import config_for
+    want = cli_counts(config_for("SLaK_tiny", **MODEL_KW), steps=2)
+    _check(counts == want, f"NCCL world-1 launch counts {counts}, want "
+           f"{want}")
+    return counts
+
+
+class RankBatches:
+    """The train loader of a one-process CLI run that sees what DP_RANKS
+    ranks see: each batch the ranks' batches concatenated in rank order."""
+
+    def __init__(self, ds, batch_size, rank=0, world_size=1, **kw):
+        from slak_tpu_torch.data.loader import BatchLoader
+        self.parts = [BatchLoader(ds, batch_size // DP_RANKS, rank=r,
+                                  world_size=DP_RANKS, **kw)
+                      for r in range(DP_RANKS)]
+        self.num_workers = self.parts[0].num_workers
+
+    def set_epoch(self, epoch):
+        for p in self.parts:
+            p.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.parts[0])
+
+    def __iter__(self):
+        import torch
+        for parts in zip(*self.parts):
+            yield tuple(torch.cat(t) for t in zip(*parts))
+
+
+def dp_cli():
+    """`dp` (c): the train CLI through the launcher on DP_RANKS gloo ranks
+    (the recipe run of `cli` at TRAIN_BATCH // DP_RANKS a rank: SNIP over
+    the group, a 4-step epoch, eval on 129 synthetic val images, a
+    checkpoint) and the one-process CLI at TRAIN_BATCH fed the ranks'
+    batches concatenated: the first step's losses within TOL_STEP, every
+    val image counted once, rank 0's one checkpoint."""
+    import shutil
+    from slak_tpu_torch import data
+    from slak_tpu_torch.train import launch
+    from slak_tpu_torch.train.main import main, parse_args
+    out_dir = os.path.join(OUT_DIR, "dp_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    n_val = 129
+    argv = list(CLI_ARGS)
+    argv[argv.index("--batch_size") + 1] = str(TRAIN_BATCH // DP_RANKS)
+    argv += ["--epochs", "1", "--synthetic_len", str(4 * n_val),
+             "--dist_backend", "gloo"]
+    try:
+        t0 = time.perf_counter()
+        two = launch.main(["--nproc", str(DP_RANKS), "--timeout",
+                           str(DP_TIMEOUT), "--"] + argv
+                          + ["--output_dir", out_dir])
+        sec2 = time.perf_counter() - t0
+        ckpts = sorted(f for f in os.listdir(out_dir)
+                       if f.startswith("checkpoint-")
+                       and f[len("checkpoint-"):].isdigit())
+        base = data.BatchLoader
+
+        def loader(ds, batch_size, shuffle=True, **kw):
+            if shuffle:
+                return RankBatches(ds, batch_size, shuffle=True, **kw)
+            return base(ds, batch_size, shuffle=shuffle, **kw)
+        argv[argv.index("--batch_size") + 1] = str(TRAIN_BATCH)
+        data.BatchLoader = loader
+        try:
+            t0 = time.perf_counter()
+            one = main(parse_args(argv + ["--disable_eval", "true",
+                                          "--save_ckpt", "false"]))
+            sec1 = time.perf_counter() - t0
+        finally:
+            data.BatchLoader = base
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    st = two["epochs"][0]
+    l2, l1 = two["step_losses"][0], one["step_losses"][0]
+    le = abs(l2 - l1) / abs(l1)
+    print(f"[dp] (c) the CLI through launch --nproc {DP_RANKS} ({GLOO}): "
+          f"{sec2:.1f} s in all; {len(two['step_losses'])} steps, losses "
+          f"{[round(v, 5) for v in two['step_losses']]}; the one-process CLI"
+          f" on the same batches {[round(v, 5) for v in one['step_losses']]}"
+          f" ({sec1:.1f} s); first step rel {le:.3g} (tol "
+          f"{TOL_STEP['bfloat16']['loss']}); val images {st['test_images']}"
+          f"; checkpoints on disk {ckpts}, written by rank 0 "
+          f"{[os.path.basename(c) for c in two['checkpoints']]}; "
+          f"{st['images_per_sec']:.1f} img/s over the ranks with the "
+          f"loader feeding", flush=True)
+    _check(le <= TOL_STEP["bfloat16"]["loss"], f"CLI first step loss rel "
+           f"err {le:.3g}")
+    _check(st["test_images"] == n_val, f"eval counted {st['test_images']} "
+           f"of {n_val} val images")
+    _check(ckpts == ["checkpoint-0"], f"checkpoints {ckpts}")
+    _check([os.path.basename(c) for c in two["checkpoints"]
+            if "best" not in c] == ["checkpoint-0"],
+           f"rank 0 wrote {two['checkpoints']}")
+    return dict(seconds=sec2, losses=two["step_losses"],
+                one_process_losses=one["step_losses"],
+                images_per_sec=st["images_per_sec"])
+
+
+def phase_dp():
+    """Data parallel with SyncBN: (a) NCCL at world size 1, bit for bit;
+    (b) DP_RANKS gloo ranks on the card; (c) the CLI through the
+    launcher."""
+    import tempfile
+    import torch
+    from slak_tpu_torch.train.launch import run_ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="slak_dp_") as tmp:
+        counts_a = dp_nccl_world1(tmp)
+        ta = time.perf_counter() - t0
+        dp_reference(tmp)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res = run_ranks(_dp_rank, DP_RANKS, (tmp,), "gloo", None, DP_TIMEOUT,
+                        DP_TIMEOUT)
+        tb = time.perf_counter() - t1
+    for r, out in enumerate(res):
+        st = out["steps"]
+        print(f"[dp] (b) rank {r} of {DP_RANKS} ({GLOO}): {DP_STEPS} bf16 "
+              f"steps at {TRAIN_BATCH // DP_RANKS} a rank (global "
+              f"{TRAIN_BATCH}) in {st['seconds']:.2f} s, losses "
+              f"{[round(v, 5) for v in st['losses']]}, {st['refreshes']} "
+              f"refreshes, {st['masks']} masks and {st['params']} "
+              f"parameters the same on every rank; launches {st['counts']}",
+              flush=True)
+        for dn in ("bfloat16", "float32"):
+            _check_step(f"(b) rank {r}, one step vs one process", dn,
+                        out[dn])
+    _check(res[0]["steps"]["losses"] == res[1]["steps"]["losses"],
+           "the ranks' losses differ")
+    tc = time.perf_counter()
+    cli = dp_cli()
+    tc = time.perf_counter() - tc
+    print(f"[dp] times ({GLOO}; no data-parallel speed): (a) {ta:.1f} s, "
+          f"(b) {tb:.1f} s, (c) {tc:.1f} s", flush=True)
+    return {"world1_nccl": counts_a, "rank_counts": res[0]["steps"]["counts"],
+            "cli": cli}
+
+
+def _tp_rank(ref_dir):
+    """One rank of `tp`: K1 (and K6 on stage 4's 7x7 maps) at this group's
+    shard widths against the plain version, then the flagship's
+    channel-parallel eval in bf16 and fp32 against the one-process logits
+    in ref_dir, the launches counted."""
+    import torch
+    from slak_tpu_torch.models import create_model
+    from slak_tpu_torch.models.slak import config_for
+    from slak_tpu_torch.ops import dwconv as K1
+    from slak_tpu_torch.parallel import mesh
+    from slak_tpu_torch.parallel.tp import make_tp_apply
+    d, r = mesh.world(), mesh.rank()
+    cfg = config_for("SLaK_tiny", **MODEL_KW)
+    out = {"kernels": []}
+    g = torch.Generator(device="cuda").manual_seed(20 + r)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for i, C, H, K, s, _ in stage_shapes(cfg):
+            c = -(-C // d)
+            x = torch.randn(MAIN_BATCH, c, H, H, generator=g, device="cuda"
+                            ).to(dtype)
+            ws = [(0.05 * torch.randn(c, *shape, generator=g, device="cuda")
+                   ).to(dtype).float() for shape in ((K, s), (s, K))]
+            route = route_of(x, ws[0])
+            want = ("toeplitz2d" if H * H <= K1.P_MAX else "band") \
+                if dtype == torch.bfloat16 else "band_f32"
+            _check(route == want, f"tp stage {i + 1} {dn} at {c} channels: "
+                   f"route {route}, want {want}")
+            err = check_dwconv_pair(x, ws, dn, f"tp stage {i + 1} {c} ch")
+            same_bits_twice(lambda: K1.dwconv(x, ws[1], out=K1.dwconv(
+                x, ws[0])), f"tp stage {i + 1} {dn} {c} ch")
+            out["kernels"].append((dn, i + 1, c, route, err[1]))
+    model = create_model("SLaK_tiny", dtype=torch.bfloat16, seed=0,
+                         **MODEL_KW)
+    randomize(model, 1)
+    tp = make_tp_apply(model)
+    images = torch.load(os.path.join(ref_dir, "images.pt"),
+                        map_location="cuda")
+    nb = sum(cfg.depths)
+    k6 = k6_convs(cfg)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        x = images.to(dtype)
+        tp(x)                               # fold the shard's taps, warm up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = tp(x)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        want = torch.load(os.path.join(ref_dir, f"logits_{dn}.pt"),
+                          map_location="cuda")
+        err = rel_err(logits, want)
+        _check(bool(torch.isfinite(logits).all()), f"tp {dn} logits not "
+               f"finite")
+        _check(err[1] <= TOL_LOGITS[dn], f"tp {dn} logits rel err "
+               f"{err[1]:.3g} > {TOL_LOGITS[dn]}")
+        want_counts = {"dwconv": 2 * nb, "fused_mlp": 0}
+        if dtype == torch.bfloat16:
+            want_counts.update(dwconv_band=2 * nb - k6, dwconv_toeplitz=k6,
+                               dwconv_tf32=0)
+        else:
+            want_counts.update(dwconv_band=0, dwconv_toeplitz=0,
+                               dwconv_tf32=2 * nb)
+        got = {k: counts[k] for k in want_counts}
+        _check(got == want_counts, f"tp {dn} launches {got}, want "
+               f"{want_counts}")
+        out[dn] = dict(err=err, counts=got, ms=1e3 * sec)
+    return out
+
+
+def add_parallel_launches(kernels, dp_run, tp_run):
+    """Each kernel row's launches in `dp` (b) (one rank's, DP_STEPS bf16
+    steps) and `tp` (one rank's, one forward a dtype), on the rows the
+    earlier phases made."""
+    dp, tp = {}, {}
+    if dp_run is not None:
+        c = dp_run["rank_counts"]
+        dp = {"dwconv": c["dwconv"] - c["dwconv_toeplitz"],
+              "dwconv2d": c["dwconv_toeplitz"] + c["dwconv_stats_toeplitz"],
+              "dwconv_stats": c["dwconv_stats"] - c["dwconv_stats_toeplitz"],
+              "dwconv_wgrad": c["dwconv_wgrad"], "fused_mlp": c["fused_mlp"],
+              "mlp_bwd": c["mlp_bwd"], "mlp_bwd_wide": c["mlp_bwd_wide"]}
+    if tp_run is not None:
+        for d, by in tp_run.items():
+            b, f = by["bfloat16"], by["float32"]
+            for name, n in (("dwconv", b["dwconv_band"]),
+                            ("dwconv2d", b["dwconv_toeplitz"]),
+                            ("dwconv_f32", f["dwconv_tf32"])):
+                tp.setdefault(name, {})[f"{d}_ranks"] = n
+    for k in kernels:
+        if k["name"] in dp:
+            k["dp_launches"] = dp[k["name"]]
+            k["dp_launches_in"] = ("dp: one of %d gloo ranks, %d bf16 steps "
+                                   "at %d a rank" % (DP_RANKS, DP_STEPS,
+                                                     TRAIN_BATCH // DP_RANKS))
+        if k["name"] in tp:
+            k["tp_launches"] = tp[k["name"]]
+            k["tp_launches_in"] = ("tp: one rank, one forward at batch %d "
+                                   "(bf16 for dwconv and dwconv2d, fp32 for "
+                                   "dwconv_f32)" % MAIN_BATCH)
+
+
+def phase_tp():
+    """The flagship's channel-parallel eval over 2 and then 4 gloo ranks on
+    the card at MAIN_BATCH, bf16 and fp32, against the one-process kernel
+    route."""
+    import tempfile
+    import torch
+    from slak_tpu_torch.models import create_model
+    from slak_tpu_torch.train.engine import make_eval_step
+    from slak_tpu_torch.train.launch import run_ranks
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="slak_tp_") as tmp:
+        model = create_model("SLaK_tiny", dtype=torch.bfloat16, seed=0,
+                             **MODEL_KW)
+        randomize(model, 1)
+        g = torch.Generator().manual_seed(2)
+        images = torch.randn(MAIN_BATCH, 224, 224, 3, generator=g)
+        labels = torch.zeros(MAIN_BATCH, dtype=torch.int64)
+        torch.save(images, os.path.join(tmp, "images.pt"))
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            logits = make_eval_step(model, dtype)((images, labels))["logits"]
+            torch.save(logits, os.path.join(tmp, f"logits_{dn}.pt"))
+        del model
+        torch.cuda.empty_cache()
+        for d in TP_RANKS:
+            t0 = time.perf_counter()
+            res = run_ranks(_tp_rank, d, (tmp,), "gloo", None, DP_TIMEOUT,
+                            DP_TIMEOUT)
+            sec = time.perf_counter() - t0
+            widths = sorted({k[2] for k in res[0]["kernels"]})
+            worst = max(k[4] for out in res for k in out["kernels"])
+            print(f"[tp] {d} ranks ({GLOO}): K1/K6 at shard widths {widths} "
+                  f"held to their plain versions on every rank (worst rel "
+                  f"{worst:.3g}, routes "
+                  f"{sorted({(k[0], k[3]) for k in res[0]['kernels']})}, the "
+                  f"same bits twice); {sec:.1f} s in all", flush=True)
+            for r, out in enumerate(res):
+                for dn in ("bfloat16", "float32"):
+                    o = out[dn]
+                    print(f"[tp] {d} ranks, rank {r}, {dn}: logits rel err "
+                          f"{o['err'][1]:.3g} (tol {TOL_LOGITS[dn]}) vs the "
+                          f"one-process kernel route; launches {o['counts']};"
+                          f" {o['ms']:.1f} ms a forward ({GLOO})", flush=True)
+            results[d] = {dn: res[0][dn]["counts"] for dn in
+                          ("bfloat16", "float32")}
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,timing,"
                     "train_kernels,train,train_timing,cli,erf_kernels,erf,"
-                    "dual_kernels,dual,dual_timing,probes")
+                    "dual_kernels,dual,dual_timing,probes,dp,tp")
     ap.add_argument("--base", help="mlp_ab, mlp_bwd_ab, dwconv_ab, "
                     "wgrad_ab, dwpair_ab, stacked_ab: another checkout of "
                     "the repository (e.g. the "
@@ -3578,6 +4085,7 @@ def main(argv=None) -> int:
     train_totals, train_counts, cli_runs = None, None, None
     erf_totals, k9_bf16, erf_run = None, None, None
     dual_totals, dual_counts, dual_by, probe_counts = None, None, None, None
+    dp_run, tp_run = None, None
     t_start = time.perf_counter()
     try:
         if "build" in phases:
@@ -3623,6 +4131,10 @@ def main(argv=None) -> int:
             dual_by = phase_dual_timing(TIMING_BATCH)
         if "probes" in phases:
             probe_counts = phase_probes()
+        if "dp" in phases:
+            dp_run = phase_dp()
+        if "tp" in phases:
+            tp_run = phase_tp()
         if "mlp_ab" in phases:
             _check(args.base is not None, "mlp_ab needs --base")
             phase_mlp_ab(cfg, args.base)
@@ -3923,6 +4435,8 @@ def main(argv=None) -> int:
                 bound_by=("bytes" if t["bytes_ms"] >= t["ops_ms"]
                           else "operations"),
                 library_ms=lib, times_per=per, **more))
+    if dp_run is not None or tp_run is not None:
+        add_parallel_launches(kernels, dp_run, tp_run)
     if kernels:
         print(json.dumps({"kernels": kernels}))
     if erf_run is not None:
@@ -3930,6 +4444,10 @@ def main(argv=None) -> int:
               f"{erf_run[1]:.3f}, plain {erf_run[2]:.3f}")
     if cli_runs is not None:
         print("[cli] " + json.dumps(cli_runs))
+    if dp_run is not None:
+        print("[dp] " + json.dumps(dp_run))
+    if tp_run is not None:
+        print("[tp] " + json.dumps(tp_run))
     if dual_by is not None:
         print(f"[dual_timing] bf16 eval bs{TIMING_BATCH} img/s: dual "
               f"{dual_by['dual']['img_per_s']:.1f}, split "

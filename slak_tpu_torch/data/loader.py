@@ -4,7 +4,10 @@
 Index order (:class:`ShardedBatchSampler`, ``slak_tpu``'s ``_indices``):
 the epoch's permutation from ``np.random.default_rng(seed + epoch)`` when
 shuffling, DistributedSampler-style rank slices with wrap-around padding,
-batches of ``batch_size`` with or without the ragged last one.
+batches of ``batch_size`` with or without the ragged last one. ``pad=False``
+leaves the padding out, so that the ranks together visit each item exactly
+once (the data-parallel eval split; the ranks' counts may then differ by
+one).
 
 Workers (``mode``):
   * "process": a ``torch.utils.data.DataLoader`` with ``num_workers``
@@ -50,10 +53,11 @@ class ShardedBatchSampler(torch.utils.data.Sampler):
 
     def __init__(self, n: int, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, rank: int = 0,
-                 world_size: int = 1):
+                 world_size: int = 1, pad: bool = True):
         self.n, self.batch_size = n, batch_size
         self.shuffle, self.drop_last = shuffle, drop_last
         self.seed, self.rank, self.world_size = seed, rank, world_size
+        self.pad = pad
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -64,8 +68,10 @@ class ShardedBatchSampler(torch.utils.data.Sampler):
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         if self.world_size > 1:
-            per = -(-self.n // self.world_size)
-            idx = np.concatenate([idx, idx[:per * self.world_size - self.n]])
+            if self.pad:
+                per = -(-self.n // self.world_size)
+                idx = np.concatenate([idx,
+                                      idx[:per * self.world_size - self.n]])
             idx = idx[self.rank::self.world_size]
         return idx
 
@@ -103,14 +109,15 @@ class BatchLoader:
                  drop_last: bool = True, num_workers: int = 8, seed: int = 0,
                  rank: int = 0, world_size: int = 1,
                  prefetch_batches: int = 4, mode: str = "thread",
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, pad: bool = True):
         if mode not in LOADER_MODES:
             raise ValueError(f"loader mode {mode!r}: one of "
                              f"{'/'.join(LOADER_MODES)}")
         self.ds = dataset
         self.batch_size = batch_size
         self.sampler = ShardedBatchSampler(len(dataset), batch_size, shuffle,
-                                           drop_last, seed, rank, world_size)
+                                           drop_last, seed, rank, world_size,
+                                           pad)
         self.num_workers = max(num_workers, 1)
         self.seed = seed
         self.prefetch = max(prefetch_batches, 1)

@@ -7,16 +7,39 @@ Port of ``slak_tpu/models/layers.py``:
   * GELU is the exact erf formulation (``nn.GELU()`` default).
   * trunc_normal_ with timm's absolute bounds [-2, 2] at std 0.02, drawn
     from a ``torch.Generator``.
+
+Under data parallel a step's batch is one shard of a global batch, and the
+step's generator is seeded the same on every rank; inside
+:func:`global_batch_shard` a drop-path draw is made for the whole global
+batch and the shard keeps its own rows, so the ranks together draw what one
+process would draw for the global batch.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 LN_EPS = 1e-6
+
+# per thread: (this shard's index, the number of shards) of the batch
+_SHARD = threading.local()
+
+
+@contextlib.contextmanager
+def global_batch_shard(index: int, count: int):
+    """Inside, the batch a drop-path draw is made for is shard ``index``
+    of ``count`` equal shards of a global batch, in order."""
+    before = getattr(_SHARD, "v", None)
+    _SHARD.v = (index, count)
+    try:
+        yield
+    finally:
+        _SHARD.v = before
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -41,10 +64,13 @@ def drop_path_keep(n: int, rate: float, generator=None,
     """The per-sample keep draws of one drop-path call: (n,) bool, True
     with probability 1 - rate, from ``generator`` (on its own device) when
     given, as the train step's explicit generator, else from torch's
-    default, moved to ``device``."""
+    default, moved to ``device``. Inside :func:`global_batch_shard` the
+    draw is the global batch's and this shard's n rows are kept."""
     dev = device if generator is None else generator.device
-    return (torch.rand((n,), generator=generator, device=dev) < 1.0 - rate
-            ).to(device)
+    index, count = getattr(_SHARD, "v", None) or (0, 1)
+    keep = torch.rand((n * count,), generator=generator, device=dev) \
+        < 1.0 - rate
+    return keep[index * n:(index + 1) * n].to(device)
 
 
 def drop_path(x: torch.Tensor, rate: float, generator=None,

@@ -47,6 +47,10 @@ backward (True) or the plain composition under torch autograd (False, the
 JAX route's value). BN running stats update the module buffers in
 place. ``SLaKConfig.remat`` runs each train block under
 ``torch.utils.checkpoint`` (:meth:`SLaK._remat_block`).
+``SLaKConfig.bn_axis_name`` names the process group
+(``parallel/mesh.py``, ``"data"``) over which every train-mode branch BN
+averages its batch statistics (SyncBN); eval reads the running stats and
+never reduces.
 
 The compute dtype is the input's: parameters stay float32 and are rounded
 to it where they are used, as in ``slak_tpu``, so autograd returns float32
@@ -114,6 +118,10 @@ class SLaKConfig:
     # across the backward and each block's interior is computed again
     # there (see SLaK._remat_block).
     remat: bool = False
+    # SyncBN over this mesh axis if set (slak_tpu's
+    # SLaKConfig.bn_axis_name): the name of a process group registered by
+    # parallel.mesh.init_distributed, "data" for the whole world
+    bn_axis_name: Optional[str] = None
 
     def __post_init__(self):
         if self.eval_layout not in EVAL_LAYOUTS:
@@ -195,25 +203,26 @@ class ReparamLargeKernelConv(nn.Module):
         return [getattr(self, n) for n in ("LoRA1", "LoRA2", "lkb_origin",
                                            "small_conv") if hasattr(self, n)]
 
-    def train_forward(self, x, plain: bool = False):
+    def train_forward(self, x, plain: bool = False, group=None):
         """Sum of the branches in train mode, each rounded to x's dtype
         (``_lk_forward(train=True)``): the large BN branches through the
         stats-fused conv, the small one (and BN-less ones) through
-        ``F.conv2d``."""
+        ``F.conv2d``; every BN's statistics averaged over ``group`` when
+        one is given."""
         out = None
         for name in ("LoRA1", "LoRA2", "lkb_origin", "small_conv"):
             br = getattr(self, name, None)
             if br is None:
                 continue
             if hasattr(br, "bn") and name != "small_conv":
-                y = bn_branch_train(x, br.conv.weight, br.bn, plain)
+                y = bn_branch_train(x, br.conv.weight, br.bn, plain, group)
             else:
                 y = depthwise_conv2d(x, br.conv.weight)
                 if hasattr(br, "bn"):
                     bn = br.bn
                     y = batch_norm_train(y, bn.weight, bn.bias,
                                          bn.running_mean, bn.running_var,
-                                         bn.momentum, bn.eps)
+                                         bn.momentum, bn.eps, group=group)
             out = y if out is None else out + y
         return out
 
@@ -254,6 +263,7 @@ class Block(nn.Module):
         if ls_init > 0:
             self.gamma = nn.Parameter(ls_init * torch.ones(c))
         self.drop_path_rate = 0.0            # set by SLaK from the config
+        self.bn_axis_name: Optional[str] = None   # likewise
         self._cache: Dict = {}
 
     def _version(self):
@@ -315,7 +325,11 @@ class Block(nn.Module):
         composition in the same rounding order
         (slak_tpu/models/slak.py:702-715); drop-path multiplies the branch
         outside the fused tail."""
-        y = self.large_kernel.train_forward(x, plain)
+        group = None
+        if self.bn_axis_name is not None:
+            from slak_tpu_torch.parallel.mesh import axis_group
+            group = axis_group(self.bn_axis_name)
+        y = self.large_kernel.train_forward(x, plain, group)
         rate = self.drop_path_rate
         gamma = getattr(self, "gamma", None)
         if x.shape[1] <= BWD_C_MAX or TRAIN_WIDE_MLP_BWD:
@@ -371,6 +385,7 @@ class SLaK(nn.Module):
         for j, b in enumerate(blocks):
             b.drop_path_rate = (cfg.drop_path_rate * j / (len(blocks) - 1)
                                 if len(blocks) > 1 else 0.0)
+            b.bn_axis_name = cfg.bn_axis_name
         self.norm = nn.LayerNorm(dims[-1], eps=LN_EPS)
         self.head = nn.Linear(dims[-1], cfg.num_classes)
 

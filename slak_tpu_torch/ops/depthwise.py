@@ -120,13 +120,14 @@ def run_taps(x: torch.Tensor, taps: Sequence[torch.Tensor],
 
 
 def bn_branch_train(x: torch.Tensor, w: torch.Tensor, bn: torch.nn.Module,
-                    plain: bool = False) -> torch.Tensor:
+                    plain: bool = False, group=None) -> torch.Tensor:
     """Train route of one large conv(+BN) branch (``_branch_forward`` with
     the stats-fused banded kernel): the K4 conv emits y and its BN batch
-    sums, and BN normalizes from the sums, updating ``bn``'s running
-    stats. x: (N, C, H, W) compute dtype; w: (C, 1, kh, kw) float32."""
+    sums, and BN normalizes from the sums (averaged over ``group`` when
+    one is given: SyncBN), updating ``bn``'s running stats. x: (N, C, H,
+    W) compute dtype; w: (C, 1, kh, kw) float32."""
     y, s1, s2 = DwconvBnStats.apply(x, w, plain)
     n, _, h, wd = x.shape
     return batch_norm_from_sums(y, s1, s2, n * h * wd, bn.weight, bn.bias,
                                 bn.running_mean, bn.running_var,
-                                momentum=bn.momentum, eps=bn.eps)
+                                momentum=bn.momentum, eps=bn.eps, group=group)

@@ -106,12 +106,19 @@ def erk_densities(shapes: Dict[str, Tuple[int, ...]], density: float,
 
 def snip_sparsities(loss_fn: Callable[[], torch.Tensor],
                     maskable: Dict[str, torch.Tensor],
-                    density: float) -> Dict[str, float]:
+                    density: float, group=None) -> Dict[str, float]:
     """SNIP (sparse_core.py:11-47): saliency |w * dL/dw| on one batch
     (``loss_fn()`` evaluates it with the current weights), a global top-k
-    threshold, survivors strictly above it, per-layer sparsities."""
+    threshold, survivors strictly above it, per-layer sparsities. Under
+    data parallel (``group``) each rank's loss is over its shard of the
+    global first batch and the gradients are averaged over the group, so
+    every rank scores the same saliencies."""
     names = list(maskable)
     grads = torch.autograd.grad(loss_fn(), [maskable[n] for n in names])
+    if group is not None:
+        from slak_tpu_torch.parallel.mesh import all_reduce_
+        grads = [g.contiguous() for g in grads]
+        all_reduce_(grads, "mean", group)
     scores = {n: (maskable[n] * g).abs().detach()
               for n, g in zip(names, grads)}
     all_scores = torch.cat([s.flatten() for s in scores.values()])
@@ -129,10 +136,11 @@ def _uniform(shape, generator, device) -> torch.Tensor:
 def init_masks(named: Dict[str, torch.Tensor], cfg: MaskConfig,
                generator: torch.Generator,
                loss_fn: Optional[Callable[[], torch.Tensor]] = None,
-               masks: Optional[Masks] = None) -> MaskState:
+               masks: Optional[Masks] = None, group=None) -> MaskState:
     """The initial MaskState. ``masks`` given: those (resuming a run, or
     masks shared with another implementation); else by ``sparse_init``
-    (``snip`` needs ``loss_fn``, one batch's loss)."""
+    (``snip`` needs ``loss_fn``, one batch's loss, its gradients averaged
+    over ``group`` when one is given)."""
     maskable = select_maskable(named, cfg.only_L)
     if masks is not None:
         out = {n: m.float().to(maskable[n].device) for n, m in masks.items()}
@@ -150,7 +158,8 @@ def init_masks(named: Dict[str, torch.Tensor], cfg: MaskConfig,
             if loss_fn is None:
                 raise ValueError("snip init needs loss_fn over one batch")
             dens = {n: 1.0 - s for n, s in
-                    snip_sparsities(loss_fn, maskable, density).items()}
+                    snip_sparsities(loss_fn, maskable, density,
+                                    group).items()}
         else:
             raise ValueError(f"unknown sparse_init {mode!r}")
         if dens is not None:

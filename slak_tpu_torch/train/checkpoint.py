@@ -11,6 +11,10 @@ of the checkpoints saved every ``save_ckpt_freq`` epochs; ``auto_load``
 resumes from the latest ``checkpoint-N``. :func:`load_into` also takes a
 reference ``.pth`` (its model weights only, through
 ``utils.convert.load_torch_checkpoint``).
+
+Under data parallel every rank holds the same state: only rank 0 writes,
+and the other ranks wait at a barrier until the file is whole; every rank
+reads on resume.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from slak_tpu_torch.parallel.mesh import barrier, rank
 from slak_tpu_torch.sparsity.masking import MaskState
 from slak_tpu_torch.train.engine import TrainState
 
@@ -43,19 +48,24 @@ def state_dict(state: TrainState, epoch: int) -> dict:
 
 def save_checkpoint(output_dir: str, state: TrainState, epoch: int,
                     tag: Optional[str] = None, save_ckpt_freq: int = 1,
-                    save_ckpt_num: int = 3) -> str:
+                    save_ckpt_num: int = 3) -> Optional[str]:
     """Save ``checkpoint-{epoch|tag}`` (through a temporary file, so a
-    checkpoint on disk is always whole) and apply the retention window."""
-    path = os.path.join(output_dir,
-                        f"checkpoint-{tag if tag is not None else epoch}")
-    tmp = path + ".tmp"
-    torch.save(state_dict(state, epoch), tmp)
-    os.replace(tmp, path)
-    if tag is None and epoch >= save_ckpt_freq * save_ckpt_num:
-        old = os.path.join(output_dir, "checkpoint-%d"
-                           % (epoch - save_ckpt_freq * save_ckpt_num))
-        if os.path.exists(old):
-            os.remove(old)
+    checkpoint on disk is always whole) and apply the retention window.
+    Under data parallel rank 0 writes and every rank returns after it has;
+    returns the path written, None on the other ranks."""
+    path = None
+    if rank() == 0:
+        path = os.path.join(output_dir,
+                            f"checkpoint-{tag if tag is not None else epoch}")
+        tmp = path + ".tmp"
+        torch.save(state_dict(state, epoch), tmp)
+        os.replace(tmp, path)
+        if tag is None and epoch >= save_ckpt_freq * save_ckpt_num:
+            old = os.path.join(output_dir, "checkpoint-%d"
+                               % (epoch - save_ckpt_freq * save_ckpt_num))
+            if os.path.exists(old):
+                os.remove(old)
+    barrier()
     return path
 
 

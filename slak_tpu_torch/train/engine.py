@@ -6,7 +6,11 @@ One call of the step from :func:`make_train_step`:
      arrays) into the optimizer's groups;
   2. runs forward + backward over ``update_freq`` micro-batches, the
      gradients summed and divided by ``update_freq`` (BN running stats
-     carry from one micro-batch to the next);
+     carry from one micro-batch to the next); under data parallel (a
+     process ``group``, the counterpart of ``pmean_axis``) the batch is
+     this rank's shard of the global batch, drop-path draws are the global
+     batch's, and the gradients and the loss are then averaged over the
+     group in a few flat buffers;
   3. takes the global gradient norm, clips (when ``clip_grad``), and runs
      the AdamW or Adan step;
   4. masks the weights, and every ``update_frequency`` optimizer steps
@@ -29,8 +33,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from slak_tpu_torch.models.layers import global_batch_shard
 from slak_tpu_torch.models.slak import SLaK, apply
+from slak_tpu_torch.parallel.mesh import all_reduce_
 from slak_tpu_torch.sparsity.masking import (MaskConfig, MaskState,
                                              apply_mask, cosine_prune_rate,
                                              init_masks, truncate_weights)
@@ -76,13 +83,14 @@ def create_train_state(model: SLaK, train_cfg: TrainConfig,
                        mask_cfg: Optional[MaskConfig] = None,
                        snip_loss_fn: Optional[Callable[[], torch.Tensor]]
                        = None, masks: Optional[Dict[str, torch.Tensor]]
-                       = None, seed: int = 0) -> TrainState:
+                       = None, seed: int = 0, group=None) -> TrainState:
     """Put ``model`` in train mode; build its masks (``masks`` given, or by
     ``mask_cfg.sparse_init``; ``snip`` needs ``snip_loss_fn``, the loss of
-    one batch with the current weights), mask the weights, then the
-    optimizer (``train_cfg.opt``: AdamW or Adan) and the EMA. The masks'
-    random draws come from a generator on the model's device seeded with
-    ``seed``."""
+    one batch with the current weights, its gradients averaged over
+    ``group`` when one is given), mask the weights, then the optimizer
+    (``train_cfg.opt``: AdamW or Adan) and the EMA. The masks' random
+    draws come from a generator on the model's device seeded with
+    ``seed`` (the same on every rank)."""
     if train_cfg.opt not in OPTIMIZERS:
         raise ValueError(f"optimizer {train_cfg.opt!r}: one of "
                          f"{'/'.join(OPTIMIZERS)}")
@@ -92,7 +100,8 @@ def create_train_state(model: SLaK, train_cfg: TrainConfig,
     mask_state = None
     if mask_cfg is not None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        mask_state = init_masks(named, mask_cfg, gen, snip_loss_fn, masks)
+        mask_state = init_masks(named, mask_cfg, gen, snip_loss_fn, masks,
+                                group)
         apply_mask(named, mask_state.masks)
     groups = param_groups(named.items(), train_cfg.layer_decay)
     if train_cfg.opt == "adan":
@@ -118,12 +127,15 @@ def make_train_step(model: SLaK, train_cfg: TrainConfig,
                     mask_cfg: Optional[MaskConfig],
                     lr_schedule: np.ndarray,
                     wd_schedule: Optional[np.ndarray] = None,
-                    plain: bool = False):
+                    plain: bool = False, group=None):
     """Returns ``train_step(state, (images, targets), generator=None) ->
     (state, metrics)``: images NHWC, ``update_freq * B`` of them; targets
     int labels or soft (N, classes) ones. ``generator`` draws the
     drop-path masks. ``plain`` runs the kernels' plain versions on any
-    device."""
+    device. ``group``: a process group over which the batch is sharded
+    (data parallel; the counterpart of the JAX step's ``pmean_axis``):
+    each rank passes its shard, in rank order, and the same generator
+    state."""
     dtype = train_cfg.compute_dtype
     uf = train_cfg.update_freq
     growth_reads_grads = mask_cfg is not None and mask_cfg.growth_mode in (
@@ -146,14 +158,22 @@ def make_train_step(model: SLaK, train_cfg: TrainConfig,
 
         mb = images.shape[0] // uf
         loss_sum = torch.zeros((), device=dev)
-        for k in range(uf):
-            sl = slice(k * mb, (k + 1) * mb)
-            logits = apply(state.model, images[sl], plain, generator)
-            loss = _loss(logits, targets[sl], train_cfg.smoothing)
-            (loss / uf if uf > 1 else loss).backward()
-            loss_sum += loss.detach()
+        shard = (0, 1) if group is None else (dist.get_rank(group),
+                                              dist.get_world_size(group))
+        with global_batch_shard(*shard):
+            for k in range(uf):
+                sl = slice(k * mb, (k + 1) * mb)
+                logits = apply(state.model, images[sl], plain, generator)
+                loss = _loss(logits, targets[sl], train_cfg.smoothing)
+                (loss / uf if uf > 1 else loss).backward()
+                loss_sum += loss.detach()
 
         named = state.named_params()
+        if group is not None:
+            # the DDP gradient all-reduce (pmean_axis): every gradient a
+            # rank has (the same set on every rank) and the loss
+            all_reduce_([p.grad for p in named.values()
+                         if p.grad is not None] + [loss_sum], "mean", group)
         grads = [p.grad for p in named.values()]
         gnorm = global_grad_norm(grads)
         raw_grads = ({n: p.grad.clone() for n, p in named.items()}

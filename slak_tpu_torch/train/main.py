@@ -10,9 +10,25 @@ counterpart of ``python -m slak_tpu.train.main`` (the reference's
 
 Every flag of ``slak_tpu``'s parses here with its default and meaning;
 ``--device`` (default: the CUDA card, through ``resolve_device``; the
-tests pass ``cpu``) is the port's own. Flags of runs over several devices
-(``--n_devices`` > 1, ``--multi_host``, ``--tp_eval``) raise: data
-parallel and tensor-parallel eval are later modules.
+tests pass ``cpu``) and ``--dist_backend`` are the port's own.
+
+Data parallel with SyncBN (``parallel/``), one process a rank:
+``--n_devices N`` starts N local ranks (``train/launch.py``), ``--multi_host``
+(or a ``torchrun`` environment) makes this process one rank of an env://
+rendezvous; ``--dist_backend`` is ``nccl`` (one card a rank) or ``gloo``
+(CPU ranks, or ranks sharing a card), never chosen silently.
+``--batch_size`` stays per rank, as in ``slak_tpu``: a step's global batch is
+``batch_size x update_freq x ranks``, rank r's share the r-th of each
+global batch's shards (``ShardedBatchSampler``'s order). Mixup / CutMix,
+random erasing and drop path draw for the whole global batch (the images
+and labels gathered from every rank) and each rank keeps its rows; the
+branch BNs average their statistics over the ranks and the step averages
+the gradients, so a step computes the one-process step on the
+concatenated batch. The val images are split over the ranks, each visited
+once, and the sums of loss, hits and images all-reduced. Only rank 0
+prints, logs and writes checkpoints. ``--tp_eval`` with ``--eval`` runs the
+eval channel-parallel over the ranks (``parallel/tp.py``), every rank on
+every val image.
 
 One epoch: the loader's batches (host transforms in its workers) are
 copied to the device ahead of use; mixup / CutMix and random erasing run
@@ -160,8 +176,8 @@ def get_args_parser():
     p.add_argument("--verbose", action="store_true",
                    help="per-layer sparsity densities each epoch")
     p.add_argument("--tp_eval", type=str2bool, default=False,
-                   help="channel/tensor-parallel eval over several devices "
-                        "(not in the port yet: raises)")
+                   help="channel/tensor-parallel eval over the ranks "
+                        "(with --eval)")
     p.add_argument("--finetune", default="", help="torch ckpt to load")
     p.add_argument("--model_key", default="model|module", type=str,
                    help="'|'-separated state-dict keys tried when "
@@ -174,10 +190,13 @@ def get_args_parser():
     p.add_argument("--wandb_ckpt", type=str2bool, default=False,
                    help="upload checkpoints as wandb artifacts at the end")
     p.add_argument("--n_devices", default=None, type=int,
-                   help="devices of the data-parallel run (the port runs "
-                        "one; more raises)")
+                   help="ranks of the data-parallel run (one process and "
+                        "device a rank; more than one starts them through "
+                        "train/launch.py)")
     p.add_argument("--multi_host", type=str2bool, default=False,
-                   help="several hosts (not in the port yet: raises)")
+                   help="this process is one rank of an env:// rendezvous "
+                        "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                        "MASTER_PORT)")
     p.add_argument("--print_freq", default=200, type=int)
     p.add_argument("--remat", type=str2bool, default=False,
                    help="per-block activation rematerialization "
@@ -191,6 +210,11 @@ def get_args_parser():
     p.add_argument("--device", default=None, type=str,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the kernels' plain versions)")
+    p.add_argument("--dist_backend", default="nccl",
+                   choices=["nccl", "gloo"],
+                   help="process-group backend of a run over several ranks "
+                        "(reference utils.py:252-332): nccl, one card a "
+                        "rank; gloo for CPU ranks or ranks sharing a card")
     return p
 
 
@@ -200,21 +224,35 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def check_single_device(args):
-    """Raise for the flags of runs over several devices."""
-    if args.n_devices is not None and args.n_devices > 1:
-        raise NotImplementedError(
-            f"--n_devices {args.n_devices}: data parallel over several "
-            f"devices is a later module of the port (ROADMAP Queue 1, "
-            f"item 4); this CLI runs on one device")
-    if args.multi_host:
-        raise NotImplementedError(
-            "--multi_host: several hosts come with data parallel, a later "
-            "module of the port (ROADMAP Queue 1, item 4)")
-    if args.tp_eval:
-        raise NotImplementedError(
-            "--tp_eval: tensor-parallel eval is a later module of the port "
-            "(ROADMAP Queue 1, item 7)")
+def check_parallel_args(args):
+    """Raise, before any rank starts, for flags of runs over several ranks
+    that cannot run as given."""
+    if args.tp_eval and not args.eval:
+        raise ValueError("--tp_eval is the channel-parallel eval: it runs "
+                         "with --eval true")
+    n = args.n_devices or 1
+    if n > 1 and args.dist_backend == "nccl":
+        dev = torch.device(args.device or "cuda")
+        if dev.type != "cuda":
+            raise ValueError(f"--dist_backend nccl needs CUDA devices, not "
+                             f"{dev}; pass --dist_backend gloo")
+        if torch.cuda.device_count() < n:
+            raise ValueError(
+                f"--dist_backend nccl takes one card a rank: {n} ranks, "
+                f"{torch.cuda.device_count()} card(s); pass --dist_backend "
+                f"gloo to share a card")
+
+
+def spawn_ranks(args, timeout_s: Optional[float] = None) -> list:
+    """Run the CLI on ``args.n_devices`` spawned local ranks
+    (``train/launch.py``); their results in rank order. ``timeout_s``
+    bounds the run and each collective."""
+    from slak_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S
+    from slak_tpu_torch.train.launch import run_ranks, train_rank
+    return run_ranks(train_rank, args.n_devices, (args,), args.dist_backend,
+                     args.device, timeout_s,
+                     timeout_s if timeout_s is not None else
+                     DEFAULT_TIMEOUT_S)
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -223,7 +261,7 @@ def step_seed(seed: int, step: int) -> int:
         1, np.uint64)[0] >> 1)
 
 
-def build_model(args, device, dtype):
+def build_model(args, device, dtype, bn_axis_name=None):
     from slak_tpu_torch.models import create_model
     return create_model(
         args.model, device=device, dtype=dtype, seed=args.seed,
@@ -231,22 +269,49 @@ def build_model(args, device, dtype):
         decom=args.Decom, branch_bn=args.bn, num_classes=args.nb_classes,
         drop_path_rate=args.drop_path,
         layer_scale_init_value=args.layer_scale_init_value,
-        head_init_scale=args.head_init_scale, remat=args.remat)
+        head_init_scale=args.head_init_scale, remat=args.remat,
+        bn_axis_name=bn_axis_name)
 
 
-def evaluate(eval_step, loader, device) -> dict:
-    """Loss, top-1 and top-5 over ``loader``, weighted by batch size; the
-    sums stay on the device until the end."""
+def evaluate(eval_step, loader, device, group=None) -> dict:
+    """Loss, top-1 and top-5 over ``loader``, weighted by batch size, and
+    the image count ``n``; the sums stay on the device until the end, and
+    are summed over ``group`` (each rank's share of the val images) when
+    one is given."""
     from slak_tpu_torch.data.loader import device_prefetch
+    from slak_tpu_torch.parallel.mesh import all_reduce_
     tot = torch.zeros(4, dtype=torch.float64, device=device)
     for batch in device_prefetch(iter(loader), device):
         m = eval_step(batch)
         n = m["n"].to(device)
         tot += torch.stack([m["loss"] * n, m["acc1"] * n, m["acc5"] * n,
                             n]).double()
+    if group is not None:
+        all_reduce_([tot], "sum", group)
     loss, acc1, acc5, n = tot.tolist()
-    n = max(n, 1.0)
-    return {"loss": loss / n, "acc1": acc1 / n, "acc5": acc5 / n}
+    d = max(n, 1.0)
+    return {"loss": loss / d, "acc1": acc1 / d, "acc5": acc5 / d, "n": n}
+
+
+def make_tp_eval_step(model, compute_dtype):
+    """``engine.make_eval_step``'s metrics from the channel-parallel
+    forward over the world group (``parallel/tp.py``)."""
+    from slak_tpu_torch.parallel.tp import make_tp_apply
+    from slak_tpu_torch.train import losses as L
+    tp = make_tp_apply(model)
+    device = next(model.parameters()).device
+
+    def eval_step(batch):
+        images, labels = batch
+        labels = labels.to(device)
+        logits = tp(images.to(device=device, dtype=compute_dtype))
+        return {"logits": logits,
+                "loss": L.cross_entropy(logits, labels),
+                "acc1": L.accuracy_topk(logits, labels, 1),
+                "acc5": L.accuracy_topk(logits, labels, 5),
+                "n": torch.tensor(float(labels.shape[0]))}
+
+    return eval_step
 
 
 def ema_model(model, ema):
@@ -262,13 +327,17 @@ def main(args, step_hook: Optional[Callable] = None):
     """Run the CLI. ``step_hook(state, epoch, i)``, when given, is called
     before each train step (a test or smoke script reading the state a
     step starts from). Returns ``{"max_accuracy", "epochs": [per-epoch
-    stats], "host_path", "loader"}`` (with ``--eval``, the eval stats)."""
+    stats], "step_losses": [the last epoch's per-step losses],
+    "checkpoints": [the paths this rank wrote], "rank", "world",
+    "host_path", "loader"}`` (with ``--eval``, the eval stats); with
+    ``--n_devices`` > 1 started here, rank 0's."""
     from slak_tpu_torch import resolve_device
     from slak_tpu_torch.data import (BatchLoader, EvalTransform,
                                      MixupConfig, RandomErasingConfig,
                                      TrainTransform, build_dataset,
                                      mixup_cutmix, random_erasing)
     from slak_tpu_torch.data.loader import device_prefetch
+    from slak_tpu_torch.parallel import mesh
     from slak_tpu_torch.sparsity.masking import MaskConfig, sparsity_report
     from slak_tpu_torch.train import checkpoint as ckpt
     from slak_tpu_torch.train import losses as L
@@ -277,22 +346,44 @@ def main(args, step_hook: Optional[Callable] = None):
     from slak_tpu_torch.train.optim import cosine_schedule_array
     from slak_tpu_torch.utils.convert import load_torch_checkpoint
     from slak_tpu_torch.utils.logging import (EpochLogWriter, MetricLogger,
-                                              SmoothedValue)
+                                              SmoothedValue,
+                                              setup_for_distributed)
 
-    check_single_device(args)
+    check_parallel_args(args)
+    if not mesh.initialized():
+        if args.multi_host or mesh.env_rank_world() is not None:
+            mesh.init_distributed(args.dist_backend, device=args.device)
+        elif (args.n_devices or 1) > 1:
+            return spawn_ranks(args)[0]
+    world, rank = mesh.world(), mesh.rank()
+    if args.n_devices is not None and args.n_devices != world:
+        raise ValueError(f"--n_devices {args.n_devices} in a group of "
+                         f"{world} ranks")
+    if args.tp_eval and not mesh.initialized():
+        raise ValueError("--tp_eval runs over the ranks of a process group: "
+                         "pass --n_devices N or start the ranks with "
+                         "train/launch.py")
+    group = mesh.axis_group() if mesh.initialized() else None
     device = resolve_device(args.device)
+    if group is not None and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if world > 1:
+        setup_for_distributed(rank == 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(args)
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
-    global_batch = args.batch_size * args.update_freq
+             if device.type == "cuda" else "")
+          + (f"; rank {rank} of {world} ({args.dist_backend})"
+             if group is not None else ""))
+    global_batch = args.batch_size * args.update_freq * world
     np.random.seed(args.seed)
     random.seed(args.seed)
     torch.manual_seed(args.seed)
     cdt = torch.bfloat16 if args.use_bf16 else torch.float32
-    model = build_model(args, device, cdt)
+    model = build_model(args, device, cdt,
+                        mesh.DATA_AXIS if group is not None else None)
 
     # data ---------------------------------------------------------------
     train_tf = TrainTransform(size=args.input_size, auto_augment=args.aa,
@@ -312,12 +403,20 @@ def main(args, step_hook: Optional[Callable] = None):
         args.nb_classes, synthetic_len=max(args.synthetic_len // 4, 8),
         synthetic_size=args.input_size)
     pin = device.type == "cuda"
-    dl_train = BatchLoader(ds_train, global_batch, shuffle=True,
-                           num_workers=args.num_workers, seed=args.seed,
+    # a rank's share of each global batch; the val images split over the
+    # ranks without wrap-around padding (each visited once), or all of them
+    # on every rank for the channel-parallel eval
+    dl_train = BatchLoader(ds_train, args.batch_size * args.update_freq,
+                           shuffle=True, num_workers=args.num_workers,
+                           seed=args.seed, rank=rank, world_size=world,
                            mode=args.loader_mode, pin_memory=pin)
+    val_split = group is not None and not args.tp_eval
     dl_val = BatchLoader(ds_val, args.batch_size, shuffle=False,
                          drop_last=False, num_workers=args.num_workers,
-                         mode=args.loader_mode, pin_memory=pin)
+                         rank=rank if val_split else 0,
+                         world_size=world if val_split else 1,
+                         mode=args.loader_mode, pin_memory=pin, pad=False)
+    val_group = group if val_split else None
     niter_per_ep = len(dl_train)
     total_steps = args.epochs * niter_per_ep
     host_path = train_tf.host_path()
@@ -329,8 +428,8 @@ def main(args, step_hook: Optional[Callable] = None):
     if niter_per_ep == 0:
         raise ValueError(
             f"dataset ({len(ds_train)} images) is smaller than one global "
-            f"batch ({global_batch} = batch_size x update_freq); reduce "
-            f"--batch_size / --update_freq")
+            f"batch ({global_batch} = batch_size x update_freq x ranks); "
+            f"reduce --batch_size / --update_freq")
 
     # configs --------------------------------------------------------------
     mask_cfg = None
@@ -369,7 +468,7 @@ def main(args, step_hook: Optional[Callable] = None):
             return L.cross_entropy(logits, y0)
 
     state = create_train_state(model, train_cfg, mask_cfg, snip_loss_fn,
-                               seed=args.seed)
+                               seed=args.seed, group=group)
     snip_loss_fn = None
 
     if args.finetune:
@@ -390,6 +489,8 @@ def main(args, step_hook: Optional[Callable] = None):
         print(f"resumed from {args.resume}")
     if args.start_epoch is not None:
         start_epoch = args.start_epoch
+    # every rank built or read the same weights; rank 0's are the run's
+    mesh.replicate(model)
 
     lr_sched = cosine_schedule_array(
         args.lr, args.min_lr, args.epochs, niter_per_ep,
@@ -399,12 +500,15 @@ def main(args, step_hook: Optional[Callable] = None):
     wd_sched = cosine_schedule_array(args.weight_decay, wd_end, args.epochs,
                                      niter_per_ep)
     train_step = make_train_step(model, train_cfg, mask_cfg, lr_sched,
-                                 wd_sched)
+                                 wd_sched, group=group)
     eval_step = make_eval_step(model, cdt)
-    run = {"host_path": host_path, "loader": loader_desc}
+    run = {"host_path": host_path, "loader": loader_desc, "rank": rank,
+           "world": world, "checkpoints": []}
 
     if args.eval:
-        stats = evaluate(eval_step, dl_val, device)
+        if args.tp_eval:
+            eval_step = make_tp_eval_step(model, cdt)
+        stats = evaluate(eval_step, dl_val, device, val_group)
         print(f"Accuracy of the network: top-1 {stats['acc1']*100:.2f}%, "
               f"top-5 {stats['acc5']*100:.2f}%")
         return dict(stats, **run)
@@ -422,15 +526,15 @@ def main(args, step_hook: Optional[Callable] = None):
 
     # train loop -------------------------------------------------------------
     log_writer = None
-    if args.log_dir:
+    if args.log_dir and rank == 0:
         from slak_tpu_torch.utils.logging import TensorboardLogger
         log_writer = TensorboardLogger(args.log_dir)
     wandb_logger = None
-    if args.enable_wandb:
+    if args.enable_wandb and rank == 0:
         from slak_tpu_torch.utils.logging import WandbLogger
         wandb_logger = WandbLogger(args, args.project)
         wandb_logger.set_steps()
-    epoch_log = EpochLogWriter(args.output_dir)
+    epoch_log = EpochLogWriter(args.output_dir if rank == 0 else None)
     save_dir = args.output_dir if args.output_dir and args.save_ckpt \
         else None
     max_acc = max_acc_ema = 0.0
@@ -446,6 +550,7 @@ def main(args, step_hook: Optional[Callable] = None):
         t_ep = time.time()
         n_img = 0
         prof = None
+        step_losses = []
         for i, (x, y) in enumerate(logger.log_every(
                 device_prefetch(iter(dl_train), device), args.print_freq,
                 f"Epoch: [{epoch}]")):
@@ -456,18 +561,26 @@ def main(args, step_hook: Optional[Callable] = None):
                     _stop_profile(prof, args.profile_dir, device)
                     prof = None
             gen.manual_seed(step_seed(args.seed, epoch * niter_per_ep + i))
+            n_img += x.shape[0] * world
+            mix = mixup_cfg.enabled or re_cfg.prob > 0
+            if mix and group is not None:
+                # draw for the global batch, keep this rank's rows
+                x = mesh.all_gather_cat(x, 0, group)
+                y = mesh.all_gather_cat(y, 0, group)
             if mixup_cfg.enabled:
                 x, t = mixup_cutmix(gen, x, y, mixup_cfg)
             else:
                 t = y
             if re_cfg.prob > 0:
                 x = random_erasing(gen, x, re_cfg)
+            if mix and group is not None:
+                x, t = mesh.shard_batch((x, t), rank, world)
             if state.mask_state is not None:
                 state.mask_state.generator = gen
             if step_hook is not None:
                 step_hook(state, epoch, i)
             state, metrics = train_step(state, (x, t), gen)
-            n_img += x.shape[0]
+            step_losses.append(metrics["loss"])
             logger.update(loss=metrics["loss"], lr=metrics["lr"],
                           grad_norm=metrics["grad_norm"])
             if log_writer and i % args.print_freq == 0:
@@ -481,8 +594,12 @@ def main(args, step_hook: Optional[Callable] = None):
         sec = time.time() - t_ep
         ips = n_img / sec
         step_ms = 1e3 * sec / max(niter_per_ep, 1)
+        run["step_losses"] = torch.stack(step_losses).tolist() \
+            if step_losses else []
         print(f"epoch {epoch}: {ips:.1f} images/sec, {step_ms:.1f} ms/step "
-              f"with the loader feeding")
+              f"with the loader feeding"
+              + (f" ({world} ranks, {args.dist_backend})" if group is not None
+                 else ""))
 
         if state.mask_state is not None:
             rep = sparsity_report(state.mask_state)
@@ -494,36 +611,39 @@ def main(args, step_hook: Optional[Callable] = None):
 
         if save_dir and ((epoch + 1) % args.save_ckpt_freq == 0
                          or epoch + 1 == args.epochs):
-            ckpt.save_checkpoint(save_dir, state, epoch,
-                                 save_ckpt_freq=args.save_ckpt_freq,
-                                 save_ckpt_num=args.save_ckpt_num)
+            run["checkpoints"].append(ckpt.save_checkpoint(
+                save_dir, state, epoch, save_ckpt_freq=args.save_ckpt_freq,
+                save_ckpt_num=args.save_ckpt_num))
 
         stats = {"epoch": epoch,
                  "train_loss": logger.meters["loss"].global_avg,
                  "images_per_sec": ips, "step_ms": step_ms}
         if not args.disable_eval:
-            test_stats = evaluate(eval_step, dl_val, device)
+            test_stats = evaluate(eval_step, dl_val, device, val_group)
             print(f"Accuracy on {len(ds_val)} val images: "
                   f"{test_stats['acc1']*100:.2f}%")
             if test_stats["acc1"] > max_acc:
                 max_acc = test_stats["acc1"]
                 if save_dir:
-                    ckpt.save_checkpoint(save_dir, state, epoch, tag="best")
+                    run["checkpoints"].append(ckpt.save_checkpoint(
+                        save_dir, state, epoch, tag="best"))
             print(f"Max accuracy: {max_acc*100:.2f}%")
             stats.update(test_acc1=test_stats["acc1"],
                          test_acc5=test_stats["acc5"],
-                         test_loss=test_stats["loss"])
+                         test_loss=test_stats["loss"],
+                         test_images=test_stats["n"])
 
         if args.model_ema and args.model_ema_eval and not args.disable_eval:
             em = ema_model(model, state.ema)
-            ema_stats = evaluate(make_eval_step(em, cdt), dl_val, device)
+            ema_stats = evaluate(make_eval_step(em, cdt), dl_val, device,
+                                 val_group)
             del em
             print(f"EMA accuracy: {ema_stats['acc1']*100:.2f}%")
             if ema_stats["acc1"] > max_acc_ema:
                 max_acc_ema = ema_stats["acc1"]
                 if save_dir:
-                    ckpt.save_checkpoint(save_dir, state, epoch,
-                                         tag="best-ema")
+                    run["checkpoints"].append(ckpt.save_checkpoint(
+                        save_dir, state, epoch, tag="best-ema"))
             stats["test_acc1_ema"] = ema_stats["acc1"]
 
         epoch_log.write(stats)
@@ -536,6 +656,7 @@ def main(args, step_hook: Optional[Callable] = None):
     if (wandb_logger is not None and args.wandb_ckpt and args.save_ckpt
             and args.output_dir):
         wandb_logger.log_checkpoints(args.output_dir)
+    run["checkpoints"] = [c for c in run["checkpoints"] if c is not None]
     total = time.time() - t_start
     print(f"Training time {datetime.timedelta(seconds=int(total))}")
     return dict(run, max_accuracy=max_acc)

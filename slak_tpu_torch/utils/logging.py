@@ -8,10 +8,17 @@ read (one transfer a meter) only when a meter is printed or its statistics
 are asked for, so ``MetricLogger.update`` does not wait for the card on
 every step. The TensorBoard and W&B sinks import their packages only when
 one is built.
+
+Under data parallel only rank 0 prints, writes the epoch log and feeds
+TensorBoard / W&B (``slak_tpu``'s ``process_index() == 0`` gates):
+:func:`setup_for_distributed` silences ``print`` on the other ranks, as
+the reference's does (utils.py:252-264), and the CLI builds its sinks on
+rank 0 only.
 """
 
 from __future__ import annotations
 
+import builtins
 import datetime
 import json
 import os
@@ -20,6 +27,21 @@ from collections import defaultdict, deque
 from typing import Dict, Iterable, List, Optional
 
 import torch
+
+
+def setup_for_distributed(is_master: bool):
+    """``print`` prints on the master rank only, unless called with
+    ``force=True`` (reference utils.py:252-264)."""
+    builtin_print = getattr(builtins.print, "_slak_builtin",
+                            builtins.print)
+
+    def print_(*args, **kwargs):
+        force = kwargs.pop("force", False)
+        if is_master or force:
+            builtin_print(*args, **kwargs)
+
+    print_._slak_builtin = builtin_print
+    builtins.print = print_
 
 
 class SmoothedValue:

@@ -3,7 +3,8 @@ against ``slak_tpu`` where the two meet; nothing here runs
 ``slak_tpu.train.main`` itself.
 
   * every flag of ``slak_tpu``'s parser parses here with the same default,
-    type, choices and arity (``--device`` is the port's own);
+    type, choices and arity (``--device`` and ``--dist_backend`` are the
+    port's own);
   * ``--eval true --finetune x.pth``: loss, top-1 and top-5 within 1e-4 of
     ``slak_tpu``'s ``make_eval_step`` on the same ``.pth`` (through
     ``slak_tpu.utils.load_torch_checkpoint``) and the same val images;
@@ -14,7 +15,10 @@ against ``slak_tpu`` where the two meet; nothing here runs
     and with Adan + remat; the resumed run's first step starts from the
     checkpoint's state;
   * the retention window deletes what ``slak_tpu``'s deletes;
-  * ``--n_devices 2``, ``--multi_host true`` and ``--tp_eval true`` raise.
+  * ``--n_devices 2``, ``--multi_host true`` and ``--tp_eval true`` raise
+    where they cannot run as given, before any rank starts: NCCL on CPU
+    ranks, no rendezvous in the environment, the channel-parallel eval
+    without ``--eval``.
 """
 
 import os
@@ -37,6 +41,18 @@ from slak_tpu_torch.train import checkpoint as ckpt
 from slak_tpu_torch.train.engine import TrainConfig, create_train_state
 from slak_tpu_torch.train.main import get_args_parser, main, parse_args
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread while this file's tests run: their tensors
+    are small, and the suite's parallel workers would otherwise each start
+    a thread a core and oversubscribe the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DEBUG = ["--device", "cpu", "--model", "SLaK_debug", "--kernel_size", "13",
          "11", "9", "7", "5", "--Decom", "true", "--data_set", "synthetic",
          "--input_size", "32", "--use_bf16", "false", "--num_workers", "2",
@@ -52,7 +68,7 @@ def test_flags_match_slak_tpu():
     ours = {a.dest: a for a in get_args_parser()._actions}
     for a in jax_args_parser()._actions:
         assert spec(ours.pop(a.dest)) == spec(a), a.dest
-    assert set(ours) == {"device"}
+    assert set(ours) == {"device", "dist_backend"}
 
 
 def test_eval_matches_slak_tpu_eval_step(tmp_path):
@@ -173,6 +189,10 @@ def test_retention_window_matches_slak_tpu(tmp_path):
 @pytest.mark.parametrize("flag", [["--n_devices", "2"],
                                   ["--multi_host", "true"],
                                   ["--tp_eval", "true"]])
-def test_multi_device_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="later module"):
+def test_multi_device_flags_raise(flag, monkeypatch):
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    match = {"--n_devices": "nccl needs CUDA", "--multi_host":
+             "no rank / world size", "--tp_eval": "with --eval"}[flag[0]]
+    with pytest.raises((ValueError, RuntimeError), match=match):
         main(parse_args(DEBUG + flag))

@@ -26,6 +26,18 @@ from slak_tpu_torch.models.slak import SLaK, SLaKConfig, config_for
 from slak_tpu_torch.train import engine as te
 from slak_tpu_torch.utils.convert import from_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread while this file's tests run: their tensors
+    are small, and the suite's parallel workers would otherwise each start
+    a thread a core and oversubscribe the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TINY = dict(depths=(1, 1, 2, 1), dims=(8, 16, 24, 32), num_classes=10,
             kernel_size=(7, 7, 7, 7, 100), decom=False, branch_bn=False)
 HW = 64

@@ -29,6 +29,17 @@ from slak_tpu_torch.train.main import main, parse_args
 from slak_tpu_torch.utils import logging as tlog
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread while this file's tests run: their tensors
+    are small, and the suite's parallel workers would otherwise each start
+    a thread a core and oversubscribe the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class Recorder:
     """Every call made through it, as (name, args, kwargs)."""
 

@@ -1,6 +1,6 @@
 """Remat, Adan and ``sparsity_report`` of the port against ``slak_tpu``.
 
-A tiny SLaK (depths (1,1,2,1), dims (8,16,24,32), kernels (13,11,9,7,5),
+A tiny SLaK (depths (1,1,1,1), dims (8,16,24,32), kernels (13,11,9,7,5),
 10 classes) at 32^2 with jittered weights and BN state, masked at 60%:
 
   * the port's step with ``remat`` against its step without (drop path
@@ -18,6 +18,8 @@ A tiny SLaK (depths (1,1,2,1), dims (8,16,24,32), kernels (13,11,9,7,5),
     ``slak_tpu``'s, exactly.
 """
 
+import concurrent.futures
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +32,6 @@ from slak_tpu.train import engine as je
 from slak_tpu.train.optim import adam_momentum as jax_adam_momentum
 from slak_tpu.train.optim import adan_init
 from slak_tpu.utils.convert import convert_state_dict
-from slak_tpu_torch.models import create_model
 from slak_tpu_torch.models.slak import SLaK, SLaKConfig
 from slak_tpu_torch.sparsity.masking import (MaskConfig, MaskState,
                                              sparsity_report)
@@ -40,7 +41,19 @@ from slak_tpu_torch.utils.convert import (adan_state_from_jax,
                                           adan_state_to_jax, from_jax_params,
                                           masks_from_jax, port_name)
 
-TINY = dict(depths=(1, 1, 2, 1), dims=(8, 16, 24, 32),
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread while this file's tests run: their tensors
+    are small, and the suite's parallel workers would otherwise each start
+    a thread a core and oversubscribe the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+TINY = dict(depths=(1, 1, 1, 1), dims=(8, 16, 24, 32),
             kernel_size=(13, 11, 9, 7, 5), num_classes=10)
 HW = 32
 LR = np.array([2e-3, 1.5e-3, 1e-3], dtype=np.float32)
@@ -51,13 +64,38 @@ ATOL_PARAM = 0.01 * float(LR[0])     # as tests/test_torch_train.py
 TIGHT = 1e-6
 
 
+ADAN_MASK_KW = dict(sparsity=0.4, sparse_init="snip", fix=True)
+
+
+def _jax_adan(params, state, masks, x, y):
+    """slak_tpu's remat Adan step compiled for these inputs: (compiled
+    step, start state, batch)."""
+    cfg = M.SLaKConfig(conv_impl="xla", mlp_impl="xla", remat=True, **TINY)
+    jstate = je.TrainState(
+        params=params, model_state=state,
+        opt_state=jax.jit(adan_init)(params),    # one compile, not one a leaf
+        step=jnp.zeros((), jnp.int32),
+        mask_state=jm.MaskState(
+            masks={n: jnp.asarray(m) for n, m in masks.items()},
+            fired={n: jnp.asarray(m) for n, m in masks.items()},
+            steps=jnp.zeros((), jnp.int32), rng=jax.random.PRNGKey(0)))
+    jstep = jax.jit(je.make_train_step(
+        M.SLaK(cfg), je.TrainConfig(pack_params=False, **TRAIN_KW),
+        jm.MaskConfig(**ADAN_MASK_KW), jnp.asarray(LR), None))
+    batch = (jnp.asarray(x), jnp.asarray(y))
+    return (jstep.lower(jstate, batch, jax.random.PRNGKey(1)).compile(),
+            jstate, batch)
+
+
 @pytest.fixture(scope="module")
 def init():
     """(params, state, masks, images, labels): jittered ``slak_tpu``
-    trees from a port model, masks at 60% density, applied."""
+    trees from a port model, masks at 60% density, applied. slak_tpu's
+    Adan step (``adan_runs``) starts compiling in the background here,
+    beside the port-only tests that come first."""
     rng = np.random.default_rng(0)
-    model = create_model("SLaK_debug", device="cpu", seed=3,
-                         kernel_size=TINY["kernel_size"], num_classes=10)
+    model = SLaK(SLaKConfig(**TINY)).reset_parameters(
+        torch.Generator().manual_seed(3))
     params, state = convert_state_dict(model.state_dict())
 
     def jitter(tree):
@@ -74,7 +112,13 @@ def init():
                                     jm.apply_mask_to_tree(params, masks))
     x = rng.standard_normal((4, HW, HW, 3)).astype(np.float32)
     y = np.array([1, 4, 7, 9], dtype=np.int32)
-    return params, state, masks, x, y
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        _JAX_ADAN.append(pool.submit(_jax_adan, params, state, masks, x, y))
+        yield params, state, masks, x, y
+        _JAX_ADAN.clear()
+
+
+_JAX_ADAN = []      # the future of _jax_adan, while init is alive
 
 
 def _port_state(params, state, masks, remat, mask_kw, drop_path=0.0,
@@ -128,24 +172,12 @@ def test_remat_step_matches_the_step_without(init, opt):
 def adan_runs(init):
     """Both packages' states after each of N_STEPS remat Adan steps."""
     params, state, masks, x, y = init
-    mask_kw = dict(sparsity=0.4, sparse_init="snip", fix=True)
-    cfg = M.SLaKConfig(conv_impl="xla", mlp_impl="xla", remat=True, **TINY)
-    jstate = je.TrainState(
-        params=params, model_state=state, opt_state=adan_init(params),
-        step=jnp.zeros((), jnp.int32),
-        mask_state=jm.MaskState(
-            masks={n: jnp.asarray(m) for n, m in masks.items()},
-            fired={n: jnp.asarray(m) for n, m in masks.items()},
-            steps=jnp.zeros((), jnp.int32), rng=jax.random.PRNGKey(0)))
-    jstep = jax.jit(je.make_train_step(
-        M.SLaK(cfg), je.TrainConfig(pack_params=False, **TRAIN_KW),
-        jm.MaskConfig(**mask_kw), jnp.asarray(LR), None))
-    model, st, step = _port_state(params, state, masks, True, mask_kw)
+    model, st, step = _port_state(params, state, masks, True, ADAN_MASK_KW)
+    jstep, jstate, batch = _JAX_ADAN[0].result()
     named = dict(model.named_parameters())
     runs = []
     for _ in range(N_STEPS):
-        jstate, jmet = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)),
-                             jax.random.PRNGKey(1))
+        jstate, jmet = jstep(jstate, batch, jax.random.PRNGKey(1))
         st, met = step(st, (torch.from_numpy(x), torch.from_numpy(y).long()))
         runs.append((jax.tree_util.tree_map(np.asarray, jstate),
                      float(jmet["loss"]), float(met["loss"]),
