@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,erf_kernels,erf
     python3 chip_smoke.py --phases build,cli
+    python3 chip_smoke.py --phases build,kd_kernels,kd
     python3 chip_smoke.py --phases build,dual_kernels,dual,dual_timing,probes
     python3 chip_smoke.py --phases build,mlp_ab --base PARENT_CHECKOUT
     python3 chip_smoke.py --phases build,mlp_bwd_ab --base PARENT_CHECKOUT
@@ -163,6 +164,38 @@ Phases (any failure exits non-zero):
            probe_overhead and probe_floor (K13), probe_pair_ab (the
            PAIR_IMPL modes of K10 on the NCHW route); every bf16 K11 and
            K13 launch on its band kernel, by the counters.
+  kd_kernels
+           K8 at C = 96 and 192 and K9 at C = 384 and 768 (ConvNeXt-T's
+           tails, the KD student's) at batch 128 on the 56^2 - 7^2 maps,
+           bf16, NCHW, also at the ragged batches 1 and 3, against their
+           plain versions (TOL_MLP_BWD), the same bits on a second launch;
+           times, bound, plain and unfused times.
+  kd       knowledge distillation: (b) the SLaK-T 51x51 w1.3 teacher
+           (randomized, eval) and the ConvNeXt-T student (drop path 0.1,
+           EMA), bf16, batch 128: 4 sparse NKD steps (SNIP masks at 40%, a
+           DST refresh every 2 steps) with the launch counters set to 0
+           just before and read just after, equal to kd_counts (the
+           teacher's two K1 a block, stage 4's on K6's kernel, K2/K3 a
+           block; the student's K2 a block, K8 at stages 1-2, K9 at 3-4; no
+           teacher backward, K4 or weight-gradient launch), every teacher
+           parameter without a gradient; then one step of each distill
+           type (None, KD, KD hard, NKD, FD, FD+KD, FD+NKD, MGD) against the
+           plain route from the same state (loss and every student and
+           head gradient within TOL_STEP), the NKD step timed on both
+           routes; (c) the teacher zoo at full width and 224^2, random
+           weights from a seed: logits and feature shapes, fp32 on the card
+           against the same module on the CPU (TOL_ZOO_FP32), bf16 against
+           fp32 (TOL_LOGITS), a load_teacher_checkpoint round trip from a
+           .pth with a module. prefix under "model" (the same logits), one
+           FD+NKD step at batch 32 with the ConvNeXt-T student, the bf16
+           forward timed at batch 128; (d) the KD CLI (kd/main.py) in
+           process, NKD, one epoch of 4 steps at batch 128 through the
+           recipe's host transforms, eval, checkpoint-0, counted; (e) the
+           KD CLI through launch --kd --nproc 2 (gloo, one card) against
+           the one-process CLI fed the ranks' batches (first loss within
+           TOL_STEP), and one MGD step on 2 gloo ranks against the
+           one-process step (loss and gradients within TOL_STEP, the
+           heads and gradients the same on both ranks).
   profile  (not in the default run) one eval forward and one train step
            under torch.profiler: device time by kernel, idle share, traces
            in chiprun_out/.
@@ -4050,11 +4083,602 @@ def phase_tp():
     return results
 
 
+# ---------------------------------------------------------------------------
+# knowledge distillation: the SLaK-T 51x51 w1.3 teacher (eval) to the
+# ConvNeXt-T student (train), and the teacher zoo
+
+KD_STEPS = 4
+KD_TYPES = ("None", "KD", "KD hard", "NKD", "FD", "FD+KD", "FD+NKD", "MGD")
+KD_ZOO = ("vit_base_patch16_224", "swin_tiny_patch4_window7_224",
+          "cswin_tiny", "resnet50d", "mobilenetv3_large_100",
+          "efficientnet_b0", "tf_efficientnet_b3_ns")
+ZOO_CHECK_BATCH = 2
+ZOO_BF16_BATCH = 8
+ZOO_STEP_BATCH = 32
+# a zoo teacher's fp32 forward on the card against the same module on the
+# CPU, TF32 off: max |diff| / max |CPU| of the logits and of the feature
+# (fp32 sums in another order through up to 26 blocks)
+TOL_ZOO_FP32 = 1e-4
+KD_CLI_ARGS = ["--model", "SLaK_tiny", "--teacher_kernel_size", "51", "49",
+               "47", "13", "5", "--teacher_width_factor", "1.3",
+               "--teacher_Decom", "true", "--model_s", "convnext_tiny",
+               "--distill_type", "NKD", "--data_set", "synthetic",
+               "--input_size", "224", "--batch_size", str(TRAIN_BATCH),
+               "--model_ema", "true", "--use_bf16", "true",
+               "--warmup_epochs", "0", "--epochs", "1", "--synthetic_len",
+               str(KD_STEPS * TRAIN_BATCH)]
+
+
+def kd_config(dt):
+    """The KDConfig of a KD_TYPES entry ("KD hard": KD with hard=True)."""
+    from slak_tpu_torch.kd.engine import KDConfig
+    return KDConfig("KD", hard=True) if dt == "KD hard" else KDConfig(dt)
+
+
+def kd_counts(tcfg, scfg, steps=0, student_evals=0) -> dict:
+    """The launch counts (read_counts' keys) of `steps` bf16 KD steps
+    (the teacher's eval forward: two K1 a block, stage 4's on K6's
+    Toeplitz kernel, the rest on the band kernel, one K2/K3 a block; the
+    student's train step: its 7x7 branch through F.conv2d, K2 a block,
+    K8 at C <= 256, K9 above where TRAIN_WIDE_MLP_BWD routes them; no
+    teacher backward, K4 or weight-gradient launch) and `student_evals`
+    bf16 eval forwards of the student (one K1 a block, stage 4's on K6's
+    kernel, one K2/K3 a block)."""
+    from slak_tpu_torch.models import slak as S
+    from slak_tpu_torch.ops.mlp import BWD_C_MAX
+    nt, ns = sum(tcfg.depths), sum(scfg.depths)
+    narrow = sum(d for d, c in zip(scfg.depths, scfg.widened_dims)
+                 if c <= BWD_C_MAX)
+    wide = ns - narrow if S.TRAIN_WIDE_MLP_BWD else 0
+    k6_t, k6_s = k6_convs(tcfg), k6_convs(scfg, per_block=1)
+    want = {k: 0 for k in read_counts()}
+    want.update(
+        dwconv=2 * nt * steps + ns * student_evals,
+        dwconv_band=(2 * nt - k6_t) * steps,
+        dwconv_toeplitz=k6_t * steps + k6_s * student_evals,
+        fused_mlp=(nt + narrow + wide) * steps + ns * student_evals,
+        mlp_bwd=narrow * steps, mlp_bwd_wide=wide * steps)
+    return want
+
+
+def phase_kd_kernels(batch):
+    """K8 and K9 at ConvNeXt-T's widths (C = 96, 192 and 384, 768, NCHW,
+    bf16, batch 128, the 56^2 - 7^2 maps) against their plain versions,
+    at the ragged batches too, the same bits twice; times, bound, plain
+    and unfused: the per-step sums by kernel and the rows."""
+    import torch
+    from slak_tpu_torch.models import slak as S
+    from slak_tpu_torch.models.slak import config_for
+    from slak_tpu_torch.ops import mlp as K2
+    cfg = config_for("convnext_tiny")
+    dtype, dn = torch.bfloat16, "bfloat16"
+    g = torch.Generator(device="cuda").manual_seed(13)
+    totals, rows = {}, []
+    for i, C, H, _, _, depth in stage_shapes(cfg):
+        wide = C > K2.BWD_C_MAX
+        name, bwd, plain = (
+            ("mlp_bwd_wide", K2.fused_mlp_bwd_wide,
+             K2.fused_mlp_bwd_wide_plain) if wide else
+            ("mlp_bwd", K2.fused_mlp_bwd, K2.fused_mlp_bwd_plain))
+        y = torch.randn(batch, C, H, H, generator=g, device="cuda").to(dtype)
+        dout = (torch.randn(batch, C, H, H, generator=g, device="cuda")
+                * 0.1).to(dtype)
+        pk = random_pack(C, g, dtype)
+        for nb in RAGGED:
+            errs, _ = check_mlp_bwd(
+                bwd, plain, y[:nb].contiguous(), dout[:nb].contiguous(), pk,
+                TOL_MLP_BWD[dn], f"{name} ConvNeXt-T stage {i + 1} batch "
+                f"{nb}")
+            print(f"[kd_kernels] {name} ConvNeXt-T stage {i + 1} {dn} batch "
+                  f"{nb} (T = {nb * H * H}): rel err " + json.dumps(errs),
+                  flush=True)
+        row, b_ms, o_ms = mlp_bwd_rows(
+            "kd_kernels", name, bwd, plain, y, dout, pk, dtype,
+            model="convnext_tiny", stage=i + 1, layout="NCHW", batch=batch,
+            launches_per_step=depth if not wide or S.TRAIN_WIDE_MLP_BWD
+            else 0)["full"]
+        rows.append(row)
+        t = totals.setdefault(name, dict(ms=0.0, plain_ms=0.0,
+                                         unfused_torch_ms=0.0, bound_ms=0.0,
+                                         bytes_ms=0.0, ops_ms=0.0, err=0.0))
+        for k in ("ms", "plain_ms", "unfused_torch_ms"):
+            t[k] += depth * row[k]
+        t["bound_ms"] += depth * max(b_ms, o_ms)
+        t["bytes_ms"] += depth * b_ms
+        t["ops_ms"] += depth * o_ms
+        t["err"] = max(t["err"], row["max_abs_err"])
+        del y, dout, pk
+        torch.cuda.empty_cache()
+    print("[kd_kernels] per bf16 ConvNeXt-T step at batch %d: " % batch
+          + json.dumps({n: {k: round(v, 4) for k, v in t.items()}
+                        for n, t in totals.items()}), flush=True)
+    return totals, rows
+
+
+def kd_teacher():
+    """The flagship teacher, bf16, random weights from a seed (every block
+    matters), in eval mode."""
+    import torch
+    from slak_tpu_torch.models import create_model
+    teacher = create_model("SLaK_tiny", dtype=torch.bfloat16, seed=0,
+                           **MODEL_KW)
+    randomize(teacher, 1)
+    return teacher
+
+
+def kd_student_state():
+    """ConvNeXt-T's weights for the KD runs: from a seed, randomized."""
+    import torch
+    from slak_tpu_torch.models import create_model
+    student = create_model("convnext_tiny", seed=3, drop_path_rate=0.1)
+    randomize(student, 2)
+    sd = {k: v.clone() for k, v in student.state_dict().items()}
+    del student
+    torch.cuda.empty_cache()
+    return sd
+
+
+def kd_setup(teacher_apply, dt, batch, student_sd, teacher_channels=998,
+             mask_kw=None, group=None):
+    """(student, its train state, kd_params, their AdamW, train config,
+    KD config, mask config, lr schedule, batches) of a bf16 KD run of the
+    ConvNeXt-T student (drop path 0.1, EMA) on two random batches of
+    `batch` 224^2 images; under `group` each batch this rank's shard and
+    SNIP's gradients averaged over it."""
+    import torch
+    from slak_tpu_torch.kd.engine import init_kd_params, kd_opt_init
+    from slak_tpu_torch.models import create_model
+    from slak_tpu_torch.parallel import mesh
+    from slak_tpu_torch.sparsity.masking import MaskConfig
+    from slak_tpu_torch.train import losses as L
+    from slak_tpu_torch.train.engine import TrainConfig, create_train_state
+    from slak_tpu_torch.train.optim import cosine_schedule_array
+    dtype = torch.bfloat16
+    student = create_model("convnext_tiny", dtype=dtype, seed=3,
+                           drop_path_rate=0.1)
+    student.load_state_dict(student_sd)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    batches = [(torch.randn(batch, 224, 224, 3, generator=g, device="cuda"),
+                torch.randint(0, 1000, (batch,), generator=g, device="cuda"))
+               for _ in range(2)]
+    if group is not None:
+        batches = [mesh.shard_batch(b) for b in batches]
+    tc = TrainConfig(compute_dtype=dtype, weight_decay=0.05,
+                     ema_decay=0.9999, prune_t_max=100)
+    mc = MaskConfig(**mask_kw) if mask_kw else None
+    snip = None
+    if mc is not None and mc.sparse_init == "snip":
+        def snip():
+            from slak_tpu_torch.models import apply
+            x, y = batches[0]
+            return L.cross_entropy(apply(student, x.to(dtype)), y)
+    state = create_train_state(student, tc, mc, snip, seed=0, group=group)
+    cfg = kd_config(dt)
+    kd = init_kd_params(torch.Generator().manual_seed(1), cfg,
+                        student.cfg.widened_dims[-1], teacher_channels,
+                        "cuda")
+    lr = cosine_schedule_array(1e-3, 1e-6, 1, 100)
+    return (student, state, kd, kd_opt_init(kd), tc, cfg, mc, lr, batches)
+
+
+def kd_snapshot(student, kd, met):
+    """The loss and every student and head gradient of a KD step."""
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in student.named_parameters()}
+    grads.update({"kd_params." + n: p.grad.detach().float().clone()
+                  for n, p in kd.named_parameters()})
+    return {"loss": met["loss"].item(), "grads": grads}
+
+
+def kd_errors(got, want):
+    """(loss rel err, the worst gradient's rel norm err, its name)."""
+    le = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    ge = {n: ((got["grads"][n] - w).norm() / w.norm().clamp(min=1e-30)
+              ).item() for n, w in want["grads"].items()}
+    worst = max(ge, key=ge.get)
+    return le, ge[worst], worst
+
+
+def kd_headline(teacher, sd0):
+    """(b): KD_STEPS sparse bf16 NKD steps at TRAIN_BATCH (SNIP masks at
+    40%, a refresh every 2 steps), counted; then one step a distill type,
+    kernels against the plain route; the NKD step timed on both routes."""
+    import torch
+    from slak_tpu_torch.kd.engine import make_kd_train_step, make_teacher_apply
+    tapply = make_teacher_apply(teacher)
+    t0 = time.perf_counter()
+    (student, state, kd, kopt, tc, cfg, mc, lr, batches) = kd_setup(
+        tapply, "NKD", TRAIN_BATCH, sd0, mask_kw=TRAIN_MASK)
+    print(f"[kd] set-up (SNIP masks of the student) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    step = make_kd_train_step(student, tapply, cfg, tc, mc, lr)
+    named = dict(student.named_parameters())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    refreshes = 0
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for k in range(KD_STEPS):
+        before = {n: m.clone() for n, m in state.mask_state.masks.items()}
+        state, kd, kopt, met = step(state, kd, kopt, batches[k % 2], gen)
+        masks = state.mask_state.masks
+        loss = met["loss"].item()
+        _check(math.isfinite(loss), f"kd step {k}: loss {loss}")
+        if any(not torch.equal(before[n], masks[n]) for n in masks):
+            refreshes += 1
+            for n, m in masks.items():
+                nb, na = before[n].sum().item(), m.sum().item()
+                _check(abs(na - nb) <= 6 * max(nb, 1) ** 0.5 + 1,
+                       f"kd step {k}: {n} count {nb} -> {na}")
+        for n, m in masks.items():
+            z = (named[n].detach() * (1 - m)).abs().max().item()
+            _check(z == 0.0, f"kd step {k}: masked weights of {n} not 0")
+        print(f"[kd] NKD step {k}: loss {loss:.5f} grad_norm "
+              f"{met['grad_norm'].item():.4f}", flush=True)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    want = kd_counts(teacher.cfg, student.cfg, steps=KD_STEPS)
+    frozen = all(p.grad is None and not p.requires_grad
+                 for p in teacher.parameters())
+    print(f"[kd] {KD_STEPS} sparse bf16 NKD steps at batch {TRAIN_BATCH} "
+          f"(SLaK-T 51x51 w1.3 teacher, ConvNeXt-T student) in {sec:.2f} s;"
+          f" launches {counts}; refreshes {refreshes}; teacher frozen "
+          f"{frozen}", flush=True)
+    _check(counts == want, f"kd launch counts {counts}, want {want}")
+    _check(refreshes == KD_STEPS // mc.update_frequency,
+           f"kd: {refreshes} DST refreshes")
+    _check(frozen, "a teacher parameter has a gradient or requires one")
+    _check(all(bool(torch.isfinite(v).all()) for v in state.ema.values()),
+           "kd: EMA not finite")
+    del student, state, step, batches
+    torch.cuda.empty_cache()
+
+    errs, times = {}, {}
+    for dt in KD_TYPES:
+        snaps = []
+        for plain in (False, True):
+            (student, state, kd, kopt, tc, cfg, _, lr, batches) = kd_setup(
+                tapply, dt, TRAIN_BATCH, sd0)
+            step = make_kd_train_step(student, tapply, cfg, tc, None, lr,
+                                      plain=plain)
+            state, kd, kopt, met = step(
+                state, kd, kopt, batches[0],
+                torch.Generator(device="cuda").manual_seed(5))
+            snaps.append(kd_snapshot(student, kd, met))
+            if dt == "NKD":
+                g = torch.Generator(device="cuda").manual_seed(6)
+                times["plain" if plain else "kernels"] = time_ms(
+                    lambda: step(state, kd, kopt, batches[1], g), 3,
+                    warmup=1, rounds=3)
+            del student, state, step, batches
+            torch.cuda.empty_cache()
+        le, ge, worst = kd_errors(*snaps)
+        tol = TOL_STEP["bfloat16"]
+        errs[dt] = dict(loss=snaps[0]["loss"], loss_rel=le, grad_rel=ge,
+                        worst=worst, heads=sorted(
+                            {n.split(".")[1] for n in snaps[0]["grads"]
+                             if n.startswith("kd_params.")}))
+        print(f"[kd] one bf16 {dt} step at batch {TRAIN_BATCH}, kernels vs "
+              f"plain: loss {snaps[0]['loss']:.6f} vs {snaps[1]['loss']:.6f}"
+              f" (rel {le:.3g}, tol {tol['loss']}); grad rel norm err max "
+              f"{ge:.3g} ({worst}, tol {tol['grad']}); heads "
+              f"{errs[dt]['heads']}", flush=True)
+        _check(math.isfinite(snaps[0]["loss"]), f"kd {dt}: loss not finite")
+        _check(le <= tol["loss"], f"kd {dt} loss rel err {le:.3g}")
+        _check(ge <= tol["grad"], f"kd {dt} grad {worst} rel err {ge:.3g}")
+    print(f"[kd] the bf16 NKD step at batch {TRAIN_BATCH}: kernels "
+          f"{times['kernels']:.3f} ms, plain {times['plain']:.3f} ms (CUDA "
+          f"events, median of 3 rounds of 3)", flush=True)
+    return dict(counts=counts, seconds=sec, refreshes=refreshes,
+                step_ms=times, types=errs)
+
+
+def kd_zoo(sd0):
+    """(c): each zoo teacher at full width and 224^2, random weights from
+    a seed: logits and feature shapes, fp32 on the card against the same
+    module on the CPU, bf16 against fp32 on the card, a load_teacher_
+    checkpoint round trip from a .pth with a module. prefix under
+    "model", one FD+NKD step at ZOO_STEP_BATCH with the ConvNeXt-T
+    student, and the bf16 forward timed at TRAIN_BATCH."""
+    import copy
+    import torch
+    from slak_tpu_torch.kd.engine import make_kd_train_step
+    from slak_tpu_torch.models import zoo
+    from slak_tpu_torch.utils.convert_teachers import load_teacher_checkpoint
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(ZOO_BF16_BATCH, 224, 224, 3, generator=g, device="cuda")
+    xt = torch.randn(TRAIN_BATCH, 224, 224, 3, generator=g,
+                     device="cuda").to(torch.bfloat16)
+    for name in KD_ZOO:
+        t0 = time.perf_counter()
+        teacher = zoo.create_teacher(name, 1000, 224, "cuda", seed=0)
+        randomize(teacher, 3)
+        fn = teacher.teacher_apply()
+        C = teacher.feature_channels
+        side = 14 if zoo.family_of(name) == "vit" else 7
+        l32, f32 = fn(x)
+        _check(tuple(l32.shape) == (ZOO_BF16_BATCH, 1000)
+               and l32.dtype == torch.float32, f"{name} logits {l32.shape}")
+        _check(tuple(f32.shape) == (ZOO_BF16_BATCH, side, side, C),
+               f"{name} feature {tuple(f32.shape)}, want "
+               f"{(ZOO_BF16_BATCH, side, side, C)}")
+        cpu = copy.deepcopy(teacher).cpu()
+        with torch.no_grad():
+            lc, fc = cpu(x[:ZOO_CHECK_BATCH].cpu())
+        del cpu
+        _, r_l = rel_err(l32[:ZOO_CHECK_BATCH].cpu(), lc)
+        _, r_f = rel_err(f32[:ZOO_CHECK_BATCH].cpu(), fc)
+        lb, fb = fn(x.to(torch.bfloat16))
+        _, r_bl = rel_err(lb, l32)
+        _, r_bf = rel_err(fb.float(), f32)
+        path = os.path.join(OUT_DIR, f"zoo_{name}.pth")
+        torch.save({"model": {"module." + k: v.cpu() for k, v in
+                              teacher.state_dict().items()}}, path)
+        try:
+            back = load_teacher_checkpoint(path, name, "cuda")
+        finally:
+            os.remove(path)
+        same = torch.equal(back.teacher_apply()(x)[0], l32)
+        del back
+        ms = time_ms(lambda: fn(xt), 3, warmup=1, rounds=3)
+        # one FD+NKD step with the ConvNeXt-T student
+        (student, state, kd, kopt, tc, cfg, _, lr, batches) = kd_setup(
+            fn, "FD+NKD", ZOO_STEP_BATCH, sd0, teacher_channels=C)
+        step = make_kd_train_step(student, fn, cfg, tc, None, lr)
+        state, kd, kopt, met = step(state, kd, kopt, batches[0],
+                                    torch.Generator(device="cuda")
+                                    .manual_seed(5))
+        loss = met["loss"].item()
+        proj = "fd_proj" in kd
+        row = dict(channels=C, feature=[side, side], fp32_vs_cpu=[r_l, r_f],
+                   bf16_vs_fp32=[r_bl, r_bf], checkpoint_same=same,
+                   bf16_forward_ms=ms, fd_nkd_loss=loss, fd_proj=proj,
+                   seconds=time.perf_counter() - t0)
+        print(f"[kd] zoo {name}: " + json.dumps(row), flush=True)
+        _check(r_l <= TOL_ZOO_FP32 and r_f <= TOL_ZOO_FP32,
+               f"{name} fp32 card vs CPU rel {r_l:.3g} / {r_f:.3g}")
+        _check(r_bl <= TOL_LOGITS["bfloat16"]
+               and r_bf <= TOL_LOGITS["bfloat16"],
+               f"{name} bf16 vs fp32 rel {r_bl:.3g} / {r_bf:.3g}")
+        _check(same, f"{name}: logits after the checkpoint round trip "
+               "differ")
+        _check(math.isfinite(loss), f"{name} FD+NKD loss {loss}")
+        _check(proj == (C != student.cfg.widened_dims[-1]),
+               f"{name}: fd_proj {proj} with {C} teacher channels")
+        out[name] = row
+        del teacher, fn, student, state, step, batches, kd
+        torch.cuda.empty_cache()
+    return out
+
+
+def kd_cli():
+    """(d): the KD CLI in process on the headline pair (NKD, bf16, one
+    epoch of KD_STEPS steps at TRAIN_BATCH on synthetic 224^2 images
+    through the recipe's host transforms, eval, checkpoint-0), counted."""
+    import shutil
+    import torch
+    from slak_tpu_torch.kd.main import main, parse_args
+    from slak_tpu_torch.models.slak import config_for
+    out_dir = os.path.join(OUT_DIR, "kd_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    want = kd_counts(config_for("SLaK_tiny", **MODEL_KW),
+                     config_for("convnext_tiny"), steps=KD_STEPS,
+                     student_evals=1)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        run = main(parse_args(KD_CLI_ARGS + ["--output_dir", out_dir]))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        ckpts = sorted(f for f in os.listdir(out_dir)
+                       if f.startswith("checkpoint-"))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    st = run["epochs"][0]
+    print(f"[kd] CLI (kd/main.py, NKD, bf16, {KD_STEPS} steps at batch "
+          f"{TRAIN_BATCH}): {sec:.1f} s; losses "
+          f"{[round(v, 5) for v in run['step_losses']]}; "
+          f"{st['images_per_sec']:.1f} img/s with the loader feeding over a "
+          f"{KD_STEPS}-step epoch (mostly the loader's start, not a "
+          f"sustained rate); val images {st['test_images']}; checkpoints "
+          f"{ckpts}; launches {counts}", flush=True)
+    _check(counts == want, f"kd CLI launch counts {counts}, want {want}")
+    _check(len(run["step_losses"]) == KD_STEPS and all(
+        math.isfinite(v) for v in run["step_losses"]), "kd CLI losses")
+    _check(ckpts == ["checkpoint-0"], f"kd CLI checkpoints {ckpts}")
+    return dict(seconds=sec, images_per_sec=st["images_per_sec"],
+                losses=run["step_losses"], counts=counts)
+
+
+def _kd_rank(ref_dir):
+    """One rank of (e): one bf16 MGD step of the headline pair on this
+    rank's shard of TRAIN_BATCH images against the one-process step in
+    ref_dir; the heads and every gradient the same on every rank."""
+    import torch
+    from slak_tpu_torch.kd.engine import make_kd_train_step, make_teacher_apply
+    from slak_tpu_torch.parallel import mesh
+    group = mesh.axis_group()
+    tapply = make_teacher_apply(kd_teacher())
+    (student, state, kd, kopt, tc, cfg, _, lr, batches) = kd_setup(
+        tapply, "MGD", TRAIN_BATCH, kd_student_state(), group=group)
+    step = make_kd_train_step(student, tapply, cfg, tc, None, lr,
+                              group=group)
+    state, kd, kopt, met = step(state, kd, kopt, batches[0],
+                                torch.Generator(device="cuda").manual_seed(5))
+    got = kd_snapshot(student, kd, met)
+    n = _same_on_ranks(got["grads"], "KD gradients")
+    n += _same_on_ranks(dict(kd.named_parameters()), "kd_params")
+    want = torch.load(os.path.join(ref_dir, "kd_step.pt"),
+                      map_location="cuda", weights_only=False)
+    return dict(errors=kd_errors(got, want), same=n)
+
+
+def kd_launch():
+    """(e): the KD CLI through `launch --kd --nproc DP_RANKS` (gloo, one
+    card) against the one-process CLI fed the ranks' batches concatenated
+    (first loss within TOL_STEP), then one MGD step on DP_RANKS gloo ranks
+    against the one-process step."""
+    import shutil
+    import tempfile
+    import torch
+    from slak_tpu_torch import data
+    from slak_tpu_torch.kd.engine import make_kd_train_step, make_teacher_apply
+    from slak_tpu_torch.kd.main import main, parse_args
+    from slak_tpu_torch.train import launch
+    from slak_tpu_torch.train.launch import run_ranks
+    out_dir = os.path.join(OUT_DIR, "kd_launch")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = list(KD_CLI_ARGS)
+    argv[argv.index("--batch_size") + 1] = str(TRAIN_BATCH // DP_RANKS)
+    try:
+        t0 = time.perf_counter()
+        two = launch.main(["--kd", "--nproc", str(DP_RANKS), "--timeout",
+                           str(DP_TIMEOUT), "--"] + argv
+                          + ["--dist_backend", "gloo", "--output_dir",
+                             out_dir])
+        sec2 = time.perf_counter() - t0
+        ckpts = sorted(f for f in os.listdir(out_dir)
+                       if f.startswith("checkpoint-"))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    base = data.BatchLoader
+
+    def loader(ds, batch_size, shuffle=True, **kw):
+        if shuffle:
+            return RankBatches(ds, batch_size, shuffle=True, **kw)
+        return base(ds, batch_size, shuffle=shuffle, **kw)
+    data.BatchLoader = loader
+    try:
+        one = main(parse_args(KD_CLI_ARGS + ["--save_ckpt", "false"]))
+    finally:
+        data.BatchLoader = base
+    l2, l1 = two["step_losses"][0], one["step_losses"][0]
+    cli_le = abs(l2 - l1) / abs(l1)
+    print(f"[kd] (e) the KD CLI through launch --kd --nproc {DP_RANKS} "
+          f"({GLOO}): {sec2:.1f} s; losses "
+          f"{[round(v, 5) for v in two['step_losses']]}; the one-process CLI"
+          f" on the same batches {[round(v, 5) for v in one['step_losses']]}"
+          f"; first step rel {cli_le:.3g} (tol "
+          f"{TOL_STEP['bfloat16']['loss']});"
+          f" val images {two['epochs'][0]['test_images']}; checkpoints "
+          f"{ckpts}", flush=True)
+    _check(cli_le <= TOL_STEP["bfloat16"]["loss"], f"KD CLI first step "
+           f"loss rel err {cli_le:.3g}")
+    _check(ckpts == ["checkpoint-0"], f"launched KD CLI checkpoints {ckpts}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="slak_kd_") as tmp:
+        teacher = kd_teacher()
+        tapply = make_teacher_apply(teacher)
+        (student, state, kd, kopt, tc, cfg, _, lr, batches) = kd_setup(
+            tapply, "MGD", TRAIN_BATCH, kd_student_state())
+        step = make_kd_train_step(student, tapply, cfg, tc, None, lr)
+        state, kd, kopt, met = step(
+            state, kd, kopt, batches[0],
+            torch.Generator(device="cuda").manual_seed(5))
+        torch.save(kd_snapshot(student, kd, met),
+                   os.path.join(tmp, "kd_step.pt"))
+        del teacher, tapply, student, state, step, batches, kd
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = run_ranks(_kd_rank, DP_RANKS, (tmp,), "gloo", None,
+                        DP_TIMEOUT, DP_TIMEOUT)
+        sec = time.perf_counter() - t0
+    tol = TOL_STEP["bfloat16"]
+    for r, out in enumerate(res):
+        le, ge, worst = out["errors"]
+        print(f"[kd] (e) rank {r} of {DP_RANKS} ({GLOO}), one bf16 MGD step "
+              f"at {TRAIN_BATCH // DP_RANKS} a rank vs one process at "
+              f"{TRAIN_BATCH}: loss rel {le:.3g} (tol {tol['loss']}); grad "
+              f"rel norm err max {ge:.3g} ({worst}, tol {tol['grad']}); "
+              f"{out['same']} gradients and heads the same on every rank; "
+              f"{sec:.1f} s", flush=True)
+        _check(le <= tol["loss"], f"KD rank {r} loss rel err {le:.3g}")
+        _check(ge <= tol["grad"], f"KD rank {r} grad {worst} rel err "
+               f"{ge:.3g}")
+    return dict(cli_seconds=sec2, first_loss_rel=cli_le,
+                step=[out["errors"][:2] for out in res])
+
+
+def phase_kd():
+    """(b) the headline KD path, (c) the teacher zoo, (d) the KD CLI, (e)
+    the launcher."""
+    import torch
+    t0 = time.perf_counter()
+    teacher = kd_teacher()
+    sd0 = kd_student_state()
+    run = {"headline": kd_headline(teacher, sd0)}
+    del teacher
+    torch.cuda.empty_cache()
+    tb = time.perf_counter()
+    run["zoo"] = kd_zoo(sd0)
+    tc = time.perf_counter()
+    run["cli"] = kd_cli()
+    td = time.perf_counter()
+    run["launch"] = kd_launch()
+    te = time.perf_counter()
+    print(f"[kd] times: (b) {tb - t0:.1f} s, (c) {tc - tb:.1f} s, (d) "
+          f"{td - tc:.1f} s, (e) {te - td:.1f} s", flush=True)
+    return run
+
+
+def add_kd_launches(kernels, kd_totals, kd_run):
+    """Each kernel row's launches in `kd`'s KD_STEPS counted steps, and K8's
+    and K9's times at ConvNeXt-T's widths (`kd_kernels`); a row that no
+    earlier phase made (a run of the KD phases alone) is made here."""
+    c = None if kd_run is None else kd_run["headline"]["counts"]
+    per = {"dwconv": None if c is None else
+           c["dwconv"] - c["dwconv_toeplitz"],
+           "dwconv2d": None if c is None else c["dwconv_toeplitz"],
+           "fused_mlp": None if c is None else c["fused_mlp"],
+           "mlp_bwd": None if c is None else c["mlp_bwd"],
+           "mlp_bwd_wide": None if c is None else c["mlp_bwd_wide"]}
+    names = {k["name"] for k in kernels}
+    for name, src, repl in (
+            ("mlp_bwd", "slak_tpu_torch/ops/csrc/mlp_bwd.cu",
+             "slak_tpu/ops/pallas_mlp.py:263"),
+            ("mlp_bwd_wide", "slak_tpu_torch/ops/csrc/mlp_bwd.cu",
+             "slak_tpu/ops/pallas_mlp.py:419")):
+        if kd_totals is None or name in names:
+            continue
+        t = kd_totals[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=repl,
+            launches=per[name], max_abs_err=t["err"], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by="bytes" if t["bytes_ms"] >= t["ops_ms"] else
+            "operations", library_ms=None,
+            unfused_torch_ms=t["unfused_torch_ms"],
+            times_per="the ConvNeXt-T tails of one bf16 KD step at batch %d"
+            % TRAIN_BATCH,
+            launches_in="the KD path: %d bf16 steps at batch %d"
+            % (KD_STEPS, TRAIN_BATCH)))
+    for k in kernels:
+        if k["name"] in per and kd_run is not None:
+            k["kd_launches"] = per[k["name"]]
+            k["kd_launches_in"] = ("kd: %d sparse bf16 NKD steps at batch %d,"
+                                   " SLaK-T 51x51 w1.3 teacher (eval), "
+                                   "ConvNeXt-T student (train)"
+                                   % (KD_STEPS, TRAIN_BATCH))
+        if k["name"] in ("mlp_bwd", "mlp_bwd_wide") and kd_totals:
+            t = kd_totals[k["name"]]
+            k["kd_convnext_t"] = dict(
+                {f: t[f] for f in ("ms", "plain_ms", "unfused_torch_ms",
+                                   "bound_ms")}, max_abs_err=t["err"],
+                times_per="the ConvNeXt-T tails of one bf16 step at batch "
+                "%d (C = %s)" % (TRAIN_BATCH, "96, 192" if k["name"] ==
+                                 "mlp_bwd" else "384, 768"))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,timing,"
                     "train_kernels,train,train_timing,cli,erf_kernels,erf,"
-                    "dual_kernels,dual,dual_timing,probes,dp,tp")
+                    "dual_kernels,dual,dual_timing,probes,dp,tp,kd_kernels,"
+                    "kd")
     ap.add_argument("--base", help="mlp_ab, mlp_bwd_ab, dwconv_ab, "
                     "wgrad_ab, dwpair_ab, stacked_ab: another checkout of "
                     "the repository (e.g. the "
@@ -4085,7 +4709,7 @@ def main(argv=None) -> int:
     train_totals, train_counts, cli_runs = None, None, None
     erf_totals, k9_bf16, erf_run = None, None, None
     dual_totals, dual_counts, dual_by, probe_counts = None, None, None, None
-    dp_run, tp_run = None, None
+    dp_run, tp_run, kd_totals, kd_rows, kd_run = None, None, None, None, None
     t_start = time.perf_counter()
     try:
         if "build" in phases:
@@ -4135,6 +4759,10 @@ def main(argv=None) -> int:
             dp_run = phase_dp()
         if "tp" in phases:
             tp_run = phase_tp()
+        if "kd_kernels" in phases:
+            kd_totals, kd_rows = phase_kd_kernels(TRAIN_BATCH)
+        if "kd" in phases:
+            kd_run = phase_kd()
         if "mlp_ab" in phases:
             _check(args.base is not None, "mlp_ab needs --base")
             phase_mlp_ab(cfg, args.base)
@@ -4437,6 +5065,8 @@ def main(argv=None) -> int:
                 library_ms=lib, times_per=per, **more))
     if dp_run is not None or tp_run is not None:
         add_parallel_launches(kernels, dp_run, tp_run)
+    if kd_totals is not None or kd_run is not None:
+        add_kd_launches(kernels, kd_totals, kd_run)
     if kernels:
         print(json.dumps({"kernels": kernels}))
     if erf_run is not None:
@@ -4448,6 +5078,10 @@ def main(argv=None) -> int:
         print("[dp] " + json.dumps(dp_run))
     if tp_run is not None:
         print("[tp] " + json.dumps(tp_run))
+    if kd_rows is not None:
+        print("[kd_kernels] " + json.dumps(kd_rows))
+    if kd_run is not None:
+        print("[kd] " + json.dumps(kd_run))
     if dual_by is not None:
         print(f"[dual_timing] bf16 eval bs{TIMING_BATCH} img/s: dual "
               f"{dual_by['dual']['img_per_s']:.1f}, split "

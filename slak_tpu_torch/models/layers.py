@@ -42,6 +42,12 @@ def global_batch_shard(index: int, count: int):
         _SHARD.v = before
 
 
+def batch_shard():
+    """(this shard's index, the number of shards) of the batch inside
+    :func:`global_batch_shard`, else (0, 1)."""
+    return getattr(_SHARD, "v", None) or (0, 1)
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = LN_EPS, dim: int = -1) -> torch.Tensor:
     """LayerNorm over axis ``dim`` with fp32 statistics; returns x.dtype."""
@@ -67,7 +73,7 @@ def drop_path_keep(n: int, rate: float, generator=None,
     default, moved to ``device``. Inside :func:`global_batch_shard` the
     draw is the global batch's and this shard's n rows are kept."""
     dev = device if generator is None else generator.device
-    index, count = getattr(_SHARD, "v", None) or (0, 1)
+    index, count = batch_shard()
     keep = torch.rand((n * count,), generator=generator, device=dev) \
         < 1.0 - rate
     return keep[index * n:(index + 1) * n].to(device)

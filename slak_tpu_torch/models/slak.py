@@ -506,8 +506,20 @@ class SLaK(nn.Module):
             stages.append(x)
         if return_stages:
             return stages
-        pooled = x.mean((2, 3))
-        return layer_norm(pooled, self.norm.weight, self.norm.bias)
+        return self._pool(x)
+
+    def _pool(self, x):
+        return layer_norm(x.mean((2, 3)), self.norm.weight, self.norm.bias)
+
+    def _head(self, feats):
+        return (feats.float() @ self.head.weight.to(feats.dtype).float().t()
+                + self.head.bias.float())
+
+    def stage4_logits(self, x):
+        """Stage 4's output (NCHW) -> (N, num_classes) float32 logits, as
+        ``forward`` ends: the mean pool and LN in the compute dtype, the
+        head in float32 (the KD step's student and teacher logits)."""
+        return self._head(self._pool(x))
 
     def forward(self, x, plain: bool = False, generator=None):
         """NCHW images -> (N, num_classes) float32 logits. In eval no graph
@@ -519,9 +531,7 @@ class SLaK(nn.Module):
         return self._logits(x, plain, generator)
 
     def _logits(self, x, plain, generator):
-        feats = self.forward_features(x, plain, generator)
-        return (feats.float() @ self.head.weight.to(feats.dtype).float().t()
-                + self.head.bias.float())
+        return self._head(self.forward_features(x, plain, generator))
 
 
 def apply(model: SLaK, x_nhwc: torch.Tensor, plain: bool = False,

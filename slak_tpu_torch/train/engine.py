@@ -174,38 +174,60 @@ def make_train_step(model: SLaK, train_cfg: TrainConfig,
             # rank has (the same set on every rank) and the loss
             all_reduce_([p.grad for p in named.values()
                          if p.grad is not None] + [loss_sum], "mean", group)
-        grads = [p.grad for p in named.values()]
-        gnorm = global_grad_norm(grads)
-        raw_grads = ({n: p.grad.clone() for n, p in named.items()}
-                     if growth_reads_grads else None)
-        if train_cfg.clip_grad is not None:
-            clip_grads(grads, gnorm, train_cfg.clip_grad)
-        opt.step()
-
-        ms = state.mask_state
-        if ms is not None:
-            apply_mask(named, ms.masks)
-            new_step = it + 1
-            if (mask_cfg.update_frequency and not mask_cfg.fix
-                    and new_step % mask_cfg.update_frequency == 0):
-                rate = cosine_prune_rate(new_step, mask_cfg.prune_rate,
-                                         max(train_cfg.prune_t_max, 1),
-                                         mask_cfg.eta_min)
-                ms = truncate_weights(ms, named, mask_cfg, rate,
-                                      grads=raw_grads,
-                                      momentum=adam_momentum(opt, named))
-            ms.steps = new_step
-            state.mask_state = ms
-        if state.ema is not None:
-            ema_update(state.ema, state.model, train_cfg.ema_decay,
-                       ms.masks if ms is not None else None)
-        state.step = it + 1
+        gnorm, raw_grads = optimizer_step(opt, named, train_cfg.clip_grad,
+                                          growth_reads_grads)
+        masks_and_ema(state, named, mask_cfg, train_cfg, raw_grads)
         metrics = {"loss": loss_sum / uf,
                    "lr": torch.tensor(lr), "grad_norm": gnorm,
                    "weight_decay": torch.tensor(wd)}
         return state, metrics
 
     return train_step
+
+
+def optimizer_step(opt: torch.optim.Optimizer,
+                   named: Dict[str, torch.Tensor], clip: Optional[float],
+                   keep_grads: bool = False):
+    """The global gradient norm of ``named``'s gradients, the clip (when
+    ``clip``) and ``opt``'s step: (norm, the unclipped gradients by name
+    when ``keep_grads``, else None)."""
+    grads = [p.grad for p in named.values()]
+    gnorm = global_grad_norm(grads)
+    raw = ({n: p.grad.clone() for n, p in named.items()}
+           if keep_grads else None)
+    if clip is not None:
+        clip_grads(grads, gnorm, clip)
+    opt.step()
+    return gnorm, raw
+
+
+def masks_and_ema(state: TrainState, named: Dict[str, torch.Tensor],
+                  mask_cfg: Optional[MaskConfig], train_cfg: TrainConfig,
+                  raw_grads: Optional[Dict[str, torch.Tensor]] = None):
+    """After the optimizer step: mask the weights and, every
+    ``update_frequency`` steps, prune and regrow them (growth reads the
+    optimizer's Adam moments or ``raw_grads``); update the EMA; count the
+    step."""
+    it = state.step
+    ms = state.mask_state
+    if ms is not None:
+        apply_mask(named, ms.masks)
+        new_step = it + 1
+        if (mask_cfg.update_frequency and not mask_cfg.fix
+                and new_step % mask_cfg.update_frequency == 0):
+            rate = cosine_prune_rate(new_step, mask_cfg.prune_rate,
+                                     max(train_cfg.prune_t_max, 1),
+                                     mask_cfg.eta_min)
+            ms = truncate_weights(ms, named, mask_cfg, rate,
+                                  grads=raw_grads,
+                                  momentum=adam_momentum(state.optimizer,
+                                                         named))
+        ms.steps = new_step
+        state.mask_state = ms
+    if state.ema is not None:
+        ema_update(state.ema, state.model, train_cfg.ema_decay,
+                   ms.masks if ms is not None else None)
+    state.step = it + 1
 
 
 def make_eval_step(model: SLaK, compute_dtype: Optional[torch.dtype] = None

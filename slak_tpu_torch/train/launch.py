@@ -17,8 +17,12 @@ The process group's backend is the train CLI's ``--dist_backend``: NCCL
 (one card a rank, the default) or gloo (CPU ranks, or several ranks sharing
 one card). Preemption recovery is the CLI's auto-resume.
 
+``--kd`` runs the distillation CLI (``kd/main.py``) in each rank in place
+of the train CLI.
+
 Usage:
   python -m slak_tpu_torch.train.launch --nproc 2 -- <train args...>
+  python -m slak_tpu_torch.train.launch --kd --nproc 2 -- <KD args...>
   torchrun --nproc_per_node 4 -m slak_tpu_torch.train.launch -- <args...>
 """
 
@@ -96,10 +100,16 @@ def train_rank(args):
     return train_main(args)
 
 
+def kd_rank(args):
+    """One rank of the distillation CLI (``run_ranks``' function)."""
+    from slak_tpu_torch.kd.main import main as kd_main
+    return kd_main(args)
+
+
 def main(argv=None):
-    """Parse the launcher's flags, then the train CLI's after ``--``, and
-    run. Returns the train CLI's result (rank 0's, for ``--nproc``)."""
-    from slak_tpu_torch.train.main import get_args_parser
+    """Parse the launcher's flags, then the train CLI's (the distillation
+    CLI's with ``--kd``) after ``--``, and run. Returns the CLI's result
+    (rank 0's, for ``--nproc``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     launcher = argparse.ArgumentParser("SLaK (PyTorch) launcher")
     launcher.add_argument("--nproc", type=int, default=1,
@@ -108,8 +118,9 @@ def main(argv=None):
                           help="seconds: the --nproc run's limit, and the "
                           "limit of each collective")
     launcher.add_argument("--kd", action="store_true",
-                          help="launch the distillation CLI instead (not "
-                          "in the port yet: raises)")
+                          help="launch the distillation CLI "
+                          "(slak_tpu_torch.kd.main) instead of the train "
+                          "CLI")
     if "--" in argv:
         split = argv.index("--")
         own, rest = argv[:split], argv[split + 1:]
@@ -117,22 +128,23 @@ def main(argv=None):
         own, rest = [], argv
     args = launcher.parse_args(own)
     if args.kd:
-        raise NotImplementedError(
-            "--kd: the distillation CLI (knowledge distillation, module 9) "
-            "is not in the port yet (ROADMAP Queue 1, KD)")
-    train_args = argparse.ArgumentParser(
-        "SLaK (PyTorch)", parents=[get_args_parser()]).parse_args(rest)
-    if train_args.multi_host or mesh.env_rank_world() is not None:
-        train_args.multi_host = True
-        return train_rank(train_args)
+        from slak_tpu_torch.kd.main import parse_args
+        rank_fn = kd_rank
+    else:
+        from slak_tpu_torch.train.main import parse_args
+        rank_fn = train_rank
+    cli_args = parse_args(rest)
+    if cli_args.multi_host or mesh.env_rank_world() is not None:
+        cli_args.multi_host = True
+        return rank_fn(cli_args)
     if args.nproc > 1:
-        if train_args.n_devices not in (None, args.nproc):
-            raise ValueError(f"--n_devices {train_args.n_devices} and "
+        if cli_args.n_devices not in (None, args.nproc):
+            raise ValueError(f"--n_devices {cli_args.n_devices} and "
                              f"--nproc {args.nproc} differ")
-        train_args.n_devices = args.nproc
+        cli_args.n_devices = args.nproc
         from slak_tpu_torch.train.main import spawn_ranks
-        return spawn_ranks(train_args, args.timeout)[0]
-    return train_rank(train_args)
+        return spawn_ranks(cli_args, args.timeout, rank_fn)[0]
+    return rank_fn(cli_args)
 
 
 if __name__ == "__main__":

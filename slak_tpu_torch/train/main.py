@@ -243,14 +243,16 @@ def check_parallel_args(args):
                 f"gloo to share a card")
 
 
-def spawn_ranks(args, timeout_s: Optional[float] = None) -> list:
-    """Run the CLI on ``args.n_devices`` spawned local ranks
-    (``train/launch.py``); their results in rank order. ``timeout_s``
-    bounds the run and each collective."""
+def spawn_ranks(args, timeout_s: Optional[float] = None,
+                rank_fn: Optional[Callable] = None) -> list:
+    """Run the CLI (``rank_fn``, by default ``launch.train_rank``) on
+    ``args.n_devices`` spawned local ranks (``train/launch.py``); their
+    results in rank order. ``timeout_s`` bounds the run and each
+    collective."""
     from slak_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S
     from slak_tpu_torch.train.launch import run_ranks, train_rank
-    return run_ranks(train_rank, args.n_devices, (args,), args.dist_backend,
-                     args.device, timeout_s,
+    return run_ranks(rank_fn or train_rank, args.n_devices, (args,),
+                     args.dist_backend, args.device, timeout_s,
                      timeout_s if timeout_s is not None else
                      DEFAULT_TIMEOUT_S)
 
@@ -314,6 +316,27 @@ def make_tp_eval_step(model, compute_dtype):
     return eval_step
 
 
+def augment(gen, x, y, mixup_cfg, re_cfg, group=None):
+    """Mixup / CutMix, then random erasing, drawn from ``gen``: (images,
+    targets). Under data parallel (``group``) the draws are the global
+    batch's (the ranks' batches gathered) and this rank keeps its rows."""
+    from slak_tpu_torch.data import mixup_cutmix, random_erasing
+    from slak_tpu_torch.parallel import mesh
+    mix = mixup_cfg.enabled or re_cfg.prob > 0
+    if mix and group is not None:
+        x = mesh.all_gather_cat(x, 0, group)
+        y = mesh.all_gather_cat(y, 0, group)
+    if mixup_cfg.enabled:
+        x, t = mixup_cutmix(gen, x, y, mixup_cfg)
+    else:
+        t = y
+    if re_cfg.prob > 0:
+        x = random_erasing(gen, x, re_cfg)
+    if mix and group is not None:
+        x, t = mesh.shard_batch((x, t), mesh.rank(group), mesh.world(group))
+    return x, t
+
+
 def ema_model(model, ema):
     """A copy of ``model`` holding the EMA's parameters and BN stats."""
     out = copy.deepcopy(model)
@@ -334,8 +357,7 @@ def main(args, step_hook: Optional[Callable] = None):
     from slak_tpu_torch import resolve_device
     from slak_tpu_torch.data import (BatchLoader, EvalTransform,
                                      MixupConfig, RandomErasingConfig,
-                                     TrainTransform, build_dataset,
-                                     mixup_cutmix, random_erasing)
+                                     TrainTransform, build_dataset)
     from slak_tpu_torch.data.loader import device_prefetch
     from slak_tpu_torch.parallel import mesh
     from slak_tpu_torch.sparsity.masking import MaskConfig, sparsity_report
@@ -562,19 +584,7 @@ def main(args, step_hook: Optional[Callable] = None):
                     prof = None
             gen.manual_seed(step_seed(args.seed, epoch * niter_per_ep + i))
             n_img += x.shape[0] * world
-            mix = mixup_cfg.enabled or re_cfg.prob > 0
-            if mix and group is not None:
-                # draw for the global batch, keep this rank's rows
-                x = mesh.all_gather_cat(x, 0, group)
-                y = mesh.all_gather_cat(y, 0, group)
-            if mixup_cfg.enabled:
-                x, t = mixup_cutmix(gen, x, y, mixup_cfg)
-            else:
-                t = y
-            if re_cfg.prob > 0:
-                x = random_erasing(gen, x, re_cfg)
-            if mix and group is not None:
-                x, t = mesh.shard_batch((x, t), rank, world)
+            x, t = augment(gen, x, y, mixup_cfg, re_cfg, group)
             if state.mask_state is not None:
                 state.mask_state.generator = gen
             if step_hook is not None:

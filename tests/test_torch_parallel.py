@@ -28,7 +28,7 @@ The train CLI through ``launch --nproc 2`` (gloo, CPU, the recipe's mixup,
 CutMix and erasing, ERK masks, a DST refresh, eval on 9 val images): its
 per-step losses, final weights and eval within 1e-4 of the one-process CLI
 fed the concatenation of the ranks' batches; rank 0's one checkpoint;
-``launch --kd`` raises. Every rendezvous goes through a file, every
+``launch --kd`` parses the distillation CLI's flags. Every rendezvous goes through a file, every
 collective and join is bounded by 60 s.
 """
 
@@ -572,6 +572,12 @@ def test_launched_cli_rank_0_writes_one_checkpoint(ranks):
 
 
 def test_launch_kd_raises():
+    """``--kd`` hands the flags after ``--`` to the distillation CLI's
+    parser (its runs: tests/test_torch_kd.py): a bad ``--distill_type``
+    raises that parser's error; without ``--kd`` the train CLI's parser
+    rejects the flag."""
     from slak_tpu_torch.train import launch
-    with pytest.raises(NotImplementedError, match="KD"):
-        launch.main(["--kd", "--"] + CLI)
+    with pytest.raises(SystemExit):
+        launch.main(["--kd", "--"] + CLI + ["--distill_type", "bogus"])
+    with pytest.raises(SystemExit):
+        launch.main(["--"] + CLI + ["--distill_type", "NKD"])
