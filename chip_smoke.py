@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,erf_kernels,erf
     python3 chip_smoke.py --phases build,cli
     python3 chip_smoke.py --phases build,kd_kernels,kd
+    python3 chip_smoke.py --phases build,seg,det
     python3 chip_smoke.py --phases build,dual_kernels,dual,dual_timing,probes
     python3 chip_smoke.py --phases build,mlp_ab --base PARENT_CHECKOUT
     python3 chip_smoke.py --phases build,mlp_bwd_ab --base PARENT_CHECKOUT
@@ -20,9 +21,9 @@ Phases (any failure exits non-zero):
   kernels  each kernel against its plain PyTorch version on the card at the
            flagship's shapes (SLaK-T 51x51 w1.3, the main path's batch): the
            dwconv pair at the four stages' (K,5)/(5,K) taps (also at
-           batches 1, 3 and 8; each launch's route, K6's Toeplitz kernel
-           (stage 4's 7x7, with the band kernel's time at the same shapes,
-           the same bits twice), the band kernel, the fp32 band kernel or
+           batches 1, 3 and 8; the same bits twice; each launch's route,
+           K6's Toeplitz kernel (stage 4's 7x7, with the band kernel's
+           time at the same shapes), the band kernel, the fp32 band kernel or
            the tiled kernel, named in its row; the Toeplitz kernel also at
            the DW_EDGES_2D maps and taps and batches 1, 3, 8, 64, 65, 128,
            its geometry that of dwconv2d_geometry, the same bits twice; the
@@ -57,7 +58,8 @@ Phases (any failure exits non-zero):
            shapes; the weight gradient the same bits on a second launch,
            the taps that only read padding exactly 0, each row naming its
            route; all three also at the DW_EDGES maps, K4 and the dgrad at
-           the DW_EDGES_2D maps), the fused MLP
+           the DW_EDGES_2D maps, the weight gradient at WGRAD_EDGES_TILED:
+           planes above the shared memory, in row tiles), the fused MLP
            backward in NCHW, K8 at
            C = 124 and 249 and K9 at C = 499 and 998 (also at the ragged
            batches 1 and 3; two launches must give the same bits); bf16
@@ -196,6 +198,40 @@ Phases (any failure exits non-zero):
            TOL_STEP), and one MGD step on 2 gloo ranks against the
            one-process step (loss and gradients within TOL_STEP, the
            heads and gradients the same on both ranks).
+  seg      downstream segmentation: UperNet on the flagship backbone
+           (upernet_slak_tiny_512_80k_ade20k: SLaK-T 51x51 w1.3 + UperNet
+           512 channels, 150 classes), 512^2 crops, batch 8, bf16, random
+           weights from a seed. (e) every kernel of the path against its
+           plain version at the path's stage shapes (128^2 to 16^2: the
+           K1 pair, K4, the weight gradient and the K1 dgrad, stage 1 on
+           the tiled kernels and stages 2-4 on the band kernels; K2/K3; K8
+           at stages 1-2, K9 at 3-4), the same bits twice, each with its
+           time, bound, plain and library times; (a) one train step on
+           the kernel route against the plain route from the same
+           weights, batch and draws (TOL_STEP: loss, every gradient, BN
+           stats); (b) its launch counts against downstream_counts; (d)
+           the step's ms on both routes (CUDA events) and the peak
+           memory; (c) the seg CLI (downstream/seg_main.py) in process,
+           under torch.use_deterministic_algorithms: 4 uninterrupted
+           steps, 3 steps with a checkpoint and the resumed step (its
+           starting state the uninterrupted run's bits), --eval over 2
+           batches (mIoU, mAcc, aAcc in [0, 1], the confusion matrix's
+           count that of the labels' non-ignored pixels), each run's
+           launch counts against downstream_counts.
+  det      downstream detection: Cascade Mask R-CNN on the same backbone
+           (cascade_mask_rcnn_slak_tiny_3x_coco: FPN 256, 3 stages, 80
+           classes, 512 proposals), 800^2 images, batch 2, 8 GT slots,
+           fp32. The same (e), (a)-(d) (K1 and its dgrad on the fp32 band
+           kernel, K4 and the weight gradient on the tiled kernels, K2/K3
+           on 3xTF32; (a) through the chain rule: both heads run on the
+           kernel route's features, the backbones' gradients and BN stats
+           within TOL_STEP, the two routes' features within
+           TOL_DET_FEATURES, the loss on each route's own features with
+           the kernel route's sampler draws, and where the two routes'
+           proposals differ, its boxes at every stage), the NMS loop's
+           time (one nms_fixed over 1024 and 512 boxes), and the CLI's
+           --eval through cascade_predict and coco_ap (box and mask AP in
+           [0, 1]).
   profile  (not in the default run) one eval forward and one train step
            under torch.profiler: device time by kernel, idle share, traces
            in chiprun_out/.
@@ -297,6 +333,10 @@ TOL_MLP_BWD = {"float32": 2e-5, "bfloat16": 2e-2}
 # (max |diff| / max |plain|)
 TOL_STEP = {"float32": dict(loss=1e-4, grad=1e-3, bn=1e-4),
             "bfloat16": dict(loss=2e-2, grad=1e-1, bn=2e-2)}
+# det's train-mode stage features (18 fp32 blocks, BN in train mode),
+# kernel route vs plain route: max |diff| / max |plain|, ten times
+# TOL_KERNEL's fp32 limit for one launch
+TOL_DET_FEATURES = 1e-4
 ERF_SIZE = 1024                             # the reference's ERF protocol
 ERF_IMAGES = 4
 ERF_GRAD_BATCH = 8                          # eval-mode parameter gradients
@@ -359,6 +399,15 @@ DW_EDGES = ((3, 16, 48, 48, 47, "band"),      # MT 3, pairs
             (3, 16, 14, 13, 47, "band"),      # non-square, odd W
             (2, 16, 40, 20, 49, "band"),      # MT 3 or 2 by orientation
             (2, 124, 112, 112, 51, "tiled"))  # stage 1's taps at 448^2
+# the weight gradient's tiled kernel where a map's two fp32 planes exceed
+# the shared memory (it stages row tiles, since detection's 200^2
+# stage 1 failed with cudaErrorInvalidConfiguration before), (N, C, H, W,
+# K, dtype): square and non-square, both orientations, a tile count that
+# leaves a short last tile, and bf16 above BAND_MAX
+WGRAD_EDGES_TILED = ((2, 16, 200, 200, 51, "float32"),
+                     (1, 8, 300, 264, 13, "float32"),
+                     (2, 16, 210, 160, 49, "float32"),
+                     (2, 16, 224, 224, 51, "bfloat16"))
 # K6's maps off stage 4's (bf16, H * W <= 64, any odd taps), all on the
 # Toeplitz kernel: one pixel, a non-square map, stage 4's 7x7 and 8 x 8 (the
 # most pixels, 8 n-tiles), each with taps longer than the map, square and
@@ -818,6 +867,29 @@ def check_wgrad_edges(phase: str):
         print(f"[{phase}] " + json.dumps(row), flush=True)
 
 
+def check_wgrad_tiled_edges(phase: str):
+    """The weight gradient at WGRAD_EDGES_TILED on the tiled kernel (row
+    tiles), both orientations (``check_wgrad``: within TOL_WGRAD, the same
+    bits twice, dead taps exactly 0). Prints a row a map."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(72)
+    for N, C, H, W, K, dn in WGRAD_EDGES_TILED:
+        dtype = getattr(torch, dn)
+        x, dy = (torch.randn(N, C, H, W, generator=g, device=dev
+                             ).to(dtype) for _ in range(2))
+        taps = ((K, 5), (5, K))
+        tag = f"dwconv_wgrad {N}x{C}x{H}x{W} taps {K}"
+        routes = [wgrad_route_of(x, *t) for t in taps]
+        _check(routes == ["tiled"] * 2, f"{tag}: routes {routes}")
+        errs = [check_wgrad(x, dy, *t, dn, tag) for t in taps]
+        print(f"[{phase}] " + json.dumps(dict(
+            shape=[N, C, H, W], K=K, dtype=dn, route="tiled",
+            max_abs_err=max(e[0] for e in errs),
+            rel_err=max(e[1] for e in errs), tol=TOL_WGRAD[dn],
+            same_bits_twice=True, dead_taps_zero=True)), flush=True)
+
+
 def stage_shapes(cfg, size: int = 224):
     dims = cfg.widened_dims
     for i in range(4):
@@ -1003,6 +1075,290 @@ def mlp_bwd_rows(tag, name, bwd, plain, y, dout, pk, dtype,
     return out
 
 
+def unfused_fwd_ms(y, res, pk, dtype, reps: int = REPS) -> float:
+    """The unfused torch composition of K2/K3 on NCHW y (the pre-bias, LN,
+    two nn.Linear products, GELU, gamma, the residual): the fused
+    forward's yardstick (one call of it does not exist)."""
+    import torch.nn.functional as F
+    C, F4 = pk.c, pk.f
+    ln_s, ln_b, b2, gam, pre = (v.to(dtype) for v in pk.vec)
+    w1, w2 = pk.w1[:F4, :C].contiguous(), pk.w2[:C, :F4].contiguous()
+    b1 = pk.b1[:F4].to(dtype)
+
+    def run():
+        z = (y + pre[:, None, None]).permute(0, 2, 3, 1)
+        z = F.layer_norm(z, (C,), ln_s, ln_b, eps=1e-6)
+        z = F.linear(F.gelu(F.linear(z, w1, b1)), w2, b2)
+        return res + (gam * z).permute(0, 3, 1, 2)
+    return time_ms(run, reps)
+
+
+def stage_kernel_rows(tag, kinds, stage, C, H, K, s, depth, batch, dtype, g,
+                      dw_batches=(), mlp_batches=(), mlp_variants=False,
+                      bwd_modes=("full",), plain_reps=REPS, **extra):
+    """The kernels `kinds` names at one stage's shapes (`batch` images, C
+    channels, H^2 maps, (K, s) and (s, K) taps, `depth` blocks), on inputs
+    drawn from `g`: "pair" the eval K1 pair (the second launch adding into
+    the first's output), "stats" K4, "wgrad" the weight gradient, "dgrad"
+    K1 on the flipped taps, "mlp" K2/K3 (NCHW; `mlp_variants`: also NHWC
+    and (C, M), without the residual and at RAGGED), "mlp_bwd" K8 (C <=
+    256) or K9 in each of `bwd_modes`. Each against its plain version
+    within its tolerance, the same bits on a second launch; the
+    convolutions also at the batches `dw_batches`, the backward at
+    `mlp_batches`. Each row (printed under `[tag]`) has its route, ms,
+    plain ms (`plain_reps` launches a round), library ms (F.conv2d,
+    conv2d_weight) or the unfused composition's ms (the MLP), its bound
+    (bytes at PEAK_BYTES_PER_S, operations at the dtype's peak; the lesser
+    of 3xTF32 and FFMA where fp32 runs on tensor cores) with both parts,
+    the stage's blocks and the launches a block. Returns {kind: [rows]}."""
+    import torch
+    import torch.nn.functional as F
+    from slak_tpu_torch.models import slak as S
+    from slak_tpu_torch.ops import dwconv as K1
+    from slak_tpu_torch.ops import dwconv_wgrad as KW
+    from slak_tpu_torch.ops import mlp as K2
+    dev, dn, st = g.device, str(dtype).split(".")[1], stage + 1
+    base = dict(dtype=dn, stage=st, C=C, H=H, taps=[K, s], batch=batch,
+                blocks=depth, **extra)
+    taps = [(K, s), (s, K)]
+    pads = [(kh // 2, kw // 2) for kh, kw in taps]
+    out = {}
+
+    def draw(scale=1.0):
+        return (torch.randn(batch, C, H, H, generator=g, device=dev)
+                * scale).to(dtype)
+
+    def emit(kind, row):
+        print(f"[{tag}] " + json.dumps(row), flush=True)
+        out.setdefault(kind, []).append(row)
+
+    def worst(check, *tensors):
+        """check(label, *tensors) -> (max abs err, rel err) at `batch`;
+        {batchN: rel err} at each of `dw_batches`."""
+        d, r = check(f"batch {batch}", *tensors)
+        by = {f"batch{nb}": check(f"batch {nb}", *(
+            t[:nb].contiguous() for t in tensors))[1] for nb in dw_batches}
+        return d, r, by
+
+    def dw_bounds(t, reads, words, tc):
+        """The bound of one launch a tap tensor, summed: launch j moves
+        reads[j] tensors of t's size and C (kh kw + words) fp32 words;
+        `tc`: on the fp32 band kernel's tensor cores (conv_bounds)."""
+        got = dict(bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+        for (kh, kw), n in zip(taps, reads):
+            args = (n * t.numel() * t.element_size()
+                    + 4 * C * (kh * kw + words),
+                    2 * dwconv_macs(batch, C, H, H, kh, kw), dtype)
+            b_ms, o_ms, more = (conv_bounds(*args) if tc
+                                else bounds(*args) + ({},))
+            got["bound_ms"] += max(b_ms, o_ms)
+            got["bytes_ms"] += b_ms
+            got["ops_ms"] += o_ms
+            for k, v in more.items():
+                got[k] = got.get(k, 0.0) + v
+        return got
+
+    if {"pair", "stats", "wgrad", "dgrad"} & set(kinds):
+        x, dy = draw(), draw()
+        ws = [(torch.randn(C, kh, kw, generator=g, device=dev) * 0.05
+               ).to(dtype).float() for kh, kw in taps]
+        wl = [w.to(dtype)[:, None] for w in ws]
+        flipped = [w.flip(1, 2).contiguous() for w in ws]
+
+    if "pair" in kinds:
+        def pair(conv=K1.dwconv):
+            y = conv(x, ws[0])
+            return conv(x, ws[1], out=y)
+
+        def band(xx, w, out=None):
+            return K1.launch("band", xx, w, out)
+        d, r, by = worst(lambda lb, xb: check_dwconv_pair(
+            xb, ws, dn, f"{tag} dwconv stage {st} {lb}"), x)
+        same_bits_twice(pair, f"{tag} dwconv pair stage {st} {dn}")
+        route = [route_of(x, w) for w in ws]
+        row = dict(kernel="dwconv2d" if route[0] == "toeplitz2d"
+                   else "dwconv", route=route, **base, max_abs_err=d,
+                   rel_err=r, rel_err_by_batch=by, tol=TOL_KERNEL[dn],
+                   same_bits_twice=True, ms=time_ms(pair),
+                   plain_ms=time_ms(lambda: pair(K1.dwconv_plain),
+                                    plain_reps),
+                   library_ms=time_ms(lambda: [
+                       F.conv2d(x, w, padding=p, groups=C)
+                       for w, p in zip(wl, pads)], plain_reps),
+                   **dw_bounds(x, (2, 3), 0, route[0] == "band_f32"),
+                   launches_per_block=2)
+        if route[0] == "toeplitz2d":    # the route A/B: the band kernel
+            row["band_ms"] = time_ms(lambda: pair(band))
+        emit("pair", row)
+
+    if "stats" in kinds:
+        def check_stats(lb, xb):
+            errs = [check_dwconv_stats(xb, w, dn, f"{tag} dwconv_stats "
+                                       f"stage {st} {lb}") for w in ws]
+            return max(e[0] for e in errs), max(e[1] for e in errs)
+
+        def lib():
+            for w, p in zip(wl, pads):
+                yf = F.conv2d(x, w, padding=p, groups=C).float()
+                yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3))
+        d, e, by = worst(check_stats, x)
+        for w in ws:
+            same_bits_twice(lambda: K1.dwconv_stats(x, w),
+                            f"{tag} dwconv_stats stage {st} {dn}")
+        route = [K1._stats_route_of(x, w) for w in ws]
+        row = dict(kernel="dwconv_stats", route=route, **base,
+                   max_abs_err=d, sums_rel_err=e, sums_rel_err_by_batch=by,
+                   tol=TOL_KERNEL[dn], tol_sums=TOL_SUMS[dn],
+                   same_bits_twice=True,
+                   ms=time_ms(lambda: [K1.dwconv_stats(x, w) for w in ws]),
+                   plain_ms=time_ms(lambda: [K1.dwconv_stats_plain(x, w)
+                                             for w in ws], plain_reps),
+                   library_ms=time_ms(lib, plain_reps),
+                   **dw_bounds(x, (2, 2), 2, False), launches_per_block=2)
+        if route[0] == "toeplitz2d":
+            row["band_ms"] = time_ms(lambda: [K1.launch_stats("band", x, w)
+                                              for w in ws])
+        emit("stats", row)
+
+    if "wgrad" in kinds:
+        def check_w(lb, xb, dyb):
+            errs = [check_wgrad(xb, dyb, kh, kw, dn, f"{tag} dwconv_wgrad "
+                                f"stage {st} {lb} {(kh, kw)}")
+                    for kh, kw in taps]
+            return max(e[0] for e in errs), max(e[1] for e in errs)
+        d, r, by = worst(check_w, x, dy)
+        row = dict(kernel="dwconv_wgrad",
+                   route=[wgrad_route_of(x, *t) for t in taps], **base,
+                   max_abs_err=d, rel_err=r, rel_err_by_batch=by,
+                   tol=TOL_WGRAD[dn], same_bits_twice=True,
+                   dead_taps_zero=True,
+                   ms=time_ms(lambda: [KW.dwconv_wgrad(x, dy, kh, kw)
+                                       for kh, kw in taps]),
+                   plain_ms=time_ms(lambda: [KW.dwconv_wgrad_plain(
+                       x, dy, kh, kw) for kh, kw in taps], plain_reps),
+                   library_ms=time_ms(lambda: [torch.nn.grad.conv2d_weight(
+                       x, (C, 1, kh, kw), dy, padding=p, groups=C)
+                       for (kh, kw), p in zip(taps, pads)], plain_reps),
+                   **dw_bounds(x, (2, 2), 0, False), launches_per_block=2)
+        emit("wgrad", row)
+
+    if "dgrad" in kinds:
+        def check_dgrad(lb, dyb):
+            d = r = 0.0
+            for w in flipped:
+                got, want = K1.dwconv(dyb, w), K1.dwconv_plain(dyb, w)
+                torch.cuda.synchronize()
+                dd, rr = rel_err(got, want)
+                _check(rr <= TOL_KERNEL[dn], f"{tag} dwconv dgrad stage {st}"
+                       f" {lb} {tuple(w.shape[1:])} {dn}: rel err {rr:.3g}")
+                d, r = max(d, dd), max(r, rr)
+            return d, r
+        d, r, by = worst(check_dgrad, dy)
+        for w in flipped:
+            same_bits_twice(lambda: K1.dwconv(dy, w),
+                            f"{tag} dwconv dgrad stage {st} {dn}")
+        route = [route_of(dy, w) for w in flipped]
+        row = dict(kernel="dwconv_dgrad", route=route, **base,
+                   max_abs_err=d, rel_err=r, rel_err_by_batch=by,
+                   tol=TOL_KERNEL[dn], same_bits_twice=True,
+                   ms=time_ms(lambda: [K1.dwconv(dy, w) for w in flipped]),
+                   plain_ms=time_ms(lambda: [K1.dwconv_plain(dy, w)
+                                             for w in flipped], plain_reps),
+                   library_ms=time_ms(lambda: [F.conv2d(
+                       dy, w.to(dtype)[:, None], padding=p, groups=C)
+                       for w, p in zip(flipped, pads)], plain_reps),
+                   **dw_bounds(dy, (2, 2), 0, route[0] == "band_f32"),
+                   launches_per_block=2)
+        if route[0] == "toeplitz2d":
+            row["band_ms"] = time_ms(lambda: [K1.launch("band", dy, w)
+                                              for w in flipped])
+        emit("dgrad", row)
+
+    if {"pair", "stats", "wgrad", "dgrad"} & set(kinds):
+        del x, dy, ws, wl, flipped
+    if "mlp" in kinds or "mlp_bwd" in kinds:
+        y, res, dout = draw(), draw(), draw(0.1)
+        pk = random_pack(C, g, dtype)
+        T, F4 = batch * H * H, 4 * C
+
+    if "mlp" in kinds:
+        for layout, yy, rr, cd in (mlp_layouts(y, res) if mlp_variants
+                                   else (("NCHW", y, res, 1),)):
+            want = K2.fused_mlp_plain(yy, rr, pk, cd)
+            got = K2.fused_mlp(yy, rr, pk, cd)
+            torch.cuda.synchronize()
+            d, r = rel_err(got, want)
+            del got, want
+            _check(r <= TOL_MLP[dn], f"{tag} fused_mlp stage {st} {layout} "
+                   f"{dn}: rel err {r:.3g} > {TOL_MLP[dn]}")
+            row = dict(kernel="fused_mlp", route="3xTF32" if dn == "float32"
+                       else "bf16", layout=layout, **base, T=T,
+                       max_abs_err=d, rel_err=r, tol=TOL_MLP[dn])
+            if mlp_variants:
+                row["ragged_and_no_residual"] = check_mlp_variants(
+                    K2, yy, rr, pk, cd, layout, stage, dn, batch)
+            if layout == "NCHW":
+                same_bits_twice(lambda: K2.fused_mlp(y, res, pk, 1),
+                                f"{tag} fused_mlp stage {st} {dn}")
+                b_ms, o_ms, more = mlp_fwd_bounds(T, C, F4, dtype)
+                ms = time_ms(lambda: K2.fused_mlp(y, res, pk, 1))
+                row.update(same_bits_twice=True, ms=ms,
+                           plain_ms=time_ms(lambda: K2.fused_mlp_plain(
+                               y, res, pk, 1), plain_reps),
+                           library_ms=None,
+                           unfused_torch_ms=unfused_fwd_ms(y, res, pk, dtype,
+                                                           plain_reps),
+                           bound_ms=max(b_ms, o_ms), bytes_ms=b_ms,
+                           ops_ms=o_ms, **more,
+                           **rate(4 * T * C * F4, ms, max(b_ms, o_ms)),
+                           launches_per_block=1)
+            emit("mlp", row)
+
+    if "mlp_bwd" in kinds:
+        wide = C > K2.BWD_C_MAX
+        name, bwd, plain = (
+            ("mlp_bwd_wide", K2.fused_mlp_bwd_wide,
+             K2.fused_mlp_bwd_wide_plain) if wide else
+            ("mlp_bwd", K2.fused_mlp_bwd, K2.fused_mlp_bwd_plain))
+        for nb in mlp_batches:              # tiles that end mid-tile
+            errs, _ = check_mlp_bwd(
+                bwd, plain, y[:nb].contiguous(), dout[:nb].contiguous(), pk,
+                TOL_MLP_BWD[dn], f"{tag} {name} stage {st} batch {nb}")
+            print(f"[{tag}] {name} stage {st} {dn} batch {nb} (T = "
+                  f"{nb * H * H}): rel err " + json.dumps(errs), flush=True)
+        # K9 runs in the train step where S.TRAIN_WIDE_MLP_BWD routes the
+        # wide tails through FusedMlp
+        rows = mlp_bwd_rows(tag, name, bwd, plain, y, dout, pk, dtype,
+                            bwd_modes, stage=st, layout="NCHW", batch=batch,
+                            blocks=depth, launches_per_block=int(
+                                not wide or S.TRAIN_WIDE_MLP_BWD), **extra)
+        out["mlp_bwd"] = [dict(row, route=mode)
+                          for mode, (row, _, _) in rows.items()]
+    return out
+
+
+TOTAL_KEYS = ("ms", "plain_ms", "library_ms", "unfused_torch_ms", "bound_ms",
+              "bytes_ms", "ops_ms")
+
+
+def add_total(totals, name, row, depth):
+    """Adds `depth` blocks' worth of a stage's kernel row to totals[name]:
+    the times, the bound and its two parts (the 3xTF32 and FFMA operations
+    bounds where the row has them), the band route's time (where the row
+    has none, its own), the worst max abs err and the row's route."""
+    t = totals.setdefault(name, dict(dict.fromkeys(TOTAL_KEYS, 0.0),
+                                     band_ms=0.0, err=0.0, routes=[]))
+    for k in TOTAL_KEYS:
+        t[k] += depth * (row.get(k) or 0.0)
+    t["band_ms"] += depth * row.get("band_ms", row["ms"])
+    for k in ("ops_ms_3xtf32", "ops_ms_ffma"):
+        if k in row:
+            t[k] = t.get(k, 0.0) + depth * row[k]
+    t["err"] = max(t["err"], row["max_abs_err"])
+    t["routes"].append(row.get("route"))
+    return t
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1023,147 +1379,27 @@ def phase_build(ptxas: bool):
 
 
 def phase_kernels(cfg, batch):
-    """Each kernel against its plain version at the main path's shapes;
-    first the bf16 K1 pair at DW_EDGES."""
+    """Each kernel of the eval path against its plain version at the main
+    path's shapes (``stage_kernel_rows``: the K1 pair also at DW_BATCHES,
+    K2/K3 in its three layouts, without the residual and at RAGGED); first
+    the bf16 K1 pair at DW_EDGES. Returns the per-forward bf16 totals: the
+    K1 pairs by kernel (dwconv.cu's, stages 1-3; K6's Toeplitz kernel,
+    stage 4, with the band route's time at the same shapes) and K2/K3."""
     import torch
-    import torch.nn.functional as F
-    from slak_tpu_torch.ops import dwconv as K1
-    from slak_tpu_torch.ops import mlp as K2
     check_dwconv_edges("kernels", train=False)
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    # the bf16 K1 pairs by kernel: dwconv.cu's band kernel (stages 1-3)
-    # and K6's Toeplitz kernel (stage 4)
-    totals = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                      bytes_ms=0.0, ops_ms=0.0, err=0.0, band_ms=0.0)
-              for n in ("dwconv", "dwconv2d")}
-    totals.update({
-              "fused_mlp": dict(ms=0.0, plain_ms=0.0, unfused_torch_ms=0.0,
-                                bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-                                err=0.0)})
+    g = torch.Generator(device="cuda").manual_seed(0)
+    totals = {}
     for dtype in (torch.bfloat16, torch.float32):
-        dn = str(dtype).split(".")[1]
-        item = torch.tensor([], dtype=dtype).element_size()
         for i, C, H, K, s, depth in stage_shapes(cfg):
-            x = torch.randn(batch, C, H, H, generator=g, device=dev
-                            ).to(dtype)
-            w1 = (torch.randn(C, K, s, generator=g, device=dev) * 0.05
-                  ).to(dtype).float()
-            w2 = (torch.randn(C, s, K, generator=g, device=dev) * 0.05
-                  ).to(dtype).float()
-
-            def pair(conv=K1.dwconv):
-                y = conv(x, w1)
-                return conv(x, w2, out=y)
-
-            d, r = check_dwconv_pair(x, (w1, w2), dn, f"dwconv stage {i + 1}")
-            more = {"rel_err_by_batch": {      # the other batches' tiles
-                f"batch{nb}": check_dwconv_pair(
-                    x[:nb].contiguous(), (w1, w2), dn,
-                    f"dwconv stage {i + 1} batch {nb}")[1]
-                for nb in DW_BATCHES}}
-            ms = time_ms(pair)
-            plain_ms = time_ms(lambda: pair(K1.dwconv_plain))
-            wl1 = w1.to(dtype)[:, None]
-            wl2 = w2.to(dtype)[:, None]
-            lib_ms = time_ms(lambda: (
-                F.conv2d(x, wl1, padding=(K // 2, s // 2), groups=C),
-                F.conv2d(x, wl2, padding=(s // 2, K // 2), groups=C)))
-            # launch 1 reads x and writes y; launch 2 also reads y
-            bound = bytes_ms = ops_ms = 0.0
-            for (kh, kw), tensors in (((K, s), 2), ((s, K), 3)):
-                b_ms, o_ms, ops = conv_bounds(
-                    tensors * x.numel() * item + 4 * C * kh * kw,
-                    2 * dwconv_macs(batch, C, H, H, kh, kw), dtype)
-                bound += max(b_ms, o_ms)
-                bytes_ms += b_ms
-                ops_ms += o_ms
-                for k, v in ops.items():
-                    more[k] = more.get(k, 0.0) + v
-            routes = [route_of(x, w1), route_of(x, w2)]
-            k6 = routes[0] == "toeplitz2d"
-            if k6:
-                # the route A/B: the same pair on the band kernel
-                def band(xx, ww, out=None):
-                    return K1.launch("band", xx, ww, out)
-                more["band_ms"] = time_ms(lambda: pair(band))
-                same_bits_twice(pair, f"dwconv stage {i + 1} {dn}")
-            row = dict(kernel="dwconv2d" if k6 else "dwconv", dtype=dn,
-                       stage=i + 1, C=C, H=H, taps=[K, s], batch=batch,
-                       route=routes, max_abs_err=d, rel_err=r, **more,
-                       tol=TOL_KERNEL[dn], ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound,
-                       launches_per_forward=2 * depth)
-            print("[kernels] " + json.dumps(row), flush=True)
+            rows = stage_kernel_rows("kernels", ("pair", "mlp"), i, C, H, K,
+                                     s, depth, batch, dtype, g,
+                                     dw_batches=DW_BATCHES, mlp_variants=True)
             if dtype == torch.bfloat16:
-                t = totals["dwconv2d" if k6 else "dwconv"]
-                for k in ("ms", "plain_ms", "library_ms"):
-                    t[k] += depth * row[k]
-                t["band_ms"] += depth * row.get("band_ms", row["ms"])
-                t["bound_ms"] += depth * bound
-                t["bytes_ms"] += depth * bytes_ms
-                t["ops_ms"] += depth * ops_ms
-                t["err"] = max(t["err"], d)
-            del x
-
-            # fused MLP at this stage's width
-            F4 = 4 * C
-            y = torch.randn(batch, C, H, H, generator=g, device=dev
-                            ).to(dtype)
-            res = torch.randn(batch, C, H, H, generator=g, device=dev
-                              ).to(dtype)
-            pk = random_pack(C, g, dtype)
-            for layout, yy, rr, cd in mlp_layouts(y, res):
-                want = K2.fused_mlp_plain(yy, rr, pk, cd)
-                got = K2.fused_mlp(yy, rr, pk, cd)
-                torch.cuda.synchronize()
-                d, r = rel_err(got, want)
-                _check(r <= TOL_MLP[dn],
-                       f"fused_mlp stage {i + 1} {layout} {dn}: rel err "
-                       f"{r:.3g} > {TOL_MLP[dn]}")
-                row = dict(kernel="fused_mlp", dtype=dn, stage=i + 1, C=C,
-                           layout=layout, batch=batch, max_abs_err=d,
-                           rel_err=r, tol=TOL_MLP[dn],
-                           ragged_and_no_residual=check_mlp_variants(
-                               K2, yy, rr, pk, cd, layout, i, dn, batch))
-                if layout == "NCHW":
-                    T = batch * H * H
-                    same_bits_twice(lambda: K2.fused_mlp(y, res, pk, 1),
-                                    f"fused_mlp stage {i + 1} {dn}")
-                    ms = time_ms(lambda: K2.fused_mlp(y, res, pk, 1))
-                    plain_ms = time_ms(
-                        lambda: K2.fused_mlp_plain(y, res, pk, 1))
-                    ln_s, ln_b, b2, gam, pre = pk.vec
-                    w1d = pk.w1[:F4, :C].contiguous()
-                    w2d = pk.w2[:C, :F4].contiguous()
-                    b1d, b2d = pk.b1[:F4].to(dtype), b2.to(dtype)
-                    lnd = (ln_s.to(dtype), ln_b.to(dtype))
-                    gd, pd = gam.to(dtype), pre.to(dtype)
-
-                    def unfused():
-                        z = (y + pd[:, None, None]).permute(0, 2, 3, 1)
-                        z = F.layer_norm(z, (C,), *lnd, eps=1e-6)
-                        z = F.linear(F.gelu(F.linear(z, w1d, b1d)), w2d, b2d)
-                        return res + (gd * z).permute(0, 3, 1, 2)
-                    unf_ms = time_ms(unfused)
-                    b_ms, o_ms, more = mlp_fwd_bounds(T, C, F4, dtype)
-                    row.update(ms=ms, plain_ms=plain_ms,
-                               unfused_torch_ms=unf_ms,
-                               bound_ms=max(b_ms, o_ms), **more,
-                               launches_per_forward=depth,
-                               **rate(4 * T * C * F4, ms, max(b_ms, o_ms)))
-                    if dtype == torch.bfloat16:
-                        t = totals["fused_mlp"]
-                        for k in ("ms", "plain_ms", "unfused_torch_ms",
-                                  "bound_ms"):
-                            t[k] += depth * row[k]
-                        t["bytes_ms"] += depth * b_ms
-                        t["ops_ms"] += depth * o_ms
-                if dtype == torch.bfloat16:
-                    totals["fused_mlp"]["err"] = max(
-                        totals["fused_mlp"]["err"], d)
-                print("[kernels] " + json.dumps(row), flush=True)
-            del y, res, pk
+                pair = rows["pair"][0]
+                add_total(totals, pair["kernel"], pair, depth)
+                t = add_total(totals, "fused_mlp", rows["mlp"][0], depth)
+                t["err"] = max([t["err"]] + [r["max_abs_err"]
+                                             for r in rows["mlp"]])
             torch.cuda.empty_cache()
     return totals
 
@@ -1334,273 +1570,65 @@ def phase_timing(model, batch):
 
 
 def phase_train_kernels(cfg, batch):
-    """K4, the weight gradient, the K1 dgrad, K8 (stages 1-2) and K9
-    (stages 3-4) against their plain versions at the train shapes, K8 and
-    K9 also at the ragged batches RAGGED (first bf16 K4, the K1 dgrad and
-    the weight gradient at DW_EDGES); returns per-train-step totals (bf16)
-    for the JSON line and K9's bf16 rows."""
+    """The train step's kernels against their plain versions at the train
+    shapes (``stage_kernel_rows``): K4, the weight gradient and the K1
+    dgrad (bf16 also at DW_BATCHES), K8 (stages 1-2) and K9 (stages 3-4),
+    also at the ragged batches RAGGED; first bf16 K4, the K1 dgrad and the
+    weight gradient at DW_EDGES and the weight gradient at
+    WGRAD_EDGES_TILED. Returns per-train-step bf16 totals for the JSON
+    line (stage 4's K4 and dgrad, on K6's Toeplitz kernel, as
+    dwconv2d_stats and dwconv2d_dgrad, with the band route's time) and
+    K9's bf16 rows."""
     import torch
-    import torch.nn.functional as F
-    from slak_tpu_torch.models import slak as S
-    from slak_tpu_torch.ops import dwconv as K1
-    from slak_tpu_torch.ops import dwconv_wgrad as KW
-    from slak_tpu_torch.ops import mlp as K2
     check_dwconv_edges("train_kernels", train=True)
     check_wgrad_edges("train_kernels")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(10)
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
-            "ops_ms")
-    # K4 and the dgrad by kernel: dwconv.cu's (stages 1-3) and K6's
-    # Toeplitz kernel (stage 4, "dwconv2d_*", with the band route's time
-    # at the same shapes)
-    totals = {n: dict({k: 0.0 for k in keys}, err=0.0)
-              for n in ("dwconv_stats", "dwconv_wgrad", "dwconv_dgrad",
-                        "mlp_bwd", "mlp_bwd_wide")}
-    totals.update({n: dict({k: 0.0 for k in keys}, err=0.0, band_ms=0.0)
-                   for n in ("dwconv2d_stats", "dwconv2d_dgrad")})
-    # the 7x7 maps' share (stage 4: the TPU's K6 forward/dgrad and K7)
-    on_7x7 = {n: dict.fromkeys(keys[:4], 0.0) for n in totals
-              if n.startswith("dwconv")}
-    k9_bf16 = []
-
-    def add(name, row, depth, b_ms, o_ms):
-        if row.get("route", [None])[0] == "toeplitz2d":
-            name = name.replace("dwconv_", "dwconv2d_")
-            totals[name]["band_ms"] += depth * row["band_ms"]
-        t = totals[name]
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            t[k] += depth * row[k]
-            if row.get("H") == 7 and name in on_7x7:
-                on_7x7[name][k] += depth * row[k]
-        t["bytes_ms"] += depth * b_ms
-        t["ops_ms"] += depth * o_ms
-        t["err"] = max(t["err"], row["max_abs_err"])
-
+    check_wgrad_tiled_edges("train_kernels")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    totals, on_7x7, k9_bf16 = {}, {}, []
     for dtype in (torch.bfloat16, torch.float32):
-        dn = str(dtype).split(".")[1]
-        item = torch.tensor([], dtype=dtype).element_size()
+        bf16 = dtype == torch.bfloat16
         for i, C, H, K, s, depth in stage_shapes(cfg):
-            x = torch.randn(batch, C, H, H, generator=g, device=dev).to(dtype)
-            dy = torch.randn(batch, C, H, H, generator=g, device=dev
-                             ).to(dtype)
-            taps = [(K, s), (s, K)]
-            ws = [(torch.randn(C, kh, kw, generator=g, device=dev) * 0.05
-                   ).to(dtype).float() for kh, kw in taps]
-            # K4: the pair of stats-fused convs (bf16: also at the other
-            # batches)
-            d_max = s_err = 0.0
-            by_batch = {}
-            for nb in (batch,) + (DW_BATCHES if dtype == torch.bfloat16
-                                  else ()):
-                xb = x if nb == batch else x[:nb].contiguous()
-                for w in ws:
-                    d, e = check_dwconv_stats(
-                        xb, w, dn, f"dwconv_stats stage {i + 1} batch {nb}")
-                    if nb == batch:
-                        d_max, s_err = max(d_max, d), max(s_err, e)
-                    else:
-                        by_batch[f"batch{nb}"] = max(
-                            by_batch.get(f"batch{nb}", 0.0), e)
-            ms = time_ms(lambda: [K1.dwconv_stats(x, w) for w in ws])
-            plain_ms = time_ms(lambda: [K1.dwconv_stats_plain(x, w)
-                                        for w in ws])
-            # the route A/B on stage 4: the same launches on the band kernel
-            k6 = {}
-            if route_of(x, ws[0]) == "toeplitz2d":
-                k6["band_ms"] = time_ms(lambda: [K1.launch_stats("band", x, w)
-                                                 for w in ws])
-            wl = [w.to(dtype)[:, None] for w in ws]
-
-            def lib():
-                for w, (kh, kw) in zip(wl, taps):
-                    yy = F.conv2d(x, w, padding=(kh // 2, kw // 2), groups=C)
-                    yf = yy.float()
-                    yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3))
-            lib_ms = time_ms(lib)
-            b_ms = o_ms = bound = 0.0
-            for kh, kw in taps:
-                bb, oo = bounds(2 * x.numel() * item + 4 * C * (kh * kw + 2),
-                                2 * dwconv_macs(batch, C, H, H, kh, kw),
-                                dtype)
-                b_ms, o_ms, bound = b_ms + bb, o_ms + oo, bound + max(bb, oo)
-            row = dict(kernel="dwconv_stats", dtype=dn, stage=i + 1, C=C,
-                       H=H, taps=[K, s], batch=batch,
-                       route=[route_of(x, w) for w in ws], max_abs_err=d_max,
-                       sums_rel_err=s_err, sums_rel_err_by_batch=by_batch,
-                       sums_same_bits_twice=True, tol=TOL_KERNEL[dn],
-                       tol_sums=TOL_SUMS[dn], ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound, **k6,
-                       launches_per_step=2 * depth)
-            print("[train_kernels] " + json.dumps(row), flush=True)
-            if dtype == torch.bfloat16:
-                add("dwconv_stats", row, depth, b_ms, o_ms)
-
-            # the weight gradient of the pair (bf16: also at the other
-            # batches)
-            d_max = r_max = 0.0
-            by_batch = {}
-            for nb in (batch,) + (DW_BATCHES if dtype == torch.bfloat16
-                                  else ()):
-                xb, dyb = ((x, dy) if nb == batch else
-                           (x[:nb].contiguous(), dy[:nb].contiguous()))
-                for kh, kw in taps:
-                    d, r = check_wgrad(xb, dyb, kh, kw, dn,
-                                       f"dwconv_wgrad stage {i + 1} batch "
-                                       f"{nb} {(kh, kw)}")
-                    if nb == batch:
-                        d_max, r_max = max(d_max, d), max(r_max, r)
-                    else:
-                        by_batch[f"batch{nb}"] = max(
-                            by_batch.get(f"batch{nb}", 0.0), r)
-            ms = time_ms(lambda: [KW.dwconv_wgrad(x, dy, kh, kw)
-                                  for kh, kw in taps])
-            plain_ms = time_ms(lambda: [KW.dwconv_wgrad_plain(x, dy, kh, kw)
-                                        for kh, kw in taps])
-            lib_ms = time_ms(lambda: [torch.nn.grad.conv2d_weight(
-                x, (C, 1, kh, kw), dy, padding=(kh // 2, kw // 2), groups=C)
-                for kh, kw in taps])
-            b_ms = o_ms = bound = 0.0
-            for kh, kw in taps:
-                bb, oo = bounds(2 * x.numel() * item + 4 * C * kh * kw,
-                                2 * dwconv_macs(batch, C, H, H, kh, kw),
-                                dtype)
-                b_ms, o_ms, bound = b_ms + bb, o_ms + oo, bound + max(bb, oo)
-            row = dict(kernel="dwconv_wgrad", dtype=dn, stage=i + 1, C=C,
-                       H=H, taps=[K, s], batch=batch,
-                       route=[wgrad_route_of(x, *t) for t in taps],
-                       max_abs_err=d_max, rel_err=r_max,
-                       rel_err_by_batch=by_batch, same_bits_twice=True,
-                       tol=TOL_WGRAD[dn], ms=ms,
-                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                       launches_per_step=2 * depth)
-            print("[train_kernels] " + json.dumps(row), flush=True)
-            if dtype == torch.bfloat16:
-                add("dwconv_wgrad", row, depth, b_ms, o_ms)
-
-            # K1 as each branch's dgrad: its taps flipped on both axes
-            flipped = [w.flip(1, 2).contiguous() for w in ws]
-            d_max = 0.0
-            by_batch = {}
-            for nb in (batch,) + (DW_BATCHES if dtype == torch.bfloat16
-                                  else ()):
-                dyb = dy if nb == batch else dy[:nb].contiguous()
-                for w in flipped:
-                    got, want = K1.dwconv(dyb, w), K1.dwconv_plain(dyb, w)
-                    torch.cuda.synchronize()
-                    d, r = rel_err(got, want)
-                    _check(r <= TOL_KERNEL[dn], f"dwconv dgrad stage {i + 1}"
-                           f" batch {nb} {tuple(w.shape[1:])} {dn}: rel err "
-                           f"{r:.3g}")
-                    if nb == batch:
-                        d_max = max(d_max, d)
-                    else:
-                        by_batch[f"batch{nb}"] = max(
-                            by_batch.get(f"batch{nb}", 0.0), r)
-            ms = time_ms(lambda: [K1.dwconv(dy, w) for w in flipped])
-            plain_ms = time_ms(lambda: [K1.dwconv_plain(dy, w)
-                                        for w in flipped])
-            k6 = {}
-            if route_of(dy, flipped[0]) == "toeplitz2d":
-                k6["band_ms"] = time_ms(lambda: [K1.launch("band", dy, w)
-                                                 for w in flipped])
-                for w in flipped:
-                    same_bits_twice(lambda: K1.dwconv(dy, w),
-                                    f"dwconv dgrad stage {i + 1} {dn}")
-            lib_ms = time_ms(lambda: [F.conv2d(
-                dy, w.to(dtype)[:, None], padding=(kh // 2, kw // 2),
-                groups=C) for w, (kh, kw) in zip(flipped, taps)])
-            # fp32 runs on the 3xTF32 band kernel: the operations bound is
-            # the lesser of 3xTF32 and FFMA, both given
-            b_ms = o_ms = bound = 0.0
-            ops = {}
-            for kh, kw in taps:
-                bb, oo, more = conv_bounds(
-                    2 * x.numel() * item + 4 * C * kh * kw,
-                    2 * dwconv_macs(batch, C, H, H, kh, kw), dtype)
-                b_ms, o_ms, bound = b_ms + bb, o_ms + oo, bound + max(bb, oo)
-                for k, v in more.items():
-                    ops[k] = ops.get(k, 0.0) + v
-            row = dict(kernel="dwconv_dgrad", dtype=dn, stage=i + 1, C=C,
-                       H=H, taps=[K, s], batch=batch,
-                       route=[route_of(dy, w) for w in flipped],
-                       max_abs_err=d_max, rel_err_by_batch=by_batch,
-                       tol=TOL_KERNEL[dn], ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound, bytes_ms=b_ms,
-                       ops_ms=o_ms, **ops, **k6, launches_per_step=2 * depth)
-            print("[train_kernels] " + json.dumps(row), flush=True)
-            if dtype == torch.bfloat16:
-                add("dwconv_dgrad", row, depth, b_ms, o_ms)
-            del x, dy
-
-            # K8 (C <= 256) or K9 at this stage's width, NCHW; K9 runs in
-            # the step where S.TRAIN_WIDE_MLP_BWD routes the wide tails
-            # through FusedMlp
-            wide = C > K2.BWD_C_MAX
-            name, bwd, plain = (
-                ("mlp_bwd_wide", K2.fused_mlp_bwd_wide,
-                 K2.fused_mlp_bwd_wide_plain) if wide else
-                ("mlp_bwd", K2.fused_mlp_bwd, K2.fused_mlp_bwd_plain))
-            y = torch.randn(batch, C, H, H, generator=g, device=dev).to(dtype)
-            dout = (torch.randn(batch, C, H, H, generator=g, device=dev)
-                    * 0.1).to(dtype)
-            pk = random_pack(C, g, dtype)
-            for nb in RAGGED:               # tiles that end mid-tile
-                errs, _ = check_mlp_bwd(
-                    bwd, plain, y[:nb].contiguous(), dout[:nb].contiguous(),
-                    pk, TOL_MLP_BWD[dn], f"{name} stage {i + 1} batch {nb}")
-                print(f"[train_kernels] {name} stage {i + 1} {dn} batch {nb}"
-                      f" (T = {nb * H * H}): rel err " + json.dumps(errs),
-                      flush=True)
-            row, b_ms, o_ms = mlp_bwd_rows(
-                "train_kernels", name, bwd, plain, y, dout, pk, dtype,
-                stage=i + 1, layout="NCHW", batch=batch,
-                launches_per_step=depth if not wide or S.TRAIN_WIDE_MLP_BWD
-                else 0)["full"]
-            if dtype == torch.bfloat16:
-                row = dict(row, library_ms=row["unfused_torch_ms"])
-                add(name, row, depth, b_ms, o_ms)
-                if wide:
-                    k9_bf16.append(row)
-            del y, dout, pk
+            rows = stage_kernel_rows(
+                "train_kernels", ("stats", "wgrad", "dgrad", "mlp_bwd"), i, C,
+                H, K, s, depth, batch, dtype, g,
+                dw_batches=DW_BATCHES if bf16 else (), mlp_batches=RAGGED)
             torch.cuda.empty_cache()
+            if not bf16:
+                continue
+            for kind in ("stats", "wgrad", "dgrad"):
+                row = rows[kind][0]
+                name = row["kernel"]
+                if row["route"][0] == "toeplitz2d":
+                    name = name.replace("dwconv_", "dwconv2d_")
+                add_total(totals, name, row, depth)
+                if H == 7:      # stage 4: the TPU's K6 forward/dgrad and K7
+                    add_total(on_7x7, row["kernel"], row, depth)
+            row = rows["mlp_bwd"][0]
+            add_total(totals, row["kernel"], row, depth)
+            if row["kernel"] == "mlp_bwd_wide":
+                k9_bf16.append(row)
     print("[train_kernels] per bf16 step, of which on the 7x7 maps: "
-          + json.dumps({n: {k: round(v, 4) for k, v in t.items()}
-                        for n, t in on_7x7.items() if t["ms"]}), flush=True)
+          + json.dumps({n: {k: round(t[k], 4) for k in (
+              "ms", "plain_ms", "library_ms", "bound_ms")}
+              for n, t in on_7x7.items()}), flush=True)
     return totals, k9_bf16
 
 
 def phase_erf_kernels(cfg):
     """The ERF path's kernels against their plain versions in fp32 at the
     four 1024^2 stage shapes (batch 1): K1 (forward and flipped-tap
-    dgrad), K2/K3, K8 (stages 1-2) and K9 (stages 3-4), K8 and K9 in both
-    modes (the ERF runs dy-only). Returns per-image totals for the JSON
-    line, K8/K9's in dy-only mode and, as mlp_bwd_full and
-    mlp_bwd_wide_full, in the full mode (K9 in bf16:
-    ``phase_train_kernels``)."""
+    dgrad, each a pair of launches adding into one output, as
+    ``DwconvTaps`` runs them), then K2/K3, K8 (stages 1-2) and K9 (stages
+    3-4) through ``stage_kernel_rows``, K8 and K9 in both modes (the ERF
+    runs dy-only). Returns per-image totals for the JSON line, K8/K9's in
+    dy-only mode and, as mlp_bwd_full and mlp_bwd_wide_full, in the full
+    mode (K9 in bf16: ``phase_train_kernels``)."""
     import torch
     import torch.nn.functional as F
     from slak_tpu_torch.ops import dwconv as K1
-    from slak_tpu_torch.ops import mlp as K2
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(20)
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
-            "ops_ms")
-    totals = {n: dict({k: 0.0 for k in keys}, err=0.0)
-              for n in ("dwconv", "dwconv_dgrad", "fused_mlp", "mlp_bwd",
-                        "mlp_bwd_wide", "mlp_bwd_full", "mlp_bwd_wide_full")}
-
-    def add(name, row, n, b_ms, o_ms):
-        t = totals[name]
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            t[k] += n * (row[k] or 0.0)
-        for k in ("ops_ms_3xtf32", "ops_ms_ffma"):
-            if k in row:
-                t[k] = t.get(k, 0.0) + n * row[k]
-        t["bytes_ms"] += n * b_ms
-        t["ops_ms"] += n * o_ms
-        t["err"] = max(t["err"], row["max_abs_err"])
-
+    totals = {}
     # fp32, batch 1, 1024^2: every kernel of the ERF path
     dt = torch.float32
     for i, C, H, K, s, depth in stage_shapes(cfg, ERF_SIZE):
@@ -1644,51 +1672,19 @@ def phase_erf_kernels(cfg):
                            for w, (kh, kw) in zip(lib_w, taps)]),
                        bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms, **ops)
             print("[erf_kernels] " + json.dumps(row), flush=True)
-            add(name, row, depth, b_ms, o_ms)
+            add_total(totals, name, row, depth)
         del x, dy
-
-        y = torch.randn(1, C, H, H, generator=g, device=dev)
-        res = torch.randn(1, C, H, H, generator=g, device=dev)
-        dout = torch.randn(1, C, H, H, generator=g, device=dev) * 0.1
-        pk = random_pack(C, g, dt)
-        got = K2.fused_mlp(y, res, pk, 1)
-        want = K2.fused_mlp_plain(y, res, pk, 1)
-        torch.cuda.synchronize()
-        d, r = rel_err(got, want)
-        _check(r <= TOL_MLP["float32"], f"fused_mlp 1024^2 stage {i + 1}: "
-               f"rel err {r:.3g}")
-        same_bits_twice(lambda: K2.fused_mlp(y, res, pk, 1),
-                        f"fused_mlp 1024^2 stage {i + 1}")
-        T, F4 = H * H, 4 * C
-        b_ms, o_ms, more = mlp_fwd_bounds(T, C, F4, dt)
-        row = dict(kernel="fused_mlp", dtype="float32", stage=i + 1, C=C,
-                   T=T, batch=1, max_abs_err=d, rel_err=r,
-                   tol=TOL_MLP["float32"],
-                   ms=time_ms(lambda: K2.fused_mlp(y, res, pk, 1)),
-                   plain_ms=time_ms(lambda: K2.fused_mlp_plain(y, res, pk,
-                                                               1)),
-                   library_ms=None, bound_ms=max(b_ms, o_ms),
-                   bytes_ms=b_ms, ops_ms=o_ms, **more)
-        print("[erf_kernels] " + json.dumps(row), flush=True)
-        add("fused_mlp", row, depth, b_ms, o_ms)
-
-        if C <= K2.BWD_C_MAX:
-            name, bwd, plain = ("mlp_bwd", K2.fused_mlp_bwd,
-                                K2.fused_mlp_bwd_plain)
-        else:
-            name, bwd, plain = ("mlp_bwd_wide", K2.fused_mlp_bwd_wide,
-                                K2.fused_mlp_bwd_wide_plain)
-        rows = mlp_bwd_rows("erf_kernels", name, bwd, plain, y, dout, pk, dt,
-                            ("full", "dy_only"), stage=i + 1, batch=1,
-                            size=ERF_SIZE)
-        for mode, key in (("dy_only", name), ("full", name + "_full")):
-            row, b_ms, o_ms = rows[mode]
-            add(key, dict(row, library_ms=row["unfused_torch_ms"]), depth,
-                b_ms, o_ms)
-        del y, res, dout, pk
+        rows = stage_kernel_rows("erf_kernels", ("mlp", "mlp_bwd"), i, C, H,
+                                 K, s, depth, 1, dt, g,
+                                 bwd_modes=("full", "dy_only"),
+                                 size=ERF_SIZE)
+        add_total(totals, "fused_mlp", rows["mlp"][0], depth)
+        for row in rows["mlp_bwd"]:
+            add_total(totals, row["kernel"] + (
+                "_full" if row["mode"] == "full" else ""), row, depth)
         torch.cuda.empty_cache()
     print("[erf_kernels] per fp32 1024^2 image: " + json.dumps(
-        {n: {k: round(v, 4) for k, v in t.items()}
+        {n: {k: round(v, 4) for k, v in t.items() if k != "routes"}
          for n, t in totals.items()}), flush=True)
     return totals
 
@@ -4147,50 +4143,21 @@ def phase_kd_kernels(batch):
     at the ragged batches too, the same bits twice; times, bound, plain
     and unfused: the per-step sums by kernel and the rows."""
     import torch
-    from slak_tpu_torch.models import slak as S
     from slak_tpu_torch.models.slak import config_for
-    from slak_tpu_torch.ops import mlp as K2
     cfg = config_for("convnext_tiny")
-    dtype, dn = torch.bfloat16, "bfloat16"
     g = torch.Generator(device="cuda").manual_seed(13)
     totals, rows = {}, []
-    for i, C, H, _, _, depth in stage_shapes(cfg):
-        wide = C > K2.BWD_C_MAX
-        name, bwd, plain = (
-            ("mlp_bwd_wide", K2.fused_mlp_bwd_wide,
-             K2.fused_mlp_bwd_wide_plain) if wide else
-            ("mlp_bwd", K2.fused_mlp_bwd, K2.fused_mlp_bwd_plain))
-        y = torch.randn(batch, C, H, H, generator=g, device="cuda").to(dtype)
-        dout = (torch.randn(batch, C, H, H, generator=g, device="cuda")
-                * 0.1).to(dtype)
-        pk = random_pack(C, g, dtype)
-        for nb in RAGGED:
-            errs, _ = check_mlp_bwd(
-                bwd, plain, y[:nb].contiguous(), dout[:nb].contiguous(), pk,
-                TOL_MLP_BWD[dn], f"{name} ConvNeXt-T stage {i + 1} batch "
-                f"{nb}")
-            print(f"[kd_kernels] {name} ConvNeXt-T stage {i + 1} {dn} batch "
-                  f"{nb} (T = {nb * H * H}): rel err " + json.dumps(errs),
-                  flush=True)
-        row, b_ms, o_ms = mlp_bwd_rows(
-            "kd_kernels", name, bwd, plain, y, dout, pk, dtype,
-            model="convnext_tiny", stage=i + 1, layout="NCHW", batch=batch,
-            launches_per_step=depth if not wide or S.TRAIN_WIDE_MLP_BWD
-            else 0)["full"]
+    for i, C, H, K, s, depth in stage_shapes(cfg):
+        row = stage_kernel_rows("kd_kernels", ("mlp_bwd",), i, C, H, K, s,
+                                depth, batch, torch.bfloat16, g,
+                                mlp_batches=RAGGED,
+                                model="convnext_tiny")["mlp_bwd"][0]
         rows.append(row)
-        t = totals.setdefault(name, dict(ms=0.0, plain_ms=0.0,
-                                         unfused_torch_ms=0.0, bound_ms=0.0,
-                                         bytes_ms=0.0, ops_ms=0.0, err=0.0))
-        for k in ("ms", "plain_ms", "unfused_torch_ms"):
-            t[k] += depth * row[k]
-        t["bound_ms"] += depth * max(b_ms, o_ms)
-        t["bytes_ms"] += depth * b_ms
-        t["ops_ms"] += depth * o_ms
-        t["err"] = max(t["err"], row["max_abs_err"])
-        del y, dout, pk
+        add_total(totals, row["kernel"], row, depth)
         torch.cuda.empty_cache()
     print("[kd_kernels] per bf16 ConvNeXt-T step at batch %d: " % batch
-          + json.dumps({n: {k: round(v, 4) for k, v in t.items()}
+          + json.dumps({n: {k: round(v, 4) for k, v in t.items()
+                            if k != "routes"}
                         for n, t in totals.items()}), flush=True)
     return totals, rows
 
@@ -4673,12 +4640,547 @@ def add_kd_launches(kernels, kd_totals, kd_run):
                                  "mlp_bwd" else "384, 768"))
 
 
+# ---------------------------------------------------------------------------
+# downstream transfer: UperNet segmentation and Cascade Mask R-CNN detection
+# on the flagship backbone at the recipes' shapes
+
+SEG_RECIPE = "upernet_slak_tiny_512_80k_ade20k"
+SEG_BATCH, SEG_CROP = 8, 512                # the reference's 8 a GPU
+DET_RECIPE = "cascade_mask_rcnn_slak_tiny_3x_coco"
+DET_BATCH, DET_SIZE, DET_GTS = 2, 800, 8    # det_main's defaults
+DS_CLI_STEPS = 3                            # then one resumed step
+DS_EVAL_BATCHES = 2
+DS_TIMED_STEPS = 2
+# the routes each stage's K1, K4 and weight gradient take, by map size
+# (ops/dwconv.py BAND_MAX = P_MAX = 64): bf16 seg at 512^2 (128/64/32/16)
+# stage 1 on the tiled kernels, stages 2-4 on the band kernels, no K6;
+# fp32 det at 800^2 (200/100/50/25) K1 and its dgrad on the fp32 band
+# kernel, K4 and the weight gradient on the tiled kernels
+SEG_ROUTES = {k: ["tiled", "band", "band", "band"]
+              for k in ("dwconv", "dwconv_stats", "dwconv_wgrad")}
+DET_ROUTES = {"dwconv": ["band_f32"] * 4, "dwconv_stats": ["tiled"] * 4,
+              "dwconv_wgrad": ["tiled"] * 4}
+
+
+def downstream_counts(cfg, size, dtype, steps=0, evals=0):
+    """(read_counts' keys -> the launches of `steps` train steps and `evals`
+    eval forwards of the flagship backbone at `size`^2; {kernel: each
+    stage's route}, as the routers pick them for empty tensors of the
+    stage's shapes): per block a step launches K4 twice, the K1 dgrad
+    twice, the weight gradient twice, K2 once and K8 (C <= 256) or K9
+    once; an eval forward the K1 pair and K2/K3 once."""
+    import torch
+    from slak_tpu_torch.models import slak as S
+    from slak_tpu_torch.ops import dwconv as K1
+    from slak_tpu_torch.ops.mlp import BWD_C_MAX
+    c = dict.fromkeys(read_counts(), 0)
+    routes = {"dwconv": [], "dwconv_stats": [], "dwconv_wgrad": []}
+    for i, C, H, K, s, d in stage_shapes(cfg, size):
+        x = torch.empty(1, C, H, H, dtype=dtype, device="meta")
+        w = torch.empty(C, K, s, device="meta")
+        r1, r4, rw = (route_of(x, w), K1._stats_route_of(x, w),
+                      wgrad_route_of(x, K, s))
+        for k, r in zip(routes, (r1, r4, rw)):
+            routes[k].append(r)
+        k1, k2 = 2 * d * (steps + evals), 2 * d * steps
+        c["dwconv"] += k1
+        c["dwconv_band"] += k1 * (r1 == "band")
+        c["dwconv_toeplitz"] += k1 * (r1 == "toeplitz2d")
+        c["dwconv_tf32"] += k1 * (r1 == "band_f32")
+        c["dwconv_stats"] += k2
+        c["dwconv_stats_band"] += k2 * (r4 == "band")
+        c["dwconv_stats_toeplitz"] += k2 * (r4 == "toeplitz2d")
+        c["dwconv_wgrad"] += k2
+        c["dwconv_wgrad_band"] += k2 * (rw == "band")
+        wide = C > BWD_C_MAX
+        fused = d * steps * (not wide or S.TRAIN_WIDE_MLP_BWD) + d * evals
+        c["fused_mlp"] += fused
+        c["fused_mlp_tf32"] += fused * (dtype == torch.float32)
+        c["mlp_bwd"] += d * steps * (not wide)
+        c["mlp_bwd_wide"] += d * steps * (wide and S.TRAIN_WIDE_MLP_BWD)
+    return c, routes
+
+
+def downstream_kernels(tag, cfg, batch, size, dtype):
+    """Every kernel of the seg / det path against its plain version at the
+    path's own stage shapes (the backbone at `size`^2, `batch` images;
+    ``stage_kernel_rows``, the plain versions and library calls timed
+    over 3 launches a round). Returns the per-step sums by kernel (a train
+    step: K4, the weight gradient, the dgrad, K2, K8 / K9; an eval
+    forward: the pair, K2/K3), each stage's time weighted by its depth."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(19)
+    tot = {}
+    for i, C, H, K, s, depth in stage_shapes(cfg, size):
+        rows = stage_kernel_rows(f"{tag}_kernels", ("pair", "stats", "wgrad",
+                                                    "dgrad", "mlp", "mlp_bwd"),
+                                 i, C, H, K, s, depth, batch, dtype, g,
+                                 plain_reps=3)
+        for kind, name in (("pair", "dwconv_pair"), ("stats", "dwconv_stats"),
+                           ("wgrad", "dwconv_wgrad"),
+                           ("dgrad", "dwconv_dgrad"), ("mlp", "fused_mlp")):
+            add_total(tot, name, rows[kind][0], depth)
+        row = rows["mlp_bwd"][0]
+        add_total(tot, row["kernel"], row, depth)
+        torch.cuda.empty_cache()
+    return tot
+
+
+def _ds_snapshot(model):
+    """Loss-free step state: every gradient (fp32) and BN running stat."""
+    return ({n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters() if p.grad is not None},
+            {n: v.clone() for n, v in model.state_dict().items()
+             if "running" in n})
+
+
+def _ds_compare(tag, dn, loss_k, loss_p, snap_k, snap_p):
+    """One step, kernel route against plain route, within TOL_STEP:
+    (loss rel err, worst gradient's relative norm error and its name, BN
+    running stats' rel err)."""
+    tol = TOL_STEP[dn]
+    le = abs(loss_k - loss_p) / abs(loss_p)
+    gk, bk = snap_k
+    gp, bp = snap_p
+    ge = {n: ((gk[n] - w).norm() / w.norm().clamp(min=1e-30)).item()
+          for n, w in gp.items() if w.norm().item() > 0}
+    worst = max(ge, key=ge.get)
+    be = max(rel_err(bk[n], w)[1] for n, w in bp.items())
+    top = sorted(ge, key=ge.get, reverse=True)[:8]
+    print(f"[{tag}] worst gradients (rel err, norm): " + json.dumps(
+        {n: [ge[n], gp[n].norm().item()] for n in top}), flush=True)
+    print(f"[{tag}] one {dn} step, kernels vs plain: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (rel {le:.3g}, tol {tol['loss']}); grad rel norm "
+          f"err max {ge[worst]:.3g} ({worst}), median "
+          f"{statistics.median(ge.values()):.3g} (tol {tol['grad']}); BN "
+          f"running stats rel {be:.3g} (tol {tol['bn']})", flush=True)
+    _check(le <= tol["loss"], f"{tag} step loss rel err {le:.3g}")
+    _check(ge[worst] <= tol["grad"], f"{tag} grad {worst} rel err "
+           f"{ge[worst]:.3g}")
+    _check(be <= tol["bn"], f"{tag} BN stats rel err {be:.3g}")
+    return dict(loss_rel=le, grad_rel_norm_max=ge[worst], grad_worst=worst,
+                grad_rel_norm_median=statistics.median(ge.values()),
+                bn_rel=be)
+
+
+def _state_tensors(model, opt):
+    """Every model and optimizer-state tensor, cloned on the card."""
+    import torch
+    out = {"model." + n: v.detach().clone()
+           for n, v in model.state_dict().items()}
+    for i, st in opt.state_dict()["state"].items():
+        out.update({f"opt.{i}.{k}": v.detach().clone()
+                    for k, v in st.items() if torch.is_tensor(v)})
+    return out
+
+
+def _ds_cli(tag, mod, argv, steps_arg, counts_for):
+    """The CLI in process: an uninterrupted run of DS_CLI_STEPS + 1 steps
+    (no checkpoint), a run of DS_CLI_STEPS steps and its resumed step in
+    one directory, then --eval over DS_EVAL_BATCHES batches, each with the
+    launch counters set to 0 just before and read just after and held to
+    `counts_for(steps, evals)`. The runs go under
+    torch.use_deterministic_algorithms (the kernels give the same bits
+    twice; PyTorch's atomics-based backwards take their deterministic
+    forms), so the state the resumed run's step starts from (the step
+    hook, before the step) must be, bit for bit, the state the
+    uninterrupted run's step of that iteration starts from. Returns
+    {run: seconds, launches, stats}."""
+    import shutil
+    import tempfile
+    import torch
+    parser = argparse.ArgumentParser(parents=[mod.get_seg_args_parser()
+                                              if tag == "seg" else
+                                              mod.get_det_args_parser()])
+    seen = {}
+
+    def hook(model, opt, it):
+        if it == DS_CLI_STEPS:
+            seen[run] = _state_tensors(model, opt)
+
+    out, runs = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_"), {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for run, extra, steps, evals in (
+                ("uninterrupted", [steps_arg, str(DS_CLI_STEPS + 1)],
+                 DS_CLI_STEPS + 1, 0),
+                ("first", [steps_arg, str(DS_CLI_STEPS), "--output_dir",
+                           out], DS_CLI_STEPS, 0),
+                ("resumed", [steps_arg, str(DS_CLI_STEPS + 1),
+                             "--output_dir", out], 1, 0),
+                ("eval", ["--eval", "--eval_batches", str(DS_EVAL_BATCHES),
+                          "--output_dir", out], 0, DS_EVAL_BATCHES)):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            stats = mod.main(parser.parse_args(argv + extra), hook)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = read_counts()
+            want, _ = counts_for(steps, evals)
+            _check(counts == want, f"{tag} CLI {run}: launch counts "
+                   f"{counts}, want {want}")
+            runs[run] = dict(seconds=sec, steps=steps, evals=evals,
+                             launches=counts, stats=stats)
+            print(f"[{tag}] CLI {run}: {sec:.1f} s, {json.dumps(stats)}",
+                  flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(out, ignore_errors=True)
+    a, b = seen["uninterrupted"], seen["resumed"]
+    _check(a.keys() == b.keys(), f"{tag} CLI: the resumed run's state "
+           f"holds {sorted(set(a) ^ set(b))[:5]} the uninterrupted one's "
+           f"does not, or the other way round")
+    bad = [k for k in a if a[k].device != b[k].device
+           or not torch.equal(a[k], b[k])]
+    _check(not bad, f"{tag} CLI: the resumed step's state differs from the "
+           f"uninterrupted run's: {bad[:5]}")
+    print(f"[{tag}] CLI resume: {len(a)} tensors the uninterrupted run's "
+          f"bits", flush=True)
+    return runs
+
+
+def phase_seg(cfg):
+    """`seg`: (e) the kernels at the 512^2 crop's shapes, (a) one bf16
+    train step on the kernel route against the plain route, (b) its launch
+    counts, (d) step ms on both routes and the peak memory, (c) the CLI:
+    train, resume, eval."""
+    import torch
+    from slak_tpu_torch.downstream import seg_main as SM
+    from slak_tpu_torch.downstream.configs import SEG_CONFIGS, poly_schedule
+    t_start = time.perf_counter()
+    dtype = torch.bfloat16
+    dev = torch.device("cuda")
+    recipe = SEG_CONFIGS[SEG_RECIPE]
+    bcfg = recipe.backbone.model
+    _, routes = downstream_counts(bcfg, SEG_CROP, dtype, 1)
+    _check(routes == SEG_ROUTES, f"seg routes {routes}, want {SEG_ROUTES}")
+    kern = downstream_kernels("seg", bcfg, SEG_BATCH, SEG_CROP, dtype)
+    t_kern = time.perf_counter()
+    lr_arr = poly_schedule(recipe.lr, 1000, 0, recipe.warmup_ratio)
+    x, y = SM._synthetic_seg_batch(SM.iter_rng(0, 0), SEG_BATCH, SEG_CROP,
+                                   recipe.num_classes)
+    res, snaps = {}, {}
+    for plain in (False, True):
+        model = SM.build_seg(recipe, dev, 0)
+        opt = SM.make_seg_optimizer(model, recipe)
+        step = SM.make_seg_train_step(model, opt, recipe, lr_arr, dtype,
+                                      plain)
+        gen = torch.Generator(device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        loss, gnorm, _ = step(0, x, y, gen.manual_seed(7))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        route = "plain" if plain else "kernels"
+        want = downstream_counts(bcfg, SEG_CROP, dtype, 0 if plain else 1)[0]
+        _check(counts == want, f"seg {route} step: launch counts {counts}, "
+               f"want {want}")
+        snaps[route] = (loss.item(), _ds_snapshot(model))
+        res[route] = dict(
+            loss=loss.item(), grad_norm=gnorm.item(), launches=counts,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            step_ms=time_ms(lambda: step(1, x, y, gen.manual_seed(8)),
+                            DS_TIMED_STEPS, warmup=1, rounds=2))
+        print(f"[seg] {route}: " + json.dumps(res[route]), flush=True)
+        del model, opt, step
+        torch.cuda.empty_cache()
+    res["compare"] = _ds_compare("seg", "bfloat16", snaps["kernels"][0],
+                                 snaps["plain"][0], snaps["kernels"][1],
+                                 snaps["plain"][1])
+    del snaps
+    t_step = time.perf_counter()
+    argv = ["--recipe", SEG_RECIPE, "--batch_size", str(SEG_BATCH),
+            "--crop_size", str(SEG_CROP), "--use_bf16", "true",
+            "--log_every", "1", "--save_every", "1000"]
+    cli = _ds_cli("seg", SM, argv, "--max_iters",
+                  lambda s, e: downstream_counts(bcfg, SEG_CROP, dtype, s, e))
+    ev = cli["eval"]["stats"]
+    for k in ("mIoU", "mAcc", "aAcc"):
+        _check(math.isfinite(ev[k]) and 0.0 <= ev[k] <= 1.0,
+               f"seg eval {k} {ev[k]}")
+    import numpy as np
+    pixels = 0
+    rng = np.random.default_rng(0)
+    for _ in range(DS_EVAL_BATCHES):
+        pixels += int((SM._synthetic_seg_batch(rng, SEG_BATCH, SEG_CROP,
+                                               recipe.num_classes)[1]
+                       != 255).sum())
+    _check(ev["pixels"] == pixels, f"seg eval: the confusion matrix counts "
+           f"{ev['pixels']} pixels, the labels have {pixels} not ignored")
+    t_end = time.perf_counter()
+    sec = dict(kernels=t_kern - t_start, step=t_step - t_kern,
+               cli=t_end - t_step, total=t_end - t_start)
+    print(f"[seg] seconds: " + json.dumps(sec), flush=True)
+    return dict(kernels=kern, step=res, cli=cli, seconds=sec)
+
+
+def _nms_ms(k, dev):
+    """CUDA-event ms of one nms_fixed over k score-sorted random boxes
+    (the RPN's k = 2 x 512)."""
+    import torch
+    from slak_tpu_torch.downstream.detection import nms_fixed
+    g = torch.Generator(device=dev).manual_seed(3)
+    xy = torch.rand(k, 2, generator=g, device=dev) * 700
+    boxes = torch.cat([xy, xy + 20 + torch.rand(k, 2, generator=g,
+                                                device=dev) * 200], 1)
+    scores = torch.sort(torch.rand(k, generator=g, device=dev),
+                        descending=True)[0]
+    return time_ms(lambda: nms_fixed(boxes, scores, 0.7, 512), 2, warmup=1,
+                   rounds=3)
+
+
+def _det_grads(model, batch, hw, hcfg, plain, gen, feats_in=None,
+               g_feats=None, draws=None):
+    """The det step's forward and backward without the optimizer: the
+    backbone on `plain`'s route, cascade_loss on detached copies of its
+    features (or of `feats_in`), then the backbone's backward from the
+    loss's feature gradients (or from `g_feats`). Returns (loss, losses,
+    cascade_loss's info, the backbone's features, the loss's feature
+    gradients)."""
+    import torch
+    from slak_tpu_torch.downstream.detection import cascade_loss
+    x, gb, gl, gv, gm = batch
+    model.train()
+    feats = model["backbone"](x, plain, gen)
+    head_in = [f.detach().requires_grad_()
+               for f in (feats if feats_in is None else feats_in)]
+    tot, losses, info = cascade_loss(model["head"], head_in, gb, gl, gv, gm,
+                                     hw, hcfg, train=True, generator=gen,
+                                     draws=draws)
+    tot.backward()
+    g = [f.grad for f in head_in]
+    torch.autograd.backward(list(feats), g if g_feats is None else g_feats)
+    return (tot.item(), {k: v.item() for k, v in losses.items()}, info,
+            [f.detach() for f in feats], g)
+
+
+def phase_det(cfg):
+    """`det`: (e) the kernels at the 800^2 shapes (fp32); (a) one fp32 step
+    on the kernel route against the plain route from the same weights,
+    batch and draws, under torch.use_deterministic_algorithms. The
+    cascade's loss is not smooth in the features (the box clips, GIoU's
+    corners, the level and sample boundaries): 1e-6 feature differences
+    move its feature gradients by about 2e-3 (measured on one H100). So the
+    two routes' backbones are held to each other through the chain rule:
+    the heads run on the kernel route's features in both, and the plain
+    backbone's backward starts from the kernel route's feature gradients;
+    the backbone's gradients and BN stats within TOL_STEP. The head's
+    gradients and BN stats are the same on both routes by construction, so
+    they are left out of the comparison. The forward is held directly: the
+    two routes' features within TOL_DET_FEATURES. The loss is held on each
+    route's own features (the plain route's with the kernel route's draws;
+    where its proposals differ, with the kernel route's boxes too). (b) the
+    step's launch counts, (d) the step's ms on both routes (CUDA events),
+    the peak memory and the NMS time, (c) the CLI: train, resume, eval
+    (cascade_predict and coco_ap)."""
+    import torch
+    from slak_tpu_torch.downstream import det_main as DM
+    from slak_tpu_torch.downstream.configs import DET_CONFIGS
+    from slak_tpu_torch.downstream.detection import cascade_loss
+    t_start = time.perf_counter()
+    dtype = torch.float32
+    dev = torch.device("cuda")
+    recipe = DET_CONFIGS[DET_RECIPE]
+    bcfg = recipe.backbone.model
+    hcfg = DM._head_cfg(recipe, False)
+    _, routes = downstream_counts(bcfg, DET_SIZE, dtype, 1)
+    _check(routes == DET_ROUTES, f"det routes {routes}, want {DET_ROUTES}")
+    kern = downstream_kernels("det", bcfg, DET_BATCH, DET_SIZE, dtype)
+    t_kern = time.perf_counter()
+    lr_arr = DM.step_lr_array(recipe.lr, 1000, recipe.epochs, 1000)
+    batch = [t.to(dev) for t in DM._synthetic_det_batch(
+        DM.iter_rng(0, 0), DET_BATCH, DET_SIZE, DET_GTS, hcfg.num_classes)]
+    hw = (DET_SIZE, DET_SIZE)
+    res, snaps = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        model_k = DM.build_det(recipe, hcfg, dev, 0)
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        loss_k, losses_k, info, feats_k, gf_k = _det_grads(
+            model_k, batch, hw, hcfg, False,
+            torch.Generator(device=dev).manual_seed(7))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = downstream_counts(bcfg, DET_SIZE, dtype, 1)[0]
+        _check(counts == want, f"det kernel step: launch counts {counts}, "
+               f"want {want}")
+        res["kernels"] = dict(loss=loss_k, losses=losses_k, launches=counts,
+                              peak_memory_gib=torch.cuda.max_memory_allocated()
+                              / 2 ** 30)
+        snaps["kernels"] = _ds_snapshot(model_k["backbone"])
+        model_p = DM.build_det(recipe, hcfg, dev, 0)
+        reset_counts()
+        _det_grads(model_p, batch, hw, hcfg, True,
+                   torch.Generator(device=dev).manual_seed(7), feats_k, gf_k,
+                   info["draws"])
+        torch.cuda.synchronize()
+        _check(sum(read_counts().values()) == 0,
+               f"det plain step launched {read_counts()}")
+        snaps["plain"] = _ds_snapshot(model_p["backbone"])
+        # the loss on the plain route's own features, the BN stats kept
+        bn = {n: v.clone() for n, v in model_p.state_dict().items()
+              if "running" in n}
+        with torch.no_grad():
+            feats_p = model_p["backbone"](batch[0], True,
+                                          torch.Generator(device=dev)
+                                          .manual_seed(7))
+            own = cascade_loss(model_p["head"], feats_p, *batch[1:], hw,
+                               hcfg, draws=info["draws"])
+            differ = [int((~torch.isclose(a, b, rtol=0, atol=1e-3).all(-1))
+                          .sum()) for a, b in zip(info["stage_proposals"],
+                                                  own[2]["stage_proposals"])]
+            if any(differ):
+                own = cascade_loss(model_p["head"], feats_p, *batch[1:], hw,
+                                   hcfg, draws=info["draws"],
+                                   proposals=info["stage_proposals"])
+        model_p.load_state_dict(bn, strict=False)
+        feat_err = max(rel_err(a, b)[1] for a, b in zip(feats_k, feats_p))
+        _check(feat_err <= TOL_DET_FEATURES, f"det features, kernels vs "
+               f"plain: rel err {feat_err:.3g} > {TOL_DET_FEATURES}")
+        res["plain"] = dict(loss=own[0].item(), losses={
+            k: v.item() for k, v in own[1].items()},
+            feature_rel_err=feat_err)
+        res["proposals_differing_by_stage"] = differ
+        print(f"[det] proposals that differ between the routes, by stage: "
+              f"{differ} of {DET_BATCH} x {hcfg.num_proposals}; features "
+              f"rel {feat_err:.3g}", flush=True)
+        res["compare"] = _ds_compare("det", "float32", loss_k,
+                                     res["plain"]["loss"], snaps["kernels"],
+                                     snaps["plain"])
+        del snaps, feats_k, gf_k, feats_p, own, info
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # (d) the train step (make_det_train_step: the optimizer too) on both
+    # routes
+    for route, model in (("kernels", model_k), ("plain", model_p)):
+        opt = DM.make_det_optimizer(model, recipe)
+        step = DM.make_det_train_step(model, opt, recipe, hcfg, lr_arr, hw,
+                                      route == "plain")
+        gen = torch.Generator(device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        res[route]["step_ms"] = time_ms(
+            lambda: step(1, batch, gen.manual_seed(8)), DS_TIMED_STEPS,
+            warmup=1, rounds=2)
+        res[route]["step_peak_memory_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        del opt, step
+    del model_k, model_p
+    torch.cuda.empty_cache()
+    res["nms_ms"] = {f"k{k}": _nms_ms(k, dev) for k in (1024, 512)}
+    res["nms_ms_per_train_step"] = DET_BATCH * res["nms_ms"]["k1024"]
+    res["nms_ms_per_predict_batch"] = DET_BATCH * (res["nms_ms"]["k1024"]
+                                                   + res["nms_ms"]["k512"])
+    print("[det] steps: " + json.dumps(res), flush=True)
+    t_step = time.perf_counter()
+    argv = ["--recipe", DET_RECIPE, "--batch_size", str(DET_BATCH),
+            "--img_size", str(DET_SIZE), "--num_gts", str(DET_GTS),
+            "--log_every", "1", "--save_every", "1000"]
+    cli = _ds_cli("det", DM, argv, "--steps",
+                  lambda s, e: downstream_counts(bcfg, DET_SIZE, dtype, s, e))
+    ev = cli["eval"]["stats"]
+    for k, v in ev.items():
+        _check(math.isfinite(v) and 0.0 <= v <= 1.0, f"det eval {k} {v}")
+    t_end = time.perf_counter()
+    sec = dict(kernels=t_kern - t_start, step=t_step - t_kern,
+               cli=t_end - t_step, total=t_end - t_start)
+    print(f"[det] seconds: " + json.dumps(sec), flush=True)
+    return dict(kernels=kern, step=res, cli=cli, seconds=sec)
+
+
+# the kernels line's rows by the downstream totals' names: (row name,
+# totals, source, the TPU kernel, the library call)
+_DS_ROWS = {
+    "seg": (("dwconv", ("dwconv_pair", "dwconv_dgrad"),
+             "slak_tpu_torch/ops/csrc/dwconv.cu",
+             "slak_tpu/ops/pallas_banded.py:168", "F.conv2d(groups=C)"),
+            ("dwconv_stats", ("dwconv_stats",),
+             "slak_tpu_torch/ops/csrc/dwconv.cu",
+             "slak_tpu/ops/pallas_banded.py:251",
+             "F.conv2d(groups=C) + sum + sum of squares"),
+            ("dwconv_wgrad", ("dwconv_wgrad",),
+             "slak_tpu_torch/ops/csrc/dwconv_wgrad.cu",
+             "slak_tpu/ops/pallas_banded.py:888",
+             "torch.nn.grad.conv2d_weight(groups=C)"),
+            ("fused_mlp", ("fused_mlp",), "slak_tpu_torch/ops/csrc/mlp.cu",
+             "slak_tpu/ops/pallas_mlp.py:527", None),
+            ("mlp_bwd", ("mlp_bwd",), "slak_tpu_torch/ops/csrc/mlp_bwd.cu",
+             "slak_tpu/ops/pallas_mlp.py:263", None),
+            ("mlp_bwd_wide", ("mlp_bwd_wide",),
+             "slak_tpu_torch/ops/csrc/mlp_bwd.cu",
+             "slak_tpu/ops/pallas_mlp.py:419", None)),
+}
+_DS_ROWS["det"] = tuple(
+    (("dwconv_f32", r[1], "slak_tpu_torch/ops/csrc/dwconv_f32.cu") + r[3:])
+    if r[0] == "dwconv" else r for r in _DS_ROWS["seg"])
+
+
+def add_downstream(kernels, seg_run, det_run):
+    """Each kernel row's launches in the seg / det CLI's uninterrupted run
+    and its per-step sums at the recipe's shapes (`seg_512`, `det_800`); a
+    row that no earlier phase made is made here from them."""
+    for tag, run, key, what in (
+            ("seg", seg_run, "seg_512", "the 512^2 crop, bf16, batch %d"
+             % SEG_BATCH),
+            ("det", det_run, "det_800", "800^2, fp32, batch %d"
+             % DET_BATCH)):
+        if run is None:
+            continue
+        c = run["cli"]["uninterrupted"]["launches"]
+        steps = run["cli"]["uninterrupted"]["steps"]
+        launches = {
+            "dwconv": c["dwconv"] - c["dwconv_tf32"] - c["dwconv_toeplitz"],
+            "dwconv_f32": c["dwconv_tf32"],
+            "dwconv_stats": c["dwconv_stats"],
+            "dwconv_wgrad": c["dwconv_wgrad"], "fused_mlp": c["fused_mlp"],
+            "mlp_bwd": c["mlp_bwd"], "mlp_bwd_wide": c["mlp_bwd_wide"]}
+        for name, parts, src, repl, lib in _DS_ROWS[tag]:
+            ts = [run["kernels"][p] for p in parts]
+            agg = {k: sum(t[k] for t in ts) for k in TOTAL_KEYS}
+            err = max(t["err"] for t in ts)
+            extra = {"routes": {p: run["kernels"][p]["routes"]
+                                for p in parts},
+                     "launches": launches[name], "max_abs_err": err,
+                     "times_per": "one train step at %s%s" % (what, (
+                         " (the dgrad) and one eval forward (the pair)"
+                         if name in ("dwconv", "dwconv_f32") else "")),
+                     "launches_in": "the %s CLI: %d train steps at %s"
+                     % (tag, steps, what)}
+            extra.update({k: agg[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bytes_ms", "ops_ms")},
+                         bound_by="bytes" if agg["bytes_ms"] >= agg["ops_ms"]
+                         else "operations")
+            if lib is None:
+                extra["unfused_torch_ms"] = agg["unfused_torch_ms"]
+            else:
+                extra["library_ms"] = agg["library_ms"]
+            row = next((k for k in kernels if k["name"] == name), None)
+            if row is None:
+                row = dict(name=name, route="cuda", source=src,
+                           replaces=repl, launches=launches[name],
+                           max_abs_err=err, ms=agg["ms"],
+                           plain_ms=agg["plain_ms"],
+                           bound_ms=agg["bound_ms"],
+                           bound_by=extra["bound_by"],
+                           library_ms=agg["library_ms"] if lib else None,
+                           **({} if lib else {
+                               "unfused_torch_ms": agg["unfused_torch_ms"]}),
+                           times_per=extra["times_per"],
+                           launches_in=extra["launches_in"])
+                kernels.append(row)
+            row[key] = extra
+            row[f"{tag}_launches"] = launches[name]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,kernels,forward,timing,"
                     "train_kernels,train,train_timing,cli,erf_kernels,erf,"
                     "dual_kernels,dual,dual_timing,probes,dp,tp,kd_kernels,"
-                    "kd")
+                    "kd,seg,det")
     ap.add_argument("--base", help="mlp_ab, mlp_bwd_ab, dwconv_ab, "
                     "wgrad_ab, dwpair_ab, stacked_ab: another checkout of "
                     "the repository (e.g. the "
@@ -4686,6 +5188,9 @@ def main(argv=None) -> int:
                     "directory)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    # cuBLAS's deterministic workspace, read when its first handle is made:
+    # the seg / det CLI runs go under torch.use_deterministic_algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError as e:
@@ -4710,6 +5215,7 @@ def main(argv=None) -> int:
     erf_totals, k9_bf16, erf_run = None, None, None
     dual_totals, dual_counts, dual_by, probe_counts = None, None, None, None
     dp_run, tp_run, kd_totals, kd_rows, kd_run = None, None, None, None, None
+    seg_run, det_run = None, None
     t_start = time.perf_counter()
     try:
         if "build" in phases:
@@ -4763,6 +5269,12 @@ def main(argv=None) -> int:
             kd_totals, kd_rows = phase_kd_kernels(TRAIN_BATCH)
         if "kd" in phases:
             kd_run = phase_kd()
+        if "seg" in phases:
+            seg_run = phase_seg(cfg)
+            torch.cuda.empty_cache()
+        if "det" in phases:
+            det_run = phase_det(cfg)
+            torch.cuda.empty_cache()
         if "mlp_ab" in phases:
             _check(args.base is not None, "mlp_ab needs --base")
             phase_mlp_ab(cfg, args.base)
@@ -4805,9 +5317,10 @@ def main(argv=None) -> int:
                 bound_ms=t["bound_ms"],
                 bound_by=("bytes" if t["bytes_ms"] >= t["ops_ms"]
                           else "operations"),
-                library_ms=t.get("library_ms"), **extra,
+                library_ms=t["library_ms"] if name == "dwconv" else None,
+                **extra,
                 **({"unfused_torch_ms": t["unfused_torch_ms"]}
-                   if "unfused_torch_ms" in t else {}),
+                   if name == "fused_mlp" else {}),
                 **({"band_route": BAND_ROUTE,
                     "band_launches": None if counts is None else counts[2],
                     "train_band_launches": None if train_counts is None
@@ -4884,7 +5397,7 @@ def main(argv=None) -> int:
             t = train_totals[name]
             lib = t["library_ms"]
             if name == "mlp_bwd":
-                extra = {"unfused_torch_ms": lib,
+                extra = {"unfused_torch_ms": t["unfused_torch_ms"],
                          "library": "none; unfused_torch_ms is the autograd "
                          "backward of the unfused composition"}
                 lib = None
@@ -4913,12 +5426,12 @@ def main(argv=None) -> int:
             bound_ms=t["bound_ms"],
             bound_by=("bytes" if t["bytes_ms"] >= t["ops_ms"]
                       else "operations"),
-            library_ms=None, unfused_torch_ms=t["library_ms"],
+            library_ms=None, unfused_torch_ms=t["unfused_torch_ms"],
             library="none; unfused_torch_ms is the autograd backward of the "
             "unfused composition (the gradient of y alone in dy-only mode)",
             mode="dy_only", ops_bound="3xTF32 (3 passes at 495 TFLOP/s)",
             full_mode={k: erf_totals["mlp_bwd_wide_full"][k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms")},
+                "ms", "plain_ms", "unfused_torch_ms", "bound_ms")},
             times_per="one float32 ERF image at %d^2 (9 launches at T=4096 "
             "C=499, 3 at T=1024 C=998)" % ERF_SIZE,
             launches_in="the ERF path: %d float32 images at %d^2"
@@ -4929,7 +5442,7 @@ def main(argv=None) -> int:
             t = train_totals["mlp_bwd_wide"]
             kernels[-1].update(
                 {"train_" + k: t[k] for k in ("ms", "plain_ms", "bound_ms")},
-                train_unfused_torch_ms=t["library_ms"],
+                train_unfused_torch_ms=t["unfused_torch_ms"],
                 train_max_abs_err=t["err"],
                 train_launches=None if train_counts is None
                 else train_counts["mlp_bwd_wide"],
@@ -4939,7 +5452,8 @@ def main(argv=None) -> int:
                 bf16_batch128={"stage%d" % r["stage"]: {
                     k: r[k] for k in ("T", "C", "ms", "plain_ms",
                                       "unfused_torch_ms", "bound_ms",
-                                      "max_abs_err", "launches_per_step")}
+                                      "max_abs_err", "blocks",
+                                      "launches_per_block")}
                     for r in k9_bf16})
         # the ERF path's share of the older kernels; the yardstick is the
         # library call (K1), none (K2/K3), the unfused autograd (K8)
@@ -4954,7 +5468,7 @@ def main(argv=None) -> int:
                         erf_times_per="one float32 ERF image at %d^2"
                         % ERF_SIZE)
                     if lib:
-                        k[lib] = per["library_ms"]
+                        k[lib] = per["unfused_torch_ms"]
                     if name == "fused_mlp":
                         k.update(
                             erf_route="3xTF32 on TMA-fed wgmma",
@@ -4966,7 +5480,8 @@ def main(argv=None) -> int:
                         full = erf_totals["mlp_bwd_full"]
                         k.update(erf_mode="dy_only", erf_full_mode={
                             f: full[f] for f in ("ms", "plain_ms",
-                                                 "library_ms", "bound_ms")})
+                                                 "unfused_torch_ms",
+                                                 "bound_ms")})
         if erf_run is not None:
             for k in kernels:
                 if k["name"] in ("fused_mlp", "mlp_bwd"):
@@ -5067,6 +5582,8 @@ def main(argv=None) -> int:
         add_parallel_launches(kernels, dp_run, tp_run)
     if kd_totals is not None or kd_run is not None:
         add_kd_launches(kernels, kd_totals, kd_run)
+    if seg_run is not None or det_run is not None:
+        add_downstream(kernels, seg_run, det_run)
     if kernels:
         print(json.dumps({"kernels": kernels}))
     if erf_run is not None:
@@ -5082,6 +5599,10 @@ def main(argv=None) -> int:
         print("[kd_kernels] " + json.dumps(kd_rows))
     if kd_run is not None:
         print("[kd] " + json.dumps(kd_run))
+    for tag, run in (("seg", seg_run), ("det", det_run)):
+        if run is not None:
+            print(f"[{tag}] " + json.dumps({k: run[k] for k in (
+                "step", "cli", "seconds")}))
     if dual_by is not None:
         print(f"[dual_timing] bf16 eval bs{TIMING_BATCH} img/s: dual "
               f"{dual_by['dual']['img_per_s']:.1f}, split "

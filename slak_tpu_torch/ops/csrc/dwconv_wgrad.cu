@@ -60,6 +60,12 @@
 // one new x load for 5 FMAs. Rows whose input row lies outside the map are
 // skipped, so taps that only ever read padding stay exactly zero. The
 // (5, K) orientation stages both planes transposed and runs the same loop.
+// A plane whose two fp32 copies exceed the shared memory (an fp32 map
+// above about 158^2, detection's 200^2 stage 1) is staged in tiles of
+// a.rows output rows along the long axis (with the K - 1 input rows
+// around them that lie on the map); each thread still visits its output
+// rows in increasing order, so the sums, and their bits, are those of
+// the whole-plane staging.
 // wgrad_kernel (any other odd taps): a thread a tap and a row group.
 //
 // The reduction over the batch is deterministic: each block reduces its
@@ -95,11 +101,13 @@ struct WArgs {
   long long N;
   int C, H, W, kh, kw;
   int per_chunk;         // samples a block
+  int rows;              // wgrad_tiled_kernel: output rows a staged tile
 };
 
 // Taps (K, 5) (LONG_H) or (5, K). HA: the map's extent along the taps'
-// long axis, HB across it; shared: xs [HA][XP] (XP odd, 2 zero columns
-// each side), ds [HA][HB], red [P][K][5].
+// long axis, HB across it; R = a.rows output rows a tile; shared: xs
+// [min(HA, R + K - 1)][XP] (XP odd, 2 zero columns each side), ds
+// [R][HB], red [P][K][5].
 template <typename T, bool LONG_H>
 __global__ void __launch_bounds__(kThreads)
 wgrad_tiled_kernel(const T* __restrict__ x, const T* __restrict__ dy,
@@ -110,9 +118,11 @@ wgrad_tiled_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int HA = LONG_H ? a.H : a.W, HB = LONG_H ? a.W : a.H;
   const int XP = (HB + S - 1) | 1;
   const int P = kThreads / K;
+  const int R = a.rows;
+  const int XR = min(HA, R + K - 1);
   float* xs = smem;
-  float* ds = xs + HA * XP;
-  float* red = ds + HA * HB;
+  float* ds = xs + XR * XP;
+  float* red = ds + R * HB;
 
   const int c = blockIdx.x, chunk = blockIdx.y;
   const long long n0 = (long long)chunk * a.per_chunk;
@@ -124,7 +134,7 @@ wgrad_tiled_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int pk = K / 2;
 
   // zero the halo columns once; the staging loop rewrites the rest
-  for (int i = u; i < HA * XP; i += kThreads) xs[i] = 0.f;
+  for (int i = u; i < XR * XP; i += kThreads) xs[i] = 0.f;
   float acc[S];
 #pragma unroll
   for (int j = 0; j < S; ++j) acc[j] = 0.f;
@@ -132,20 +142,48 @@ wgrad_tiled_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   for (long long n = n0; n < n1; ++n) {
     const T* xp = x + (n * a.C + c) * plane;
     const T* dp = dy + (n * a.C + c) * plane;
-    __syncthreads();                    // the previous sample is consumed
-    for (int i = u; i < a.H * a.W; i += kThreads) {
-      const int h = i / a.W, w = i - h * a.W;
-      const int ra = LONG_H ? h : w, rb = LONG_H ? w : h;
-      xs[ra * XP + rb + HALO] = to_f<T>(xp[i]);
-      ds[ra * HB + rb] = to_f<T>(dp[i]);
+   for (int r0 = 0; r0 < HA; r0 += R) {
+    // output rows [r0, r1) and the input rows [x0, x1) they read
+    const int r1 = min(HA, r0 + R);
+    const int x0 = max(0, r0 - pk), x1 = min(HA, r1 + pk);
+    __syncthreads();                    // the previous tile is consumed
+    if (R >= HA) {                      // the whole plane, in plane order
+      for (int i = u; i < a.H * a.W; i += kThreads) {
+        const int h = i / a.W, w = i - h * a.W;
+        const int ra = LONG_H ? h : w, rb = LONG_H ? w : h;
+        xs[ra * XP + rb + HALO] = to_f<T>(xp[i]);
+        ds[ra * HB + rb] = to_f<T>(dp[i]);
+      }
+    } else if (LONG_H) {                // rows [x0, x1) and [r0, r1)
+      for (int i = u; i < (x1 - x0) * HB; i += kThreads) {
+        const int lr = i / HB, b = i - lr * HB;
+        xs[lr * XP + b + HALO] = to_f<T>(xp[(long long)(x0 + lr) * a.W + b]);
+      }
+      for (int i = u; i < (r1 - r0) * HB; i += kThreads) {
+        const int lr = i / HB, b = i - lr * HB;
+        ds[lr * HB + b] = to_f<T>(dp[(long long)(r0 + lr) * a.W + b]);
+      }
+    } else {                            // columns, read along each row
+      const int nx = x1 - x0, nd = r1 - r0;
+      for (int i = u; i < nx * HB; i += kThreads) {
+        const int b = i / nx, lr = i - b * nx;
+        xs[lr * XP + b + HALO] = to_f<T>(xp[(long long)b * a.W + x0 + lr]);
+      }
+      for (int i = u; i < nd * HB; i += kThreads) {
+        const int b = i / nd, lr = i - b * nd;
+        ds[lr * HB + b] = to_f<T>(dp[(long long)b * a.W + r0 + lr]);
+      }
     }
     __syncthreads();
     if (active) {
-      for (int ra = grp; ra < HA; ra += P) {
+      // this thread's first row of the tile: grp, grp + P, ... as before
+      int ra = grp;
+      if (ra < r0) ra += (r0 - ra + P - 1) / P * P;
+      for (; ra < r1; ra += P) {
         const int r = ra + ti - pk;
         if (r < 0 || r >= HA) continue;
-        const float* xr = xs + r * XP;
-        const float* dr = ds + ra * HB;
+        const float* xr = xs + (r - x0) * XP;
+        const float* dr = ds + (ra - r0) * HB;
         float xv[S];
 #pragma unroll
         for (int j = 0; j < S - 1; ++j) xv[j] = xr[j];
@@ -159,6 +197,7 @@ wgrad_tiled_kernel(const T* __restrict__ x, const T* __restrict__ dy,
         }
       }
     }
+   }
   }
   if (active) {
 #pragma unroll
@@ -243,7 +282,19 @@ int variant_of(int kh, int kw) {
   return 0;
 }
 
-size_t smem_bytes(int variant, int H, int W, int kh, int kw) {
+// wgrad_tiled_kernel's shared memory for tiles of `rows` output rows
+size_t tiled_smem(int HA, int HB, int K, int rows) {
+  const int XP = (HB + kShort - 1) | 1;
+  const int XR = HA < rows + K - 1 ? HA : rows + K - 1;
+  return sizeof(float) * ((size_t)XR * XP + (size_t)rows * HB +
+                          (size_t)(kThreads / K) * K * kShort);
+}
+
+// The shared memory of a launch; for wgrad_tiled_kernel also the rows a
+// tile (the whole long axis where both planes fit, else the most that
+// fit; 0 where not one row does)
+size_t smem_bytes(int variant, int H, int W, int kh, int kw, int* rows) {
+  *rows = 0;
   if (variant == 0) {
     const int ntaps = kh * kw;
     const int P = ntaps >= kThreads ? 1 : kThreads / ntaps;
@@ -252,9 +303,13 @@ size_t smem_bytes(int variant, int H, int W, int kh, int kw) {
   const bool long_h = variant == 1;
   const int K = long_h ? kh : kw;
   const int HA = long_h ? H : W, HB = long_h ? W : H;
-  const int XP = (HB + kShort - 1) | 1;
-  return sizeof(float) * ((size_t)HA * XP + (size_t)HA * HB +
-                          (size_t)(kThreads / K) * K * kShort);
+  int r = HA;
+  while (r > 1 && tiled_smem(HA, HB, K, r) > kSmemMax) r = (r + 1) / 2;
+  if (tiled_smem(HA, HB, K, r) > kSmemMax) return kSmemMax + 1;
+  // the largest tile that fits, once halving found one
+  while (r < HA && tiled_smem(HA, HB, K, r + 1) <= kSmemMax) ++r;
+  *rows = r;
+  return tiled_smem(HA, HB, K, r);
 }
 
 template <typename K>
@@ -269,7 +324,7 @@ template <typename T>
 cudaError_t launch(const void* x, const void* dy, float* part, float* dw,
                    WArgs a, int n_chunks, cudaStream_t stream) {
   const int variant = variant_of(a.kh, a.kw);
-  const size_t smem = smem_bytes(variant, a.H, a.W, a.kh, a.kw);
+  const size_t smem = smem_bytes(variant, a.H, a.W, a.kh, a.kw, &a.rows);
   if (smem > kSmemMax) return cudaErrorInvalidConfiguration;
   const dim3 grid(a.C, n_chunks);
   const T* xt = static_cast<const T*>(x);
@@ -802,7 +857,7 @@ extern "C" int slak_dwconv_wgrad(int dtype, const void* x, const void* dy,
                                  void* stream) {
   if (n_chunks < 1 || kh % 2 == 0 || kw % 2 == 0)
     return (int)cudaErrorInvalidValue;
-  WArgs a{N, C, H, W, kh, kw, (int)((N + n_chunks - 1) / n_chunks)};
+  WArgs a{N, C, H, W, kh, kw, (int)((N + n_chunks - 1) / n_chunks), 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(x, dy, part, dw, a, n_chunks, s);
   if (dtype == 1)

@@ -270,3 +270,172 @@ def load_torch_checkpoint(path: str, prefer_ema: bool = False,
         ckpt = {k[len(model_prefix):] if k.startswith(model_prefix) else k: v
                 for k, v in ckpt.items()}
     return dict(ckpt)
+
+
+# --- downstream: the backbone's norms, UperNet, Cascade Mask R-CNN ----------
+
+
+def backbone_from_jax(params: Dict[str, Any],
+                      state: Optional[Dict[str, Any]] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """``slak_tpu.models.backbone`` (params, state) -> the port's
+    :class:`~slak_tpu_torch.models.backbone.Backbone` state dict: the SLaK
+    tree through :func:`from_jax_params` plus ``norm{i}``."""
+    sd = from_jax_params(params, state)
+    for k, v in params.items():
+        if re.fullmatch(r"norm\d+", k):
+            sd[f"{k}.weight"] = _t(v["scale"])
+            sd[f"{k}.bias"] = _t(v["bias"])
+    return sd
+
+
+def backbone_to_jax(named: Dict[str, Any]) -> Dict[str, Any]:
+    """{backbone parameter name: tensor} -> ``slak_tpu``'s backbone params
+    tree (numpy leaves): :func:`to_jax_params` plus ``norm{i}``."""
+    tree = to_jax_params(named)
+    for name, t in named.items():
+        m = re.fullmatch(r"(norm\d+)\.(weight|bias)", name)
+        if m:
+            tree.setdefault(m.group(1), {})[
+                "scale" if m.group(2) == "weight" else "bias"] = _np(t)
+    return tree
+
+
+def _conv_sd(pre: str, p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    return {pre + ".weight": to_port_layout(p["w"]),
+            pre + ".bias": _t(p["b"])}
+
+
+def upernet_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``init_upernet``'s params -> the port's
+    :class:`~slak_tpu_torch.downstream.segmentation.UperNet` state dict
+    (HWIO -> OIHW)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for k, v in params.items():
+        if isinstance(v, list):
+            for i, p in enumerate(v):
+                sd.update(_conv_sd(f"{k}.{i}", p))
+        else:
+            sd.update(_conv_sd(k, v))
+    return sd
+
+
+def cascade_from_jax(params: Dict[str, Any],
+                     state: Optional[Dict[str, Any]] = None,
+                     roi_size: int = 7) -> Dict[str, torch.Tensor]:
+    """``init_cascade``'s (params, state) -> the port's
+    :class:`~slak_tpu_torch.downstream.detection.CascadeHead` state dict.
+    Convs HWIO -> OIHW; dense (in, out) -> (out, in), the box heads' fc
+    rows reordered from JAX's (h, w, C) flattening to NCHW's (C, h, w);
+    the box heads' BN parameters and running stats; the mask head's
+    transposed conv HWIO -> (in, out, kh, kw) and flipped on both
+    spatial axes (``lax.conv_transpose`` without ``transpose_kernel``
+    applies the kernel unflipped)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, p in enumerate(params["fpn"]["lateral"]):
+        sd.update(_conv_sd(f"fpn.lateral.{i}", p))
+    for i, p in enumerate(params["fpn"]["out"]):
+        sd.update(_conv_sd(f"fpn.out.{i}", p))
+    for k in ("conv", "cls", "reg"):
+        sd.update(_conv_sd(f"rpn.{k}", params["rpn"][k]))
+    for s, sp in enumerate(params["stages"]):
+        pre = f"stages.{s}."
+        for j, p in enumerate(sp["convs"]):
+            sd.update(_conv_sd(pre + f"convs.{j}", p))
+        for j, p in enumerate(sp["bn"]):
+            sd[pre + f"bn.{j}.weight"] = _t(p["scale"])
+            sd[pre + f"bn.{j}.bias"] = _t(p["bias"])
+            if state is not None:
+                st = state["stages"][s]["bn"][j]
+                sd[pre + f"bn.{j}.running_mean"] = _t(st["mean"])
+                sd[pre + f"bn.{j}.running_var"] = _t(st["var"])
+                sd[pre + f"bn.{j}.num_batches_tracked"] = torch.tensor(0)
+        w = _t(sp["fc"]["w"])
+        c = w.shape[0] // (roi_size * roi_size)
+        sd[pre + "fc.weight"] = w.reshape(roi_size, roi_size, c, -1).permute(
+            3, 2, 0, 1).reshape(w.shape[1], -1).contiguous()
+        sd[pre + "fc.bias"] = _t(sp["fc"]["b"])
+        for k in ("cls", "reg"):
+            sd[pre + f"{k}.weight"] = to_port_layout(sp[k]["w"])
+            sd[pre + f"{k}.bias"] = _t(sp[k]["b"])
+    for j, p in enumerate(params["mask"]["convs"]):
+        sd.update(_conv_sd(f"mask.convs.{j}", p))
+    sd["mask.deconv.weight"] = _t(params["mask"]["deconv"]["w"]).permute(
+        2, 3, 0, 1).flip(2, 3).contiguous()
+    sd["mask.deconv.bias"] = _t(params["mask"]["deconv"]["b"])
+    sd.update(_conv_sd("mask.logits", params["mask"]["logits"]))
+    return sd
+
+
+def _flatten_paths(tree, prefix=()) -> List[tuple]:
+    """The leaf paths of a nested dict / list tree in JAX's tree-flatten
+    order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _flatten_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _flatten_paths(v, prefix + (i,))]
+    return [prefix]
+
+
+def read_backbone_npz(path: str, named: Dict[str, Any]
+                      ) -> Dict[str, torch.Tensor]:
+    """A backbone ``.npz`` as ``slak_tpu``'s seg / det CLIs read it
+    (leaves ``p{i}`` in the tree-flatten order of the JAX backbone's
+    params) -> the port's backbone parameters by name. ``named``: the
+    port backbone's parameters, which give the tree's structure."""
+    tree = backbone_to_jax(named)
+    paths = _flatten_paths(tree)
+    flat = dict(np.load(path))
+    if len(flat) != len(paths):
+        raise ValueError(f"{path}: {len(flat)} arrays, the backbone has "
+                         f"{len(paths)} parameters")
+    for i, p in enumerate(paths):
+        node = tree
+        for k in p[:-1]:
+            node = node[k]
+        want = np.shape(node[p[-1]])
+        got = flat[f"p{i}"]
+        if got.shape != want:
+            raise ValueError(f"{path}: p{i} ({'.'.join(map(str, p))}) has "
+                             f"shape {got.shape}, want {want}")
+        node[p[-1]] = got
+    return backbone_from_jax(tree)
+
+
+def load_backbone_checkpoint(path: str, model: torch.nn.Module,
+                             key: str = "backbone") -> torch.nn.Module:
+    """Initialize a backbone from ``path``: a ``slak_tpu``-written ``.npz``
+    (:func:`read_backbone_npz`), one of the port's checkpoints (the
+    ``key`` entry of its ``model``: a seg / det CLI checkpoint, or a
+    classifier one's model) or a reference ``.pth`` (unwrapped by
+    :func:`load_torch_checkpoint`, ``module.`` stripped, and of a whole
+    segmentor or detector the ``backbone.`` entries kept, the prefix
+    stripped). Parameters the file lacks (the per-stage norms of a
+    classifier checkpoint, the classifier of a backbone one) keep their
+    values; a name the model lacks is an error."""
+    if path.endswith(".npz"):
+        sd = read_backbone_npz(path, dict(model.named_parameters()))
+    else:
+        ck = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(ck, dict) and str(ck.get("format", "")).startswith(
+                "slak_tpu_torch"):
+            sd = ck["model"]
+            if key in sd and isinstance(sd[key], dict):
+                sd = sd[key]
+        else:
+            sd = load_torch_checkpoint(path)
+        sd = {k[7:] if k.startswith("module.") else k: v
+              for k, v in sd.items()}
+        if any(k.startswith("backbone.") for k in sd):
+            # a whole segmentor / detector: its backbone's entries
+            sd = {k[9:]: v for k, v in sd.items() if k.startswith(
+                "backbone.")}
+    dev = next(model.parameters()).device
+    missing, unexpected = model.load_state_dict(
+        {k: torch.as_tensor(v).to(dev) for k, v in sd.items()}, strict=False)
+    if unexpected:
+        raise KeyError(f"{path}: names the backbone lacks: "
+                       f"{sorted(unexpected)[:5]}")
+    return model
