@@ -247,7 +247,10 @@ Phases (any failure exits non-zero):
            of another checkout against this tree's in one process, in turns
            base, change, change, base: K8 at stages 1-2 and K9 at stages
            3-4 in bf16 at batch 128, both in fp32 at the 1024^2 ERF shapes
-           in the full mode and as the ERF calls them (dy-only), one fp32
+           in the full mode and as the ERF calls them (dy-only), both in
+           fp32 full mode at the det path's 800^2 shapes at batch 2 (this
+           tree's held to the plain version; the sums over a det step's
+           launches beside the unfused autograd composition's), one fp32
            ERF image at 1024^2 (each tree's K8/K9), the bf16 batch-128
            train step (each tree's kernels and route);
            then this tree's route alone, TRAIN_WIDE_MLP_BWD False against
@@ -2329,7 +2332,7 @@ _GROUPS = (("tf32_gemm.cuh (fp32 K2/K3, K8/K9)", ("tf32_gemm_kernel",
                                                   "split_kernel")),
            ("mlp_bwd.cu (K8/K9)", ("bwd_gemm_kernel", "wide_prep_kernel",
                                    "wide_lnb_kernel", "wide_simt_kernel",
-                                   "mlp_bwd_gemm_f32", "dgamma_kernel",
+                                   "wgrad_tf32_kernel", "dgamma_kernel",
                                    "sum_chunks", "sum_partials")),
            ("dwconv2d.cu (K6)", ("dwconv2d_",)),
            ("dwconv.cu (K1/K4)", ("dwconv_kernel", "dwconv_tiled",
@@ -3049,7 +3052,11 @@ def phase_mlp_bwd_ab(cfg, base: str):
     and K9 at stages 3-4 in bf16 at the train batch; K8 and K9 in fp32 at
     the 1024^2 ERF shapes in the full mode and as the ERF calls them
     (``_dy`` rows: this tree's dy-only mode; a base without that mode
-    runs its full sequence, as its ERF does); one fp32 ERF image at
+    runs its full sequence, as its ERF does); K8 and K9 in fp32, full
+    mode, at the det path's 800^2 stage shapes (batch DET_BATCH; this
+    tree's launches first held to the plain version), their sums over a
+    det step's launches (each stage weighted by its depth) and, once, the
+    unfused autograd composition's at the same shapes; one fp32 ERF image at
     1024^2 (the flagship's input gradient with frozen weights, the base's
     K8/K9 swapped in); and the bf16 train step (base: the base's kernels
     and its TRAIN_WIDE_MLP_BWD, read from its models/slak.py (False where
@@ -3082,10 +3089,12 @@ def phase_mlp_bwd_ab(cfg, base: str):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(50)
     cases = []                          # (name, wide, y, dout, pk, dy_only)
+    det = {}                            # det case name: (depth, unfused ms)
     for dt, size, batch in ((torch.bfloat16, 224, TRAIN_BATCH),
-                            (torch.float32, ERF_SIZE, 1)):
+                            (torch.float32, ERF_SIZE, 1),
+                            (torch.float32, DET_SIZE, DET_BATCH)):
         dn = str(dt).split(".")[1]
-        for i, C, H, _, _, _ in stage_shapes(cfg, size):
+        for i, C, H, _, _, depth in stage_shapes(cfg, size):
             y = torch.randn(batch, C, H, H, generator=g, device=dev).to(dt)
             dout = (torch.randn(batch, C, H, H, generator=g, device=dev)
                     * 0.1).to(dt)
@@ -3093,7 +3102,16 @@ def phase_mlp_bwd_ab(cfg, base: str):
             pk = random_pack(C, g, dt)
             name = f"{'k9' if wide else 'k8'}_{dn}_{size}_stage{i + 1}"
             cases.append((name + "_ms", wide, y, dout, pk, False))
-            if dt == torch.float32:
+            if size == DET_SIZE:
+                bwd, plain = ((K2.fused_mlp_bwd_wide,
+                               K2.fused_mlp_bwd_wide_plain) if wide else
+                              (K2.fused_mlp_bwd, K2.fused_mlp_bwd_plain))
+                errs, _ = check_mlp_bwd(bwd, plain, y, dout, pk,
+                                        TOL_MLP_BWD[dn], f"mlp_bwd_ab {name}")
+                print(f"[mlp_bwd_ab] {name}, change vs plain: rel err "
+                      + json.dumps(errs), flush=True)
+                det[name + "_ms"] = (depth, unfused_bwd_ms(y, dout, pk, dt))
+            elif dt == torch.float32:
                 cases.append((name + "_dy_ms", wide, y, dout, pk, True))
     order = ("base", "change", "change", "base")
     rows = {c[0]: [] for c in cases}
@@ -3105,6 +3123,17 @@ def phase_mlp_bwd_ab(cfg, base: str):
                 lambda: fn(y, dout, pk, 1, dy_only=only)))
     del cases
     torch.cuda.empty_cache()
+    # a det step's K8 + K9 launches (full mode, fp32), each turn, and the
+    # unfused autograd composition's at the same shapes
+    step = f"k8_k9_float32_{DET_SIZE}_det_step_ms"
+    rows[step] = [sum(d * rows[n][k] for n, (d, _) in det.items())
+                  for k in range(len(order))]
+    unfused = sum(d * u for d, u in det.values())
+    rows[f"unfused_float32_{DET_SIZE}_det_step_ms"] = [unfused] * len(order)
+    print(f"[mlp_bwd_ab] {step}: change below base in both turns: "
+          f"{max(rows[step][1:3]) < min(rows[step][::3])}, below the "
+          f"unfused composition ({unfused:.4f}): "
+          f"{max(rows[step][1:3]) < unfused}", flush=True)
     # one ERF image: the eval forward at 1024^2, fp32, and its input
     # gradient, the parameters frozen
     model = create_model("SLaK_tiny", seed=0, **MODEL_KW)

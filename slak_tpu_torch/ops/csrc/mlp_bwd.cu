@@ -17,7 +17,8 @@
 //  1. wide_prep_kernel, 32 tokens a block (above Cp = 512: 16 in bf16, 8
 //     in float32):
 //     the LayerNorm (mean and inv to scratch), h -> hs and [do | dout] ->
-//     dd, rounded; the block's column sums of do (db2) and dout.
+//     dd, rounded (float32: TF32 planes, below); the block's column sums
+//     of do (db2) and dout.
 //  2. a = h W1^T and dg = do W2 over K = Cp, with the epilogue g = GELU(a +
 //     b1) and da = dg gelu'(a + b1) -> gs, das (rounded), and the column
 //     sums of da (db1).
@@ -38,7 +39,8 @@
 // gradient with frozen weights) runs steps 1-4 and stops: no token
 // reduction, no dgamma, none of the sums that only the parameter gradients
 // read; in float32 the prep and the GELU product also skip the scratch
-// (h, [do | dout], g, da whole) that only step 5 reads. dy comes from the
+// (h's and [do | dout]'s transposed planes, g and da whole) that only step
+// 5 reads. dy comes from the
 // same launches of steps 1-4 in both modes, so its bits do not depend on
 // the mode.
 //
@@ -52,9 +54,11 @@
 // runs products 2 and 3 as 3xTF32 on the same kind of kernel
 // (tf32_gemm_kernel in tf32_gemm.cuh: each operand split into big and
 // small TF32 parts, three TF32 products a k step, as accurate as fp32, the
-// Hopper analogue of the TPU kernels' Precision.HIGHEST); its token
-// reductions stay on the CUDA cores (simt_tile.cuh: 64 x 64 tiles, 4 x 4
-// a thread).
+// Hopper analogue of the TPU kernels' Precision.HIGHEST). TF32 wgmma has
+// no transposed form, so its token reductions run on wgrad_tf32_kernel
+// (below): the wide token-major operand (da, g) is wgmma's A, read from
+// shared memory by its threads and split in registers; the narrow one (h,
+// [do | dout]) is B, whose planes the prep kernel writes transposed.
 //
 // Rounding follows _mlp_bwd_kernel: LN statistics, a, gelu, dg, da and dh
 // in fp32; h, g, do and da rounded to the compute dtype before the
@@ -67,19 +71,20 @@
 // What bounds it on an H100: the six products, 12*T*C*4C operations, 0.30
 // ms at 989 TFLOP/s bf16 at batch 128's stages 1-4; f32 about 49 GFLOP an
 // ERF launch (24.6 in dy-only mode), 0.73 ms at 67 TFLOP/s FFMA, 0.30 (dy
-// only: 0.15) as three TF32 passes at 495 TFLOP/s. The scratch round trips
-// (h, do, dout, g, da in the compute dtype, dh in f32; at stage 1, batch
-// 128, about 3 GB: 0.9 ms at 3.35 TB/s) weigh as much as the products in
-// bf16, and the exact-erf GELU' epilogue (T x 4C erf and exp) is CUDA-core
-// work that the two consumer warpgroups do while the tensor cores wait
-// (PERF.md has the measured split).
+// only: 0.15) as three TF32 passes at 495 TFLOP/s; step 5 alone 6*T*C*4C,
+// about 31 GFLOP a launch at the det path's 800^2 stage shapes (batch 2):
+// 0.47 ms on FFMA, 0.19 as 3xTF32. The scratch round trips (h, do, dout,
+// g, da in the compute dtype, dh in f32; at stage 1, batch 128, about 3
+// GB: 0.9 ms at 3.35 TB/s) weigh as much as the products in bf16, and the
+// exact-erf GELU' epilogue (T x 4C erf and exp) is CUDA-core work that the
+// two consumer warpgroups do while the tensor cores wait (PERF.md has the
+// measured split).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "simt_tile.cuh"
 #include "tf32_gemm.cuh"
 #include "wgmma.cuh"
 
@@ -143,11 +148,15 @@ __device__ void token_offsets(const BArgs& a, long long t0, long long* tok) {
 }
 
 // float32's prep outputs for the 3xTF32 products: the big and small TF32
-// planes of h and of do, each (2 Tp, Cp), big rows first; full: also h
-// and [do | dout] whole into hs and dd, for the token reductions.
+// planes of h and of do, each (2 Tp, Cp), big rows first, for the GELU
+// product; full: also, for the token reductions, the planes of h and of
+// [do | dout] transposed, (2 Cp, Tp) and (4 Cp, Tp), K = the tokens
+// running along their rows.
 struct PrepF32 {
   float* h;
   float* dd;
+  float* ht;
+  float* ddt;
   long long Tp;
   int full;
 };
@@ -239,8 +248,9 @@ __host__ __device__ inline TLayout t_layout(int Cp, int BT = kWT) {
 
 // The LayerNorm (each token's mean and inv to scratch), h rounded -> hs,
 // [do | dout] rounded -> dd (float32: h and do as TF32 planes -> sp, and
-// whole only in full mode), and this block's column sums of do (db2) and
-// dout -> vpart_a[blockIdx.x]. Padded tokens and channels give zeros.
+// in full mode h and [do | dout] as transposed planes, sp.ht and sp.ddt),
+// and this block's column sums of do (db2) and dout -> vpart_a[blockIdx.x].
+// Padded tokens and channels give zeros.
 template <typename T, int BT = kWT>
 __global__ void __launch_bounds__(kThreads)
 wide_prep_kernel(BArgs a, const PrepF32 sp) {
@@ -293,10 +303,15 @@ wide_prep_kernel(BArgs a, const PrepF32 sp) {
     for (int i = tid; i < BT * Cp; i += kThreads) {
       const int t = i / Cp, c = i - t * Cp;
       const long long o = (t0 + t) * Cp + c;
-      const float v = tile[t * LDW + c];
-      split_tf32(v, sp.h + o, sp.h + plane + o);
-      if (sp.full) h_g[o] = from_f<T>(v);
+      split_tf32(tile[t * LDW + c], sp.h + o, sp.h + plane + o);
     }
+    // transposed, the tokens fastest: BT tokens (128 bytes at 32) a row
+    if (sp.full)
+      for (int i = tid; i < BT * Cp; i += kThreads) {
+        const int c = i / BT, t = i - c * BT;
+        const long long o = c * sp.Tp + t0 + t;
+        split_tf32(tile[t * LDW + c], sp.ht + o, sp.ht + plane + o);
+      }
   } else {
     for (int i = tid; i < BT * Cp; i += kThreads) {
       const int t = i / Cp, c = i - t * Cp;
@@ -319,11 +334,6 @@ wide_prep_kernel(BArgs a, const PrepF32 sp) {
       if constexpr (sizeof(T) == 4) {
         const long long o = (t0 + t) * Cp + c;
         split_tf32(v, sp.dd + o, sp.dd + sp.Tp * Cp + o);
-        if (sp.full) {
-          T* row = dd_g + (t0 + t) * 2 * Cp;
-          row[c] = from_f<T>(v);
-          row[Cp + c] = from_f<T>(d);
-        }
       } else {
         T* row = dd_g + (t0 + t) * 2 * Cp;
         row[c] = from_f<T>(v);
@@ -334,6 +344,21 @@ wide_prep_kernel(BArgs a, const PrepF32 sp) {
     }
     part[c] = s;
     part[Cp + c] = sd;
+  }
+  if constexpr (sizeof(T) == 4) {
+    // [do | dout] transposed, the tokens fastest: row n < Cp is do's
+    // channel n (the same product d gamma as above), row Cp + c dout's c
+    if (sp.full) {
+      const long long plane = sp.Tp * 2 * Cp;
+      for (int i = tid; i < BT * 2 * Cp; i += kThreads) {
+        const int n = i / BT, t = i - n * BT;
+        const int c = n < Cp ? n : n - Cp;
+        const float d = tile[t * LDW + c];
+        const float v = n < Cp ? d * (c < C ? gamma[c] : 0.f) : d;
+        const long long o = n * sp.Tp + t0 + t;
+        split_tf32(v, sp.ddt + o, sp.ddt + plane + o);
+      }
+    }
   }
 }
 
@@ -424,36 +449,6 @@ dgamma_kernel(const T* __restrict__ w2, const float* __restrict__ m,
   if (lane == 0) dgamma[c] = c < C ? s + b2[c] * dsum[c] : 0.f;
 }
 
-// part[z] (M x N) = sum over the tokens of split z of A[t][m] * B[t][n],
-// float32 on the CUDA cores: simt_tile.cuh's 64 x 64 output tile a block,
-// 32 tokens a step through shared memory
-constexpr int kTileMN = simt_tile::kTile, kTileT32 = 32;
-static_assert(kThreads == simt_tile::kThreads, "one thread block shape");
-
-__global__ void __launch_bounds__(kThreads, simt_tile::kMinBlocks)
-mlp_bwd_gemm_f32_kernel(const float* __restrict__ A, int lda,
-                        const float* __restrict__ B, int ldb, float* part,
-                        long long Tp, int M, int N, long long per) {
-  const int m0 = blockIdx.x * kTileMN, n0 = blockIdx.y * kTileMN;
-  const long long ta = blockIdx.z * per, tb = min(Tp, ta + per);
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-  float acc[4][4] = {};
-  simt_tile::product<kTileT32, false, false>(
-      [&](int m, long long t) {
-        return t < tb && m0 + m < M ? A[t * lda + m0 + m] : 0.f;
-      },
-      [&](int n, long long t) {
-        return t < tb && n0 + n < N ? B[t * ldb + n0 + n] : 0.f;
-      },
-      ta, tb, acc);
-  float* dst = part + (long long)blockIdx.z * M * N;
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + tr * 4 + i, n = n0 + tc * 4 + j;
-      if (m < M && n < N) dst[(long long)m * N + n] = acc[i][j];
-    }
-}
-
 // ---------------------------------------------------------------------------
 
 // out[i] = sum over k < parts of part[k * n + i], in order
@@ -510,23 +505,6 @@ cudaError_t reduce_rows(const float* part, float* out, long long n,
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return reduce(chunks, out, n, nc, s);
-}
-
-long long split_len(long long Tp, int splits, int step) {
-  return ((Tp + splits - 1) / splits + step - 1) / step * step;
-}
-
-cudaError_t gemm_f32(const void* A, int lda, const void* B, int ldb,
-                     float* part, float* out, long long Tp, int M, int N,
-                     int splits, cudaStream_t s) {
-  const dim3 grid((M + kTileMN - 1) / kTileMN, (N + kTileMN - 1) / kTileMN,
-                  splits);
-  mlp_bwd_gemm_f32_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(A), lda, static_cast<const float*>(B), ldb,
-      part, Tp, M, N, split_len(Tp, splits, kTileT32));
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return reduce(part, out, (long long)M * N, splits, s);
 }
 
 template <typename K, typename... Args>
@@ -924,6 +902,8 @@ cudaError_t products_bf16(const BArgs& a, long long Tp, float* dh,
 struct Tf32Planes {
   float* h;      // (2 Tp, Cp), by wide_prep_kernel
   float* dd;     // do's (2 Tp, Cp), by wide_prep_kernel
+  float* ht;     // h transposed (2 Cp, Tp), by wide_prep_kernel (full)
+  float* ddt;    // [do | dout] transposed (4 Cp, Tp), likewise
   float* da;     // (2 Tp, Fp), by the GELU epilogue
   float* w1t;    // W1^T's (2 Fp, Cp)
   float* w2;     // W2's (2 Fp, Cp)
@@ -977,15 +957,263 @@ cudaError_t products_tf32(const BArgs& a, const Tf32Planes& p, long long Tp,
   return run_tf32<Tf32Epi::F32>(m, d, sms, s);
 }
 
-// The workspace, compute dtype of `e` bytes: hs (Tp, Cp), dd (Tp, 2 Cp),
-// gs and das (Tp, Fp) in the compute dtype; dh (Tp, Cp), stats (Tp, 2),
-// the per-token kernels' partials (Tp / token_tile, 2 Cp) twice, db1's
-// (Tp / 64, Fp: a row each 64 tokens, a consumer warpgroup's),
-// reduce_rows' chunk sums, wpart1 (s1, Fp, Cp), wpart2 (s2, 2 Cp, Fp)
-// float32; in float32 also the split planes (Tf32Planes).
+// ===========================================================================
+// float32 step 5: the token reductions as 3xTF32 on the tensor cores
+//
+// out (M x N) = sum over the tokens t of A[t][m] B[n][t], M = Fp: dW1^T =
+// da^T h (N = Cp) and g^T [do | dout] (N = 2 Cp, stored transposed: dw2's
+// [dW2^T; M], (2 Cp, Fp), as dgamma_kernel and the wrapper read it). K is
+// the tokens, and TF32 wgmma reads shared-memory operands K-major only. So
+// the wide operand, da or g (token-major, whole, from the GELU epilogue),
+// is wgmma's A taken from registers: the producer thread loads it with TMA
+// as [32 tokens][32 m] boxes in the 128-byte swizzle, and each consumer
+// thread reads its fragments from shared memory and splits them into big
+// and small TF32 parts in registers. The narrow operand, h or [do | dout],
+// is B, K-major in shared memory: wide_prep_kernel writes its big and
+// small planes transposed (PrepF32::ht, ::ddt). A k block of 32 tokens
+// runs 12 wgmma (small A x big B, big A x small B, big A x big B, four
+// k steps of 8) into a fresh partial, which is added into the tile's sums
+// in fp32 (as tf32_gemm_kernel does: the tensor cores' sums drift with K,
+// and K here is up to 80000 tokens). The consumers' own work sets the
+// pace (on an H100 the kernel runs only 5-12% faster with no stage loaded
+// at all), so each thread reads and splits the next block's fragments
+// while this block's wgmma run (two fragment sets in turns: 6-10% faster
+// than reading them after the wait, with the same bits;
+// tools/probe_mlp_bwd.py --ablate). A tile is 128 rows of
+// M (64 a consumer warpgroup) x kWBN columns x one split of the tokens,
+// the column tile fastest; blocks are persistent, one an SM; the splits'
+// partials are added in order by sum_partials. No atomics: the same bits
+// every run.
+//
+// A's shared-memory reads: fragment row r of warp w holds m = 32 (w / 2) +
+// 16 (g / 4) + 8 (w % 2) + 4 (r >= 8) + g % 4 of its warpgroup's 64 (g =
+// lane / 4), a permutation of the rows that the epilogue undoes: then the
+// 32 lanes of a fragment read (16-byte chunk (m / 4) ^ (t % 8), the
+// swizzle, word m % 4) on 32 different banks.
+// ===========================================================================
+
+constexpr int kWBN = 128;                // columns a tile
+constexpr int kWKt = 32;                 // tokens a k block (128 bytes)
+
+struct WgArgs {
+  int M, N;              // rows m < M, columns n < N (B's big plane rows)
+  int kb_total;          // 32-token k blocks of the tokens
+  int kb_split;          // k blocks a split
+  int m_tiles, n_tiles;
+  long long tiles;       // m_tiles * n_tiles * splits
+  float* out;            // (splits, M, ld), or transposed (splits, N, ld)
+  long long ld, z_stride;
+  int trans;
+};
+
+struct WgCfg {
+  static constexpr int kABox = kWKt * 128;       // [32 tokens][32 m] fp32
+  static constexpr int kABytes = (kBM / 32) * kABox;
+  static constexpr int kBBytes = kWBN * 128;     // one plane's [n][32 tokens]
+  static constexpr int kStageBytes = kABytes + 2 * kBBytes;
+  static constexpr size_t kAvail = kSmemMax - 1024 - 16 * sizeof(uint64_t);
+  static constexpr int kStages =
+      kAvail / kStageBytes > 6 ? 6 : (int)(kAvail / kStageBytes);
+  static constexpr size_t kBar = (size_t)kStages * kStageBytes;
+  static constexpr size_t kSmem = 1024 + kBar + 2 * kStages * sizeof(uint64_t);
+  static_assert(kStages >= 2 && kSmem <= kSmemMax, "fits a block");
+};
+
+__global__ void __launch_bounds__(kHopperThreads, 1)
+wgrad_tf32_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b,
+                  const WgArgs gm) {
+  using L = WgCfg;
+  constexpr int S = L::kStages, R = kWBN / 2;
+  unsigned char* sm = smem_1k();
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + S;
+  const long long mn = (long long)gm.m_tiles * gm.n_tiles;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {                      // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int s = 0, ph = 0;
+      for (long long tile = blockIdx.x; tile < gm.tiles; tile += gridDim.x) {
+        const long long z = tile / mn;
+        const int i = (int)(tile - z * mn), mt = i / gm.n_tiles;
+        const int m0 = mt * kBM, n0 = (i - mt * gm.n_tiles) * kWBN;
+        const int kb0 = (int)z * gm.kb_split;
+        const int kb1 = min(gm.kb_total, kb0 + gm.kb_split);
+        for (int kb = kb0; kb < kb1; ++kb) {
+          mbar_wait(&empty[s], ph ^ 1);
+          unsigned char* st = sm + s * L::kStageBytes;
+          mbar_expect_tx(&full[s], L::kStageBytes);
+          // A's boxes of 32 m; one wholly past M loads a box inside it
+          // instead (its rows are not stored)
+          for (int j = 0; j < kBM / 32; ++j)
+            tma_load(st + j * L::kABox, &map_a, &full[s],
+                     min(m0 + 32 * j, gm.M - 32), kb * kWKt);
+          tma_load(st + L::kABytes, &map_b, &full[s], kb * kWKt, n0);
+          tma_load(st + L::kABytes + L::kBBytes, &map_b, &full[s],
+                   kb * kWKt, gm.N + n0);
+          if (++s == S) { s = 0; ph ^= 1; }
+        }
+      }
+    }
+  } else {                                       // consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
+    // byte offsets in a stage of the fragment words a0 and a2 (j = 0: row
+    // g, tokens q and q + 4) and a1 and a3 (j = 1: row g + 8, m + 4) of the
+    // first k step; k step kk is 8 rows (1024 bytes) further
+    const int chunk = 4 * (g >> 2) + 2 * (warp & 1);
+    const int box = (2 * wg + (warp >> 1)) * L::kABox + 4 * (g & 3);
+    int off[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = q + 4 * h;
+        off[j][h] = box + row * 128 + (((chunk + j) ^ row) << 4);
+      }
+    // the rows of this thread's sums: m_row and m_row + 4 (see above)
+    const int m_row = 64 * wg + 32 * (warp >> 1) + 16 * (g >> 2) +
+                      8 * (warp & 1) + (g & 3);
+    int s = 0, ph = 0;
+    for (long long tile = blockIdx.x; tile < gm.tiles; tile += gridDim.x) {
+      const long long z = tile / mn;
+      const int i = (int)(tile - z * mn), mt = i / gm.n_tiles;
+      const int m0 = mt * kBM, n0 = (i - mt * gm.n_tiles) * kWBN;
+      const int kb0 = (int)z * gm.kb_split;
+      const int kb1 = min(gm.kb_total, kb0 + gm.kb_split);
+      float sum[R], p[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) sum[r] = 0.f;
+      // the A fragments of a k block's four k steps from stage st, split
+      // in registers
+      const auto load_a = [&](uint32_t (&bg)[4][4], uint32_t (&sl)[4][4],
+                              const unsigned char* st) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float x = *reinterpret_cast<const float*>(
+                st + off[r & 1][r >> 1] + kk * 1024);
+            const float b = tf32_big(x);
+            bg[kk][r] = __float_as_uint(b);
+            sl[kk][r] = __float_as_uint(tf32_big(x - b));
+          }
+      };
+      // block kb's 12 wgmma from stage s with the fragments (bg, sl); while
+      // they run, block kb + 1's fragments into (nb, ns); then block kb's
+      // partial into the sums and its stage back to the producer
+      const auto step = [&](int kb, uint32_t (&bg)[4][4],
+                            uint32_t (&sl)[4][4], uint32_t (&nb)[4][4],
+                            uint32_t (&ns)[4][4]) {
+        const unsigned char* st = sm + s * L::kStageBytes;
+        const uint64_t b = wgmma::desc_sw128(st + L::kABytes);
+        const uint64_t bs = wgmma::desc_sw128(st + L::kABytes + L::kBBytes);
+        wgmma::fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma::tf32_rs<kWBN>(p, sl[kk], b + 2 * kk, kk);
+          wgmma::tf32_rs<kWBN>(p, bg[kk], bs + 2 * kk, 1);
+          wgmma::tf32_rs<kWBN>(p, bg[kk], b + 2 * kk, 1);
+        }
+        wgmma::commit();
+        const int s2 = s + 1 == S ? 0 : s + 1;
+        const int ph2 = s + 1 == S ? ph ^ 1 : ph;
+        if (kb + 1 < kb1) {
+          mbar_wait(&full[s2], ph2);
+          load_a(nb, ns, sm + s2 * L::kStageBytes);
+        }
+        wgmma::wait<0>();
+        wgmma::fence_operands<R>(p);
+        if (lane == 0) mbar_arrive(&empty[s]);
+        add_into<R>(sum, p);
+        s = s2;
+        ph = ph2;
+      };
+      uint32_t big0[4][4], small0[4][4], big1[4][4], small1[4][4];
+      mbar_wait(&full[s], ph);
+      load_a(big0, small0, sm + s * L::kStageBytes);
+      for (int kb = kb0; kb < kb1; kb += 2) {
+        step(kb, big0, small0, big1, small1);
+        if (kb + 1 < kb1) step(kb + 1, big1, small1, big0, small0);
+      }
+      // fragment layout: rows m_row + 4 h, n8 group j's columns
+      // 8 j + 2 q + {0, 1} in sum[4 j + 2 h .. + 1]
+      float* out = gm.out + z * gm.z_stride;
+#pragma unroll
+      for (int j = 0; j < kWBN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * q;
+        if (n >= gm.N) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long m = m0 + m_row + 4 * h;
+          if (m >= gm.M) continue;
+          const float v0 = sum[4 * j + 2 * h], v1 = sum[4 * j + 2 * h + 1];
+          if (gm.trans) {
+            out[n * gm.ld + m] = v0;
+            out[(n + 1) * gm.ld + m] = v1;
+          } else {
+            *reinterpret_cast<float2*>(out + m * gm.ld + n) =
+                make_float2(v0, v1);
+          }
+        }
+      }
+    }
+  }
+}
+
+// One token reduction (see the section comment): A (Tp, M) token-major,
+// B's planes (2 N, Tp); out (M, N) or, trans, (N, M), through `part`
+// (splits, M, N) when the tokens are split.
+cudaError_t wgrad_tf32(const void* A, const float* B, long long Tp, int M,
+                       int N, int splits, bool trans, float* part,
+                       float* out, int sms, cudaStream_t s) {
+  const auto kernel = wgrad_tf32_kernel;
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel));
+  if (e != cudaSuccess) return e;
+  CUtensorMap m[2];
+  if (!tensor_map(&m[0], A, Tp, M, kWKt, 32, true, 0, true) ||
+      !tensor_map(&m[1], B, 2LL * N, (int)Tp, kWBN, kWKt, true, 0, true))
+    return cudaErrorInvalidValue;
+  WgArgs w{};
+  w.M = M;
+  w.N = N;
+  w.kb_total = (int)(Tp / kWKt);
+  w.kb_split = (w.kb_total + splits - 1) / splits;
+  const int parts = (w.kb_total + w.kb_split - 1) / w.kb_split;
+  w.m_tiles = (M + kBM - 1) / kBM;
+  w.n_tiles = (N + kWBN - 1) / kWBN;
+  w.tiles = (long long)w.m_tiles * w.n_tiles * parts;
+  w.out = parts == 1 ? out : part;
+  w.ld = trans ? M : N;
+  w.z_stride = (long long)M * N;
+  w.trans = trans;
+  const int grid = (int)(w.tiles < sms ? w.tiles : sms);
+  kernel<<<grid, kHopperThreads, WgCfg::kSmem, s>>>(m[0], m[1], w);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || parts == 1) return e;
+  return reduce(part, out, (long long)M * N, parts, s);
+}
+
+// The workspace, compute dtype of `e` bytes: in bf16 hs (Tp, Cp) and dd
+// (Tp, 2 Cp); gs and das (Tp, Fp) in the compute dtype; dh (Tp, Cp),
+// stats (Tp, 2), the per-token kernels' partials (Tp / token_tile, 2 Cp)
+// twice, db1's (Tp / 64, Fp: a row each 64 tokens, a consumer
+// warpgroup's), reduce_rows' chunk sums, wpart1 (s1, Fp, Cp), wpart2 (s2,
+// 2 Cp, Fp) float32; in float32 also the split planes (Tf32Planes).
 struct WLayout {
   size_t hs, dd, gs, das, dh, stats, vp_prep, vp_lnb, vp_db1, chunks, wpart1,
-      wpart2, sp_h, sp_dd, sp_da, sp_w1t, sp_w2, sp_w1, total;
+      wpart2, sp_h, sp_dd, sp_ht, sp_ddt, sp_da, sp_w1t, sp_w2, sp_w1, total;
 };
 
 inline WLayout w_layout(size_t e, long long Tp, int Cp, int Fp, int s1,
@@ -995,8 +1223,9 @@ inline WLayout w_layout(size_t e, long long Tp, int Cp, int Fp, int s1,
   const size_t f32 = e == 4 ? 2 * sizeof(float) : 0;   // two planes
   WLayout L;
   size_t o = 0;
-  L.hs = take(&o, tp * cp * e);
-  L.dd = take(&o, tp * 2 * cp * e);
+  const size_t bf = e == 2 ? e : 0;           // hs and dd: bf16 only
+  L.hs = take(&o, tp * cp * bf);
+  L.dd = take(&o, tp * 2 * cp * bf);
   L.gs = take(&o, tp * fp * e);
   L.das = take(&o, tp * fp * e);
   L.dh = take(&o, tp * cp * sizeof(float));
@@ -1010,6 +1239,8 @@ inline WLayout w_layout(size_t e, long long Tp, int Cp, int Fp, int s1,
   L.wpart2 = take(&o, (size_t)s2 * 2 * cp * fp * sizeof(float));
   L.sp_h = take(&o, tp * cp * f32);
   L.sp_dd = take(&o, tp * cp * f32);
+  L.sp_ht = take(&o, tp * cp * f32);
+  L.sp_ddt = take(&o, tp * 2 * cp * f32);
   L.sp_da = take(&o, tp * fp * f32);
   L.sp_w1t = take(&o, fp * cp * f32);
   L.sp_w2 = take(&o, fp * cp * f32);
@@ -1043,9 +1274,10 @@ cudaError_t launch_bwd(BArgs a, void* ws, float* dw1, float* dw2,
   float* dh = at(W.dh);
   float* vp_db1 = at(W.vp_db1);
   float* chunks = at(W.chunks);
-  const Tf32Planes planes{at(W.sp_h), at(W.sp_dd), at(W.sp_da),
-                          at(W.sp_w1t), at(W.sp_w2), at(W.sp_w1)};
-  const PrepF32 sp{planes.h, planes.dd, Tp, full};
+  const Tf32Planes planes{at(W.sp_h),  at(W.sp_dd),  at(W.sp_ht),
+                          at(W.sp_ddt), at(W.sp_da),  at(W.sp_w1t),
+                          at(W.sp_w2),  at(W.sp_w1)};
+  const PrepF32 sp{planes.h, planes.dd, planes.ht, planes.ddt, Tp, full};
   const size_t smem_t = t_layout(Cp, BT).total;
   if (smem_t > kSmemMax) return cudaErrorInvalidConfiguration;
   const int nb = (int)(Tp / BT);
@@ -1067,12 +1299,13 @@ cudaError_t launch_bwd(BArgs a, void* ws, float* dw1, float* dw2,
     e = products_tf32(a, planes, Tp, dh, vp_db1, chunks, dvec, full, s);
     if (e != cudaSuccess) return e;
     if (full) {
-      // 5. dW1^T = da^T h ; [dW2^T ; M] = [do | dout]^T g
-      e = gemm_f32(a.das, Fp, a.hs, Cp, at(W.wpart1), dw1, Tp, Fp, Cp, s1,
-                   s);
+      // 5. dW1^T = da^T h ; [dW2^T ; M] = ([do | dout]^T g), as 3xTF32
+      const int sms = sm_count();
+      e = wgrad_tf32(a.das, planes.ht, Tp, Fp, Cp, s1, false, at(W.wpart1),
+                     dw1, sms, s);
       if (e != cudaSuccess) return e;
-      e = gemm_f32(a.dd, 2 * Cp, a.gs, Fp, at(W.wpart2), dw2, Tp, 2 * Cp,
-                   Fp, s2, s);
+      e = wgrad_tf32(a.gs, planes.ddt, Tp, Fp, 2 * Cp, s2, true,
+                     at(W.wpart2), dw2, sms, s);
       if (e != cudaSuccess) return e;
     }
   }

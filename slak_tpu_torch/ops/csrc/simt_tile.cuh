@@ -1,5 +1,4 @@
-// The float32 tile product that the port's CUDA-core paths share:
-// mlp_bwd.cu's float32 token-reduction GEMMs (K8/K9) and dwconv_stacked.cu's
+// The float32 tile product of dwconv_stacked.cu's CUDA-core path, the
 // float32 tap-stacked conv (K11). A 64 x 64 output tile a block of 256
 // threads, 4 x 4 outputs a thread, K in steps of TK through shared memory:
 // each shared load feeds four FMAs, and an operand tile is read once for 64

@@ -8,14 +8,19 @@
 // K-major. wgmma::tf32 is the TF32 form, D += A (64 x 8) * B (8 x N), both
 // operands K-major in shared memory (TF32 has no transposed form): a k
 // step of 8 floats is the same 32 bytes as bf16's 16 elements, so
-// desc_sw128 and its advance (+2 a step) serve both. scale_d = 0
+// desc_sw128 and its advance (+2 a step) serve both. wgmma::tf32_rs takes
+// the TF32 A from registers (four b32 a thread, the m16n8k8 TF32 A
+// fragment of the warp's 16 rows: a0 (row g, k q), a1 (g + 8, q), a2 (g,
+// q + 4), a3 (g + 8, q + 4), g = lane / 4, q = lane % 4), so that A may lie
+// in shared memory in any layout its threads can read. scale_d = 0
 // overwrites D, 1 accumulates into it. Every N has its own instruction, so
 // the register lists are spelled out below, one specialisation an N, the
 // same text at every N; mlp.cu uses ss at N = 64 (the fused kernel's first
 // product) and 128, 192, 256 (the GEMMs), rs at N = 128, 256 (the fused
 // kernel's second product); mlp_bwd.cu ss at N = 128 and 256 in all three
-// orientations (K-major, B MN-major, both) and tf32 at N = 64; tf32 at
-// N = 128 serves tools/probe_mlp_f32.py's 128-column variant.
+// orientations (K-major, B MN-major, both), tf32 at N = 64 and tf32_rs at
+// N = 128 (the float32 token reductions); tf32 at N = 128 serves
+// tools/probe_mlp_f32.py's 128-column variant.
 #pragma once
 
 #include <stdint.h>
@@ -63,6 +68,7 @@ __device__ __forceinline__ uint64_t desc_sw128_mn(const void* smem,
 template <int N> struct Ss;
 template <int N> struct Rs;
 template <int N> struct Tf32;
+template <int N> struct Tf32Rs;
 
 template <> struct Ss<64> {
   template <int TA, int TB>
@@ -386,6 +392,42 @@ template <> struct Tf32<128> {
   }
 };
 
+template <> struct Tf32Rs<128> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
 // d (64 x N) (+)= A (64 x 16) * B (16 x N), A and B in shared memory,
 // each K-major (TA, TB = 0: desc_sw128) or MN-major (1: desc_sw128_mn)
 template <int N, int TA = 0, int TB = 0>
@@ -407,6 +449,14 @@ template <int N>
 __device__ __forceinline__ void tf32(float* d, uint64_t da, uint64_t db,
                                      int scale_d) {
   Tf32<N>::run(d, da, db, scale_d);
+}
+
+// d (64 x N) (+)= A (64 x 8, TF32 in registers) * B (8 x N, TF32, K-major
+// in shared memory)
+template <int N>
+__device__ __forceinline__ void tf32_rs(float* d, const uint32_t* a,
+                                        uint64_t db, int scale_d) {
+  Tf32Rs<N>::run(d, a, db, scale_d);
 }
 
 }  // namespace wgmma

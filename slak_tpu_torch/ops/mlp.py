@@ -16,13 +16,14 @@ custom VJP: K2 forward, K8 backward at C <= 256 and K9 above, as
 
 The backward's launches (the LayerNorm prep, the GELU product, dh, the
 LayerNorm backward, the token reductions and dgamma; in bf16 the products
-run as TMA-fed ``wgmma``, in float32 the GELU product and dh as 3xTF32 on
-TMA-fed ``wgmma``, each operand split into big and small TF32 parts, as
-accurate as fp32) have plain versions :func:`mlp_bwd_prep_plain`,
-:func:`mlp_bwd_act_plain`, :func:`mlp_bwd_dh_plain`,
-:func:`mlp_bwd_lnb_plain` and :func:`mlp_bwd_wgrad_plain`;
-:func:`fused_mlp_bwd_launches_plain` is their composition (the CPU tests
-hold it to the kernels' plain versions and to the Pallas kernels). With
+run as TMA-fed ``wgmma``, in float32 as 3xTF32 on ``wgmma``, each operand
+split into big and small TF32 parts, as accurate as fp32) have plain
+versions :func:`mlp_bwd_prep_plain`, :func:`mlp_bwd_act_plain`,
+:func:`mlp_bwd_dh_plain`, :func:`mlp_bwd_lnb_plain` and
+:func:`mlp_bwd_wgrad_plain`; :func:`fused_mlp_bwd_launches_plain` is their
+composition (the CPU tests hold it to the kernels' plain versions and to
+the Pallas kernels), and :func:`mlp_bwd_wgrad_tf32_mirror` follows the
+float32 token reductions' split, k blocks and sum order. With
 ``dy_only`` the backward gives dy alone (the input gradient with frozen
 weights: the ERF): the kernels skip the token reductions, dgamma and the
 sums that only the parameter gradients read, and dy has the same bits as
@@ -527,6 +528,47 @@ def mlp_bwd_wgrad_plain(h, do, dout, g, da, sum_dout, pk: MlpWeights,
             (w2 * m).sum(1) + pk.vec[2] * sum_dout)
 
 
+def mlp_bwd_wgrad_tf32_mirror(h, do, dout, g, da, sum_dout, pk: MlpWeights,
+                              splits=(1, 1), channel_dim: int = -1):
+    """Plain mirror of the float32 token reductions as the card runs them
+    (``wgrad_tf32_kernel``), for the tests: the tokens padded with zeros to
+    a multiple of 128; both operands split into big and small TF32 parts;
+    each 32-token k block's three products (small A x big B, big A x small
+    B, big A x big B) into a fresh partial, added in fp32 into its token
+    split's sums in order; the splits' sums added in order (``splits``: the
+    two products' token splits, ``_gemm_splits``'). A is da (dW1^T = da^T
+    h) or g ([do | dout]^T g, whose transpose is dW2 beside M); then dgamma
+    as :func:`mlp_bwd_wgrad_plain` forms it. Returns what
+    :func:`mlp_bwd_wgrad_plain` returns."""
+    c = pk.c
+    dl = dout.movedim(channel_dim, -1).reshape(-1, c).float()
+    t = dl.shape[0]
+    tp = _round_up(t, _TOKEN_TILE)
+
+    def reduce(a, b, n_splits):
+        a = torch.cat([a.float(), a.new_zeros(tp - t, a.shape[1])])
+        b = torch.cat([b.float(), b.new_zeros(tp - t, b.shape[1])])
+        ab, as_ = tf32_split_plain(a).chunk(2)
+        bb, bs = tf32_split_plain(b).chunk(2)
+        kb_total = tp // 32
+        kb_split = -(-kb_total // n_splits)
+        total = None
+        for k0 in range(0, kb_total, kb_split):
+            s = torch.zeros(a.shape[1], b.shape[1])
+            for kb in range(k0, min(kb_total, k0 + kb_split)):
+                r = slice(32 * kb, 32 * kb + 32)
+                s = s + (as_[r].t() @ bb[r] + ab[r].t() @ bs[r]
+                         + ab[r].t() @ bb[r])
+            total = s if total is None else total + s
+        return total
+    dw1t = reduce(da, h, splits[0])                      # (F, C)
+    dw2t_m = reduce(g, torch.cat([do.float(), dl], 1), splits[1])
+    m = dw2t_m[:, c:].t()                                # M (C, F)
+    w2 = pk.w2[:c, :pk.f].float()
+    return (dw1t, dw2t_m[:, :c].t(),
+            (w2 * m).sum(1) + pk.vec[2] * sum_dout)
+
+
 def fused_mlp_bwd_launches_plain(y: torch.Tensor, dout: torch.Tensor,
                                  pk: MlpWeights, channel_dim: int = -1,
                                  dy_dtype=None):
@@ -566,18 +608,15 @@ def _bwd_entries():
 
 def _gemm_splits(tp: int, fp: int, cp: int, dtype: torch.dtype, sms: int):
     """Token splits of the two weight-gradient products (Fp x Cp and
-    2 Cp x Fp outputs). bf16: 128 x 128 tiles on persistent blocks, one an
-    SM, so as many splits as fill the SMs in one wave; fp32: 64 x 64 tiles,
-    about two blocks an SM, at least 128 tokens a split."""
-    if dtype == torch.bfloat16:
-        def splits(m, n):
-            tiles = -(-m // 128) * -(-n // 128)
-            return max(1, min(tp // 64, sms // tiles))
-    else:
-        def splits(m, n):
-            tiles = -(-m // 64) * -(-n // 64)
-            return max(1, min(-(-tp // 128), -(-2 * sms // tiles)))
-    return splits(fp, cp), splits(2 * cp, fp)
+    Fp x 2 Cp outputs): 128 x 128 tiles on persistent blocks, one an SM, so
+    as many splits as fill the SMs in one wave, each split at least one k
+    block (64 tokens in bf16, 32 in fp32)."""
+    kb = 64 if dtype == torch.bfloat16 else 32
+
+    def splits(n):
+        tiles = -(-fp // 128) * -(-n // 128)
+        return max(1, min(tp // kb, sms // tiles))
+    return splits(cp), splits(2 * cp)
 
 
 def _check_bwd(name, y, dout, pk, channel_dim):

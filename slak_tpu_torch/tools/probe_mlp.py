@@ -115,7 +115,9 @@ def launches(y, res, pk, out, ws, lib):
 
 
 def kernel_times(call, n=10):
-    """{kernel name: device us a call} over n calls (torch.profiler)."""
+    """{kernel name: device us a call} over n calls (torch.profiler); the
+    name keeps its template arguments, so that two instantiations of one
+    kernel stay apart."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -128,8 +130,15 @@ def kernel_times(call, n=10):
         t = getattr(e, "device_time_total", 0) or getattr(
             e, "cuda_time_total", 0)
         if t > 0:
-            name = e.key.replace("(anonymous namespace)::", "")
-            out[name.replace("void ", "").split("(")[0]] = t / n
+            name = e.key.replace("(anonymous namespace)::", "").replace(
+                "void ", "")
+            depth, cut = 0, len(name)
+            for i, ch in enumerate(name):   # the parameter list's "("
+                depth += (ch == "<") - (ch == ">")
+                if ch == "(" and depth == 0:
+                    cut = i
+                    break
+            out[name[:cut]] = out.get(name[:cut], 0.0) + t / n
     return out
 
 

@@ -15,7 +15,11 @@ On the card the float32 products run as 3xTF32 (each operand split into a
 big and a small TF32 part, three TF32 products). A numpy emulation of that
 split at a stage-4 product shape pins why ``chip_smoke.py`` holds the fp32
 backward to 2e-5: the split is as close to float64 as float32 is, one TF32
-pass is not.
+pass is not. The token reductions (the weight gradients) follow their own
+order on the card, 32-token k blocks into fresh partials and the token
+splits summed in turn: ``mlp_bwd_wgrad_tf32_mirror`` repeats it, and is
+held to ``mlp_bwd_wgrad_plain`` and to ``jax.vjp`` of ``fused_mlp`` with
+respect to the weights.
 """
 
 import types
@@ -33,6 +37,17 @@ from slak_tpu_torch.ops import mlp as K2
 # the Pallas kernels' Abramowitz-Stegun erf (|err| <= 1.5e-7)
 TOL = 2e-5
 KEYS = ("ln_s", "ln_b", "w1", "b1", "w2", "b2", "gamma", "pre")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread while this file's tests run: their tensors
+    are small, and the suite's parallel workers would otherwise each start
+    a thread a core and oversubscribe the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(a):
@@ -184,3 +199,46 @@ def test_3xtf32_split_is_as_close_as_float32():
     one = _rel(hb @ wb, want)
     assert err3 <= TOL and err3 <= 3 * fp32, (err3, fp32)
     assert one > TOL, one
+
+
+@pytest.mark.parametrize("c", [13, 300])
+@pytest.mark.parametrize("against", ["plain", "jax"])
+def test_tf32_token_reductions_mirror(c, against):
+    """The float32 token reductions as the card orders them
+    (``mlp_bwd_wgrad_tf32_mirror``: both operands split into TF32 parts,
+    three products a 32-token k block into a fresh partial, token splits
+    of 3 and 2 summed in order) on 150 tokens (padded to 256, the last
+    split ragged), fed the plain launches' h, do, g and da: dW1, dW2 and
+    dgamma within 2e-5 of scale of ``mlp_bwd_wgrad_plain`` (C = 13, K8's
+    width; 300, K9's) or of ``jax.vjp`` of slak_tpu's ``fused_mlp``
+    (interpret mode, jitted) with respect to W1, W2 and gamma."""
+    rng = np.random.default_rng(c + 20)
+    p = _params(rng, c)
+    y = rng.standard_normal((2, 5, 15, c), dtype=np.float32)
+    dout = (0.3 * rng.standard_normal(y.shape)).astype(np.float32)
+    pk = K2.pack_mlp(*(_t(p[k]) for k in KEYS))
+    yy, dd = _t(y), _t(dout)
+    h, do, _, _, _, sum_dout = K2.mlp_bwd_prep_plain(yy, dd, pk)
+    g, da, _ = K2.mlp_bwd_act_plain(h, do, pk)
+    got = K2.mlp_bwd_wgrad_tf32_mirror(h, do, dd, g, da, sum_dout, pk,
+                                        splits=(3, 2))
+    if against == "plain":
+        want = [w.numpy() for w in K2.mlp_bwd_wgrad_plain(
+            h, do, dd, g, da, sum_dout, pk)]
+    else:
+        w = [jnp.asarray(p[k]) for k in KEYS]
+        res = jnp.zeros(y.shape, jnp.float32)
+
+        def vjp_w(w1, w2, gamma, cot):
+            _, pull = jax.vjp(
+                lambda a, b, gm: PM.fused_mlp(
+                    jnp.asarray(y), res, w[0], w[1], a, w[3], b, w[5], gm,
+                    w[7], True, True), w1, w2, gamma)
+            return pull(cot)
+        dw1, dw2, dgamma = jax.jit(vjp_w)(w[2], w[4], w[6],
+                                          jnp.asarray(dout))
+        # JAX's W1 (C, 4C) and W2 (4C, C): the port's nn.Linear transposes
+        want = [np.asarray(dw1).T, np.asarray(dw2).T, np.asarray(dgamma)]
+    for name, a, b in zip(("dW1", "dW2", "dgamma"), got, want):
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        assert _rel(a.numpy(), b) <= TOL, (name, _rel(a.numpy(), b))
