@@ -28,8 +28,10 @@ Phases (any failure exits non-zero):
            the DW_EDGES_2D maps and taps and batches 1, 3, 8, 64, 65, 128,
            its geometry that of dwconv2d_geometry, the same bits twice; the
            fp32 pair also at the DW_EDGES_F32 maps, the same bits twice; the
-           fp32 bound bytes against the lesser of 3xTF32 and FFMA), the
-           fused MLP
+           fp32 bound bytes against the lesser of 3xTF32 and FFMA; the
+           bf16 pair at the DW_EDGES maps, on the band route each launch
+           alone and into an output within one bf16 ulp, the same bits
+           twice, the host's geometry band_geometry's), the fused MLP
            in NCHW, NHWC and (C, M) strides, bf16 and fp32, also without
            the residual and at the ragged batches 1 and 3, the same bits
            on a second launch; times with CUDA events (median), the bound,
@@ -58,8 +60,10 @@ Phases (any failure exits non-zero):
            shapes; the weight gradient the same bits on a second launch,
            the taps that only read padding exactly 0, each row naming its
            route; all three also at the DW_EDGES maps, K4 and the dgrad at
-           the DW_EDGES_2D maps, the weight gradient at WGRAD_EDGES_TILED:
-           planes above the shared memory, in row tiles), the fused MLP
+           the DW_EDGES_2D maps (on the band route K4's y and the dgrad
+           within one bf16 ulp), the weight gradient at WGRAD_EDGES_TILED
+           and, square taps on wgrad_kernel, WGRAD_EDGES_SQUARE: planes
+           above the shared memory, in row tiles), the fused MLP
            backward in NCHW, K8 at
            C = 124 and 249 and K9 at C = 499 and 998 (also at the ragged
            batches 1 and 3; two launches must give the same bits); bf16
@@ -203,8 +207,10 @@ Phases (any failure exits non-zero):
            512 channels, 150 classes), 512^2 crops, batch 8, bf16, random
            weights from a seed. (e) every kernel of the path against its
            plain version at the path's stage shapes (128^2 to 16^2: the
-           K1 pair, K4, the weight gradient and the K1 dgrad, stage 1 on
-           the tiled kernels and stages 2-4 on the band kernels; K2/K3; K8
+           K1 pair, K4, the weight gradient and the K1 dgrad; K1 and K4
+           on the band route at every stage, stage 1 on the slice kernel
+           with the tiled kernel's time beside; the weight gradient's
+           stage 1 on the tiled kernel; K2/K3; K8
            at stages 1-2, K9 at 3-4), the same bits twice, each with its
            time, bound, plain and library times; (a) one train step on
            the kernel route against the plain route from the same
@@ -354,7 +360,11 @@ PAIR_BIG = 256                              # K10's row-tiled maps (fp32)
 BAND_ROUTE = ("bf16, (K, 5) or (5, K) taps, both map axes <= 64 (stages "
               "1-3 at 224^2; stage 4 takes TOEPLITZ_ROUTE): "
               "dwconv_band_kernel (per-channel banded products, mma.sync "
-              "m16n8k16); larger maps: dwconv_tiled_kernel; fp32: F32_ROUTE")
+              "m16n8k16); larger maps with K <= 65 and the long axis <= 512 "
+              "(stage 1 of the 512^2 seg crop): dwconv_band_slice_kernel "
+              "(the same products on F-slices of an image, warps on "
+              "m-bands of at most 4 m-tiles, only the live diagonals); "
+              "other taps and maps: dwconv_tiled_kernel; fp32: F32_ROUTE")
 TOEPLITZ_ROUTE = ("bf16, H * W <= 64, any odd taps (stage 4's 7x7 maps at "
                   "224^2: the eval pair, K4, the dgrad), checked first: "
                   "dwconv2d_kernel (one dense product a channel, the batch "
@@ -386,14 +396,17 @@ WGRAD_ROUTE = ("bf16, (K, 5) or (5, K) taps, both map axes <= 64 (all four "
                "stages at 224^2): wgrad_band_kernel (per-channel correlation "
                "matrices over the long tap axis, mma.sync m16n8k16, their "
                "diagonals folded into taps); fp32, other taps and larger "
-               "maps: wgrad_tiled_kernel / wgrad_kernel")
+               "maps: wgrad_tiled_kernel / wgrad_kernel (both in row tiles "
+               "where a plane's two fp32 copies exceed 200 KB)")
 RAGGED = (1, 3)                             # the fused MLP's ragged batches
 # K1/K4's other batches: the ragged ones and the ERF's eval-mode gradient's
 DW_BATCHES = RAGGED + (ERF_GRAD_BATCH,)
 # bf16 K1/K4 maps off the 224^2 stage maps, (N, C, H, W, K, route): every
-# band-kernel instantiation (MT = 1-4 m-tiles of the long axis, with and
-# without 4-byte pairs: W even or odd), taps longer than the map,
-# non-square maps, and stage 1's taps above BAND_MAX on the tiled kernel
+# whole-image band-kernel instantiation (MT = 1-4 m-tiles of the long axis,
+# with and without 4-byte pairs: W even or odd), taps longer than the map,
+# non-square maps; then maps past 64 on the slice kernel (both instances):
+# stage 1's taps at 448^2, the long axis at 65 (the first past 64), 128^2
+# with an odd W, 128 x 96, 200^2 and 256^2 (inputs of 800^2 and 1024^2)
 DW_EDGES = ((3, 16, 48, 48, 47, "band"),      # MT 3, pairs
             (3, 16, 45, 45, 47, "band"),      # MT 3, odd W
             (3, 16, 27, 27, 49, "band"),      # MT 2, odd W
@@ -401,7 +414,12 @@ DW_EDGES = ((3, 16, 48, 48, 47, "band"),      # MT 3, pairs
             (3, 16, 12, 12, 51, "band"),      # taps longer than the map
             (3, 16, 14, 13, 47, "band"),      # non-square, odd W
             (2, 16, 40, 20, 49, "band"),      # MT 3 or 2 by orientation
-            (2, 124, 112, 112, 51, "tiled"))  # stage 1's taps at 448^2
+            (2, 124, 112, 112, 51, "band"),   # slices: stage 1 at 448^2
+            (1, 16, 65, 65, 51, "band"),      # L = 65, odd W
+            (2, 16, 128, 127, 51, "band"),    # 128^2 rows, odd W
+            (2, 16, 128, 96, 47, "band"),     # non-square
+            (1, 16, 200, 200, 51, "band"),    # 5 slices of 40
+            (1, 16, 256, 256, 51, "band"))    # 8 slices of 32, MT 16
 # the weight gradient's tiled kernel where a map's two fp32 planes exceed
 # the shared memory (it stages row tiles, since detection's 200^2
 # stage 1 failed with cudaErrorInvalidConfiguration before), (N, C, H, W,
@@ -411,6 +429,15 @@ WGRAD_EDGES_TILED = ((2, 16, 200, 200, 51, "float32"),
                      (1, 8, 300, 264, 13, "float32"),
                      (2, 16, 210, 160, 49, "float32"),
                      (2, 16, 224, 224, 51, "bfloat16"))
+# the any-tap weight gradient (wgrad_kernel) on square taps where a
+# map's two fp32 planes exceed the shared memory: it stages row tiles, as
+# the tiled kernel does; each raised cudaErrorInvalidConfiguration before.
+# (N, C, H, W, K, dtype): 7x7 (ConvNeXt) and 51x51 (SLaK's undecomposed
+# branch) at 200^2, 13x13 on a non-square map with a short last tile, bf16
+WGRAD_EDGES_SQUARE = ((2, 16, 200, 200, 7, "float32"),
+                      (2, 16, 200, 200, 51, "float32"),
+                      (1, 8, 300, 264, 13, "float32"),
+                      (2, 16, 224, 224, 7, "bfloat16"))
 # K6's maps off stage 4's (bf16, H * W <= 64, any odd taps), all on the
 # Toeplitz kernel: one pixel, a non-square map, stage 4's 7x7 and 8 x 8 (the
 # most pixels, 8 n-tiles), each with taps longer than the map, square and
@@ -789,13 +816,22 @@ def check_dwconv_edges(phase: str, train: bool):
                f"{route}")
         row = dict(shape=[N, C, H, W], K=K, route=route, tol=TOL_KERNEL[dn])
         if route == "band":
-            row.update(MT=[K1.band_geometry(N, C, H, W, *w.shape[1:])["MT"]
-                           for w in ws], pairs=W % 2 == 0)
+            geo = [band_geometry_checked(N, C, H, W, *w.shape[1:], tag)
+                   for w in ws]
+            row.update(MT=[gm["MT"] for gm in geo], pairs=W % 2 == 0,
+                       slice=geo[0]["slice"])
         if not train:
             row["pair_max_abs_err"] = check_dwconv_pair(x, ws, dn, tag)[0]
+            if route == "band":
+                row["ulp_max_abs_err"] = check_band_ulp(x, ws, tag)
+                row.update(within_one_ulp=True, same_bits_twice=True)
             print(f"[{phase}] " + json.dumps(row), flush=True)
             continue
         errs = [check_dwconv_stats(x, w, dn, tag + " stats") for w in ws]
+        if route == "band":
+            for w in ws:
+                within_ulp(K1.dwconv_stats(x, w)[0], K1.dwconv_plain(x, w),
+                           f"{tag} stats y {tuple(w.shape[1:])}")
         row.update(stats_max_abs_err=max(e[0] for e in errs),
                    sums_rel_err=max(e[1] for e in errs),
                    tol_sums=TOL_SUMS[dn], sums_same_bits_twice=True)
@@ -807,9 +843,48 @@ def check_dwconv_edges(phase: str, train: bool):
             d, r = rel_err(got, want)
             _check(r <= TOL_KERNEL[dn], f"{tag} dgrad {tuple(f.shape[1:])}: "
                    f"rel err {r:.3g}")
+            if route == "band":
+                within_ulp(got, want, f"{tag} dgrad {tuple(f.shape[1:])}")
+                same_bits_twice(lambda: K1.dwconv(x, f), f"{tag} dgrad")
             d_max = max(d_max, d)
         row["dgrad_max_abs_err"] = d_max
+        if route == "band":
+            row.update(within_one_ulp=True, same_bits_twice=True)
         print(f"[{phase}] " + json.dumps(row), flush=True)
+
+
+def band_geometry_checked(N, C, H, W, kh, kw, tag) -> dict:
+    """The band route's geometry (``band_geometry``), which must be what
+    the kernel's host code computes (``band_kernel_geometry``)."""
+    from slak_tpu_torch.ops import dwconv as K1
+    want = K1.band_geometry(N, C, H, W, kh, kw)
+    got = K1.band_kernel_geometry(N, C, H, W, kh, kw)
+    _check(all(want[k] == v for k, v in got.items()),
+           f"{tag} {(kh, kw)}: kernel geometry {got}, band_geometry "
+           f"{ {k: want.get(k) for k in got} }")
+    return want
+
+
+def check_band_ulp(x, ws, tag) -> float:
+    """bf16 K1 on the band route against the plain version within one bf16
+    ulp of the result's scale: each tap tensor alone, and into an output
+    (the pair's second launch); the pair the same bits twice. Returns the
+    max abs error."""
+    import torch
+    from slak_tpu_torch.ops import dwconv as K1
+    g = torch.Generator(device=x.device).manual_seed(73)
+    out0 = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+    d = 0.0
+    for w in ws:
+        t = f"{tag} {tuple(w.shape[1:])}"
+        d = max(d, within_ulp(K1.dwconv(x, w), K1.dwconv_plain(x, w),
+                              t + " alone"))
+        d = max(d, within_ulp(K1.dwconv(x, w, out=out0.clone()),
+                              K1.dwconv_plain(x, w, out0.clone()),
+                              t + " into an output"))
+    same_bits_twice(lambda: K1.dwconv(x, ws[1], out=K1.dwconv(x, ws[0])),
+                    tag + " pair")
+    return d
 
 
 def wgrad_route_of(x, kh, kw) -> str:
@@ -843,7 +918,8 @@ def check_wgrad(x, dy, kh, kw, dn, tag):
 
 def check_wgrad_edges(phase: str):
     """bf16 K5/K7 at DW_EDGES against the plain version, both
-    orientations, each on the route it names (``check_wgrad``: within
+    orientations, each on the route it names, but maps above the weight
+    gradient's BAND_MAX on the tiled kernel (``check_wgrad``: within
     TOL_WGRAD, the same bits twice, dead taps exactly 0). Prints a row a
     map."""
     import torch
@@ -856,6 +932,8 @@ def check_wgrad_edges(phase: str):
                              ).to(torch.bfloat16) for _ in range(2))
         taps = ((K, 5), (5, K))
         tag = f"dwconv_wgrad {N}x{C}x{H}x{W} taps {K}"
+        if max(H, W) > KW.BAND_MAX:
+            route = "tiled"
         routes = [wgrad_route_of(x, *t) for t in taps]
         _check(routes == [route] * 2, f"{tag}: routes {routes}, want "
                f"{route}")
@@ -891,6 +969,37 @@ def check_wgrad_tiled_edges(phase: str):
             max_abs_err=max(e[0] for e in errs),
             rel_err=max(e[1] for e in errs), tol=TOL_WGRAD[dn],
             same_bits_twice=True, dead_taps_zero=True)), flush=True)
+
+
+def check_wgrad_square_edges(phase: str):
+    """The any-tap weight gradient at WGRAD_EDGES_SQUARE (square taps,
+    planes staged in row tiles; ``check_wgrad``: within TOL_WGRAD, the same
+    bits twice, dead taps exactly 0), its host's tile plan that of
+    ``tile_rows``. Prints a row a map."""
+    import torch
+    from slak_tpu_torch.ops import dwconv_wgrad as KW
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(74)
+    for N, C, H, W, K, dn in WGRAD_EDGES_SQUARE:
+        dtype = getattr(torch, dn)
+        x, dy = (torch.randn(N, C, H, W, generator=g, device=dev
+                             ).to(dtype) for _ in range(2))
+        tag = f"dwconv_wgrad {N}x{C}x{H}x{W} taps {K}x{K}"
+        rows = KW.tile_rows(H, W, K, K)
+        plan = KW.kernel_tile_rows(H, W, K, K)
+        _check(plan == (rows, KW._tile_smem(H, W, K, K, rows)) and rows < H,
+               f"{tag}: the host's tile plan {plan}, the mirror's {rows} "
+               f"rows")
+        _check(wgrad_route_of(x, K, K) == "tiled", f"{tag}: route")
+        d, r = check_wgrad(x, dy, K, K, dn, tag)
+        print(f"[{phase}] " + json.dumps(dict(
+            shape=[N, C, H, W], taps=[K, K], dtype=dn, route="tiled",
+            kernel="wgrad_kernel", tile_rows=rows,
+            tiles=len(KW.tile_plan(H, W, K, K)), max_abs_err=d, rel_err=r,
+            tol=TOL_WGRAD[dn], same_bits_twice=True, dead_taps_zero=True)),
+            flush=True)
+        del x, dy
+    torch.cuda.empty_cache()
 
 
 def stage_shapes(cfg, size: int = 224):
@@ -1192,6 +1301,10 @@ def stage_kernel_rows(tag, kinds, stage, C, H, K, s, depth, batch, dtype, g,
                    launches_per_block=2)
         if route[0] == "toeplitz2d":    # the route A/B: the band kernel
             row["band_ms"] = time_ms(lambda: pair(band))
+        if route[0] == "band" and H > K1.BAND_WHOLE_MAX:
+            # the slice kernel: the tiled kernel that served these maps
+            row["tiled_ms"] = time_ms(lambda: pair(
+                lambda xx, w, out=None: K1.launch("tiled", xx, w, out)))
         emit("pair", row)
 
     if "stats" in kinds:
@@ -1221,6 +1334,9 @@ def stage_kernel_rows(tag, kinds, stage, C, H, K, s, depth, batch, dtype, g,
         if route[0] == "toeplitz2d":
             row["band_ms"] = time_ms(lambda: [K1.launch_stats("band", x, w)
                                               for w in ws])
+        if route[0] == "band" and H > K1.BAND_WHOLE_MAX:
+            row["tiled_ms"] = time_ms(lambda: [
+                K1.launch_stats("tiled", x, w) for w in ws])
         emit("stats", row)
 
     if "wgrad" in kinds:
@@ -1275,6 +1391,9 @@ def stage_kernel_rows(tag, kinds, stage, C, H, K, s, depth, batch, dtype, g,
         if route[0] == "toeplitz2d":
             row["band_ms"] = time_ms(lambda: [K1.launch("band", dy, w)
                                               for w in flipped])
+        if route[0] == "band" and H > K1.BAND_WHOLE_MAX:
+            row["tiled_ms"] = time_ms(lambda: [K1.launch("tiled", dy, w)
+                                               for w in flipped])
         emit("dgrad", row)
 
     if {"pair", "stats", "wgrad", "dgrad"} & set(kinds):
@@ -1586,6 +1705,7 @@ def phase_train_kernels(cfg, batch):
     check_dwconv_edges("train_kernels", train=True)
     check_wgrad_edges("train_kernels")
     check_wgrad_tiled_edges("train_kernels")
+    check_wgrad_square_edges("train_kernels")
     g = torch.Generator(device="cuda").manual_seed(10)
     totals, on_7x7, k9_bf16 = {}, {}, []
     for dtype in (torch.bfloat16, torch.float32):
@@ -3205,13 +3325,17 @@ def phase_dwconv_ab(cfg, base: str):
     and dgrad pair at the four 1024^2 ERF shapes (batch 1); then this
     tree's route A/B on the 7x7 maps, the same three at the same batches
     on the band kernel and on the Toeplitz kernel in turns band, toeplitz2d,
-    toeplitz2d, band; then the bs256 bf16 eval forward, the bs128 bf16 train step
-    and one fp32 ERF image at 1024^2 (the input gradient, weights frozen;
-    on CUDA events and as the device's busy time; the two trees' maps
-    within TOL_ERF_MAP), each with the tree's ``dwconv`` /
-    ``dwconv_stats`` swapped into ``ops/dwconv.py`` (the model's convs,
-    ``DwconvTaps`` and ``DwconvBnStats``, call them from there). Returns
-    the rows."""
+    toeplitz2d, band; then the bs256 bf16 eval forward, the bs128 bf16 train step,
+    the bf16 seg step (the 512^2 crop at SEG_BATCH) and one fp32 ERF image
+    at 1024^2 (the input gradient, weights frozen; on CUDA events and as
+    the device's busy time; the two trees' maps within TOL_ERF_MAP), each
+    with the tree's ``dwconv`` / ``dwconv_stats`` swapped into
+    ``ops/dwconv.py`` (the model's convs, ``DwconvTaps`` and
+    ``DwconvBnStats``, call them from there). Before the turns, the seg
+    crop's stage 1 (128^2, SEG_BATCH) joins the cases: the eval's K1 pair,
+    the K4 pair and the dgrad pair. Last, the square-tap weight gradient
+    of both trees on planes that fit one tile: the same bits. Returns the
+    rows."""
     import torch
     from slak_tpu_torch.analysis.erf import get_input_grad
     from slak_tpu_torch.models import apply, create_model
@@ -3262,6 +3386,21 @@ def phase_dwconv_ab(cfg, base: str):
                     f"dgrad_pair_bs{batch}_stage{i + 1}_ms",
                     lambda r, dy=dy, fl=flipped: [K1.launch(r, dy, w)
                                                   for w in fl]))
+    # the seg crop's stage 1 (128^2 at 512^2, bs8): the band route's slice
+    # kernel in this tree, the tiled kernel in the parent's
+    for i, C, H, K, s, _ in list(stage_shapes(cfg, SEG_CROP))[:1]:
+        ws = [(torch.randn(C, *t, generator=g, device=dev) * 0.05
+               ).to(bf).float() for t in ((K, s), (s, K))]
+        flipped = [w.flip(1, 2).contiguous() for w in ws]
+        x, dy = (torch.randn(SEG_BATCH, C, H, H, generator=g, device=dev
+                             ).to(bf) for _ in range(2))
+        tag = f"bs{SEG_BATCH}_seg{SEG_CROP}_stage{i + 1}_ms"
+        cases.append(("k1_pair_" + tag, lambda f, x=x, ws=ws: f[0](
+            x, ws[1], out=f[0](x, ws[0]))))
+        cases.append(("k4_pair_" + tag, lambda f, x=x, ws=ws: [
+            f[1](x, w) for w in ws]))
+        cases.append(("dgrad_pair_" + tag, lambda f, dy=dy, fl=flipped: [
+            f[0](dy, w) for w in fl]))
     # the ERF's fp32 pairs at 1024^2 (batch 1): forward and dgrad
     for i, C, H, K, s, _ in stage_shapes(cfg, ERF_SIZE):
         ws = [torch.randn(C, *t, generator=g, device=dev) * 0.05
@@ -3324,6 +3463,19 @@ def phase_dwconv_ab(cfg, base: str):
           lambda: step(state, batches[0], gen), 5, 2, 3)
     del model, state, step, batches
     torch.cuda.empty_cache()
+    from slak_tpu_torch.downstream import seg_main as SM
+    from slak_tpu_torch.downstream.configs import SEG_CONFIGS, poly_schedule
+    recipe = SEG_CONFIGS[SEG_RECIPE]
+    sx, sy = SM._synthetic_seg_batch(SM.iter_rng(0, 0), SEG_BATCH, SEG_CROP,
+                                     recipe.num_classes)
+    model = SM.build_seg(recipe, dev, 0)
+    step = SM.make_seg_train_step(
+        model, SM.make_seg_optimizer(model, recipe), recipe,
+        poly_schedule(recipe.lr, 1000, 0, recipe.warmup_ratio), bf, False)
+    timed(f"seg_step_bs{SEG_BATCH}_{SEG_CROP}_ms",
+          lambda: step(1, sx, sy, gen.manual_seed(8)), 3, 1, 3)
+    del model, step, sx, sy
+    torch.cuda.empty_cache()
     model = create_model("SLaK_tiny", seed=0, **MODEL_KW)
     randomize(model, 1)
     model.eval().requires_grad_(False)
@@ -3345,6 +3497,25 @@ def phase_dwconv_ab(cfg, base: str):
     _check(r <= TOL_ERF_MAP, f"dwconv_ab: ERF map rel err {r:.3g}")
     del model, image
     torch.cuda.empty_cache()
+    # the square-tap weight gradient on planes staged whole: the parent's
+    # bits (the row-tiled staging changes no sum where one tile holds all)
+    from slak_tpu_torch.ops import dwconv_wgrad as KW
+    wmod = base_module(base, "dwconv_wgrad", "dwconv_wgrad",
+                       ("_entry", "_band_entries"), "dwconv_ab")
+    for N, C, H, K, dn in ((2, 16, 56, 7, "float32"),
+                           (2, 16, 150, 51, "float32"),
+                           (4, 32, 56, 51, "bfloat16"),
+                           (2, 16, 112, 7, "bfloat16")):
+        xx, dd = (torch.randn(N, C, H, H, generator=g, device=dev
+                              ).to(getattr(torch, dn)) for _ in range(2))
+        _check(KW.tile_rows(H, H, K, K) == H, f"dwconv_ab: {H}^2 at {K}x{K}"
+               f" takes row tiles")
+        same = torch.equal(KW.launch("tiled", xx, dd, K, K),
+                           wmod.launch("tiled", xx, dd, K, K))
+        print(f"[dwconv_ab] square wgrad {N}x{C}x{H}x{H} {K}x{K} {dn}: "
+              f"the parent's bits {same}", flush=True)
+        _check(same, f"dwconv_ab: the square wgrad at {H}^2 {K}x{K} {dn} "
+               f"is not the parent's bits")
     for name, ms in rows.items():
         print(f"[dwconv_ab] {name}: " + " / ".join(f"{v:.4f}" for v in ms)
               + "  (" + ", ".join(order) + ")", flush=True)
@@ -4681,12 +4852,14 @@ DS_CLI_STEPS = 3                            # then one resumed step
 DS_EVAL_BATCHES = 2
 DS_TIMED_STEPS = 2
 # the routes each stage's K1, K4 and weight gradient take, by map size
-# (ops/dwconv.py BAND_MAX = P_MAX = 64): bf16 seg at 512^2 (128/64/32/16)
-# stage 1 on the tiled kernels, stages 2-4 on the band kernels, no K6;
-# fp32 det at 800^2 (200/100/50/25) K1 and its dgrad on the fp32 band
-# kernel, K4 and the weight gradient on the tiled kernels
-SEG_ROUTES = {k: ["tiled", "band", "band", "band"]
-              for k in ("dwconv", "dwconv_stats", "dwconv_wgrad")}
+# (ops/dwconv.py BAND_WHOLE_MAX = P_MAX = 64, ops/dwconv_wgrad.py
+# BAND_MAX = 64): bf16 seg at 512^2 (128/64/32/16) K1 and K4 on the band
+# route at every stage (stage 1 on the slice kernel), the weight gradient
+# at stage 1 on the tiled kernel, no K6; fp32 det at 800^2
+# (200/100/50/25) K1 and its dgrad on the fp32 band kernel, K4 and the
+# weight gradient on the tiled kernels
+SEG_ROUTES = {"dwconv": ["band"] * 4, "dwconv_stats": ["band"] * 4,
+              "dwconv_wgrad": ["tiled", "band", "band", "band"]}
 DET_ROUTES = {"dwconv": ["band_f32"] * 4, "dwconv_stats": ["tiled"] * 4,
               "dwconv_wgrad": ["tiled"] * 4}
 

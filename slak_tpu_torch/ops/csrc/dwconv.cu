@@ -63,9 +63,13 @@
 // own instantiations (PROBE = false) are unchanged.
 //
 // Band route (slak_dwconv_band, slak_dwconv_band_stats: bf16, taps (K, 5)
-// or (5, K), both map axes at most 64): dwconv_band_kernel, the same two
-// TPU kernels in their own form, per-channel banded products against the
-// batch, on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums). With
+// or (5, K)): both map axes at most 64 (SLaK-T's four stages at 224^2)
+// take dwconv_band_kernel; larger maps with K <= 65 and the long tap axis
+// at most 512 (the seg crop's 128^2 stage 1, any input above 256^2) take
+// dwconv_band_slice_kernel (below); other taps and maps the tiled kernels.
+// Both are the same two TPU kernels in their own form, per-channel banded
+// products against the batch, on the tensor cores (mma.sync m16n8k16,
+// bf16 in, fp32 sums). With
 // L the long tap axis of the map (H for (K, 5), W for (5, K)) and F the
 // other, both orientations are one product for each tap j < 5 of the short
 // axis:
@@ -106,6 +110,27 @@
 // The products run well below the tensor cores' rate; what is left is
 // latency: the staging, the fragment loads and the per-block set-up (the
 // band build), with 16 (32 on the small maps) warps an SM.
+//
+// dwconv_band_slice_kernel (maps above 64). The whole-image kernel stops
+// at 64: a chunk holds whole images in the lanes' staging registers (a
+// 128^2 plane is 256 8 x 8 blocks against 128), a warp holds all MT
+// m-tiles' accumulators and B fragments, and the block builds all 2 MT -
+// 1 diagonals of band tiles, though only |d| <= DL = (K/2 + 15) / 16 are
+// live (2 for K = 47-65: 5 of 15 at MT = 8). So here:
+// - a chunk is an F-slice of one image: FS rows of F (a multiple of 8, as
+//   few slices as the staging registers allow, of equal size) staged
+//   between the 2 rows of F on each side (zero off the map), the whole
+//   long axis (16 MT + 8 columns) as the products' k; the halo rows are
+//   read beside the slice's blocks (value pairs, 4 a lane at most), so x
+//   is read once but for them;
+// - a warp's unit is (an m-band of MBR <= 4 m-tiles, 2 n-tiles): its
+//   accumulators are those of the whole-image kernel at MT <= 4, and its B
+//   fragments the band's k-tiles m0 - 2 .. m0 + MBR + 1;
+// - only the 5 (2 DL + 1) live band tiles are built and multiplied.
+// A block takes one channel and a run of chunks (image, slice), double
+// buffered as above; K4's sums are one partial pair a block in each
+// thread's store order, summed by dwconv_stats_reduce. The products, the
+// stores and the sums' order are the whole-image kernel's.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -506,7 +531,7 @@ cudaError_t launch(const void* x, const float* w, void* out, long long N,
 using bf16 = __nv_bfloat16;
 
 constexpr int kBandMax = 64;           // either map axis: at most 4 tiles
-                                       // (ops/dwconv.py routes by BAND_MAX)
+                                       // (ops/dwconv.py BAND_WHOLE_MAX)
 constexpr int kBandPitch = 24;         // a band tile's row pitch (16 + 8)
 constexpr int kBandTile = 16 * kBandPitch;
 constexpr size_t kBandSmemMax = 200 * 1024;
@@ -985,6 +1010,342 @@ dwconv_band_probe_kernel(const bf16* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The band route above 64: F-slices (see the header).
+
+constexpr int kSliceLMax = 512;        // the long axis: 32 m-tiles
+constexpr int kSliceDL = 2;            // live diagonals each side (K <= 65)
+constexpr int kSliceND = 2 * kSliceDL + 1;
+constexpr int kSliceMB = 4;            // m-tiles a warp's band at most
+constexpr int kSliceWN = 2;            // n-tiles a warp's unit
+constexpr int kSlicePre = 16;          // 8 x 8 blocks a lane stages a chunk
+constexpr int kSliceHalo = 4;          // halo value pairs a lane stages
+
+// BandGeom's fields as the slice kernel reads them: NTI n-tiles a slice,
+// RPI staged rows a slice (FS + 4), P the row pitch (16 MT + 8), CPB
+// chunks (image, slice) a block; NB, BW and BPI unused.
+struct SliceGeom : BandGeom {
+  int MT, LB;          // m-tiles (16) and 8 x 8 blocks along L
+  int NS, FS;          // slices an image, rows of F a slice (8 NTI)
+  int NMB, MBR, NG;    // m-bands, m-tiles a band, unit n-tile groups
+  int DL;              // live diagonals on each side of the main one
+};
+
+// A slice's 8 x 8 blocks, b = fb * LB + lb (fb along F, lb along L):
+// blk[b] = (its offset in the plane from the slice's first row of F, its
+// offset in a staged buffer, 8 lb, 8 fb).
+__device__ __forceinline__ void slice_blocks(const SliceGeom& g, int4* blk) {
+  for (int b = threadIdx.x; b < g.NTI * g.LB; b += kThreads) {
+    const int fb = b / g.LB, lb = b - fb * g.LB;
+    blk[b] = make_int4(g.long_h ? 8 * lb * g.W + 8 * fb
+                                : 8 * fb * g.W + 8 * lb,
+                       (2 + 8 * fb) * g.P + 8 * lb, 8 * lb, 8 * fb);
+  }
+}
+
+// Chunk q (image q / NS, slice q % NS: rows [f0, f0 + FS) of F) of
+// channel c into registers: the slice's blocks as band_load reads them
+// (zero outside the map), and its 4 halo rows of F (f0 - 2, f0 - 1, f0 +
+// FS, f0 + FS + 1; zero outside the map) as value pairs: (K, 5) the pair
+// of columns w = f0 - 2, f0 - 1 or f0 + FS, f0 + FS + 1 of row h (lane
+// item t: side t / L, h = t % L), (5, K) two neighbouring values of a row
+// (item t: row t / ceil(L / 2), columns 2 (t % ceil(L / 2)) and + 1).
+template <bool PAIR>
+__device__ __forceinline__ void slice_load(const SliceGeom& g,
+                                           const int4* blk, const bf16* x,
+                                           int q, int c, unsigned* pre,
+                                           unsigned* hpre) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lr = lane >> 2, lc = 2 * (lane & 3);
+  const int n = q / g.NS, f0 = (q - n * g.NS) * g.FS;
+  const int nblk = g.NTI * g.LB;
+  const unsigned short* plane = reinterpret_cast<const unsigned short*>(
+      x + ((long long)n * g.C + c) * g.HW);
+  const unsigned short* base =
+      plane + (g.long_h ? f0 : f0 * g.W) + lr * g.W + lc;
+#pragma unroll
+  for (int i = 0; i < kSlicePre; ++i) {
+    const int b = warp + i * kWarps;
+    if (b >= nblk) break;
+    const int4 e = blk[b];
+    const int rows = g.long_h ? g.H - e.z : g.H - f0 - e.w;
+    const int cols = g.long_h ? g.W - f0 - e.w : g.W - e.z;
+    const unsigned short* p = base + e.x;
+    unsigned v = 0u;
+    if (lr < rows && lc < cols) {
+      if (PAIR)
+        v = *reinterpret_cast<const unsigned*>(p);
+      else
+        v = p[0] | (lc + 1 < cols ? (unsigned)p[1] << 16 : 0u);
+    }
+    pre[i] = v;
+  }
+  const int lp = (g.L + 1) / 2;
+#pragma unroll
+  for (int i = 0; i < kSliceHalo; ++i) {
+    const int t = threadIdx.x + i * kThreads;
+    unsigned v = 0u;
+    if (g.long_h) {
+      if (t >= 2 * g.L) break;
+      const int side = t >= g.L, h = t - side * g.L;
+      const int w0 = side ? f0 + g.FS : f0 - 2;
+      const unsigned short* p = plane + h * g.W + w0;
+      if (PAIR) {
+        if (w0 >= 0 && w0 < g.W) v = *reinterpret_cast<const unsigned*>(p);
+      } else {
+        if (w0 >= 0 && w0 < g.W) v = p[0];
+        if (w0 + 1 >= 0 && w0 + 1 < g.W) v |= (unsigned)p[1] << 16;
+      }
+    } else {
+      if (t >= 4 * lp) break;
+      const int rr = t / lp, col = 2 * (t - rr * lp);
+      const int row = rr < 2 ? f0 - 2 + rr : f0 + g.FS + rr - 2;
+      if (row >= 0 && row < g.H) {
+        const unsigned short* p = plane + row * g.W + col;
+        if (PAIR)
+          v = *reinterpret_cast<const unsigned*>(p);
+        else
+          v = p[0] | (col + 1 < g.W ? (unsigned)p[1] << 16 : 0u);
+      }
+    }
+    hpre[i] = v;
+  }
+}
+
+// The registers into a staged buffer: value (f, k) of the slice (f from
+// f0 - 2) at row f, column k; the blocks as band_stage stores them, the
+// halo pairs at rows 0, 1 and FS + 2, FS + 3 ((K, 5): the pair's two
+// values in two rows of column h, 2-byte stores; (5, K): 4-byte stores).
+__device__ __forceinline__ void slice_stage(const SliceGeom& g,
+                                            const int4* blk, bf16* bs,
+                                            const unsigned* pre,
+                                            const unsigned* hpre) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nblk = g.NTI * g.LB;
+  bf16* base = bs + (lane >> 2) * g.P + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < kSlicePre; ++i) {
+    const int b = warp + i * kWarps;
+    if (b >= nblk) break;
+    *reinterpret_cast<unsigned*>(base + blk[b].y) =
+        g.long_h ? movt(pre[i]) : pre[i];
+  }
+  const int lp = (g.L + 1) / 2;
+  unsigned short* hs = reinterpret_cast<unsigned short*>(bs);
+#pragma unroll
+  for (int i = 0; i < kSliceHalo; ++i) {
+    const int t = threadIdx.x + i * kThreads;
+    if (g.long_h) {
+      if (t >= 2 * g.L) break;
+      const int side = t >= g.L, h = t - side * g.L;
+      unsigned short* p = hs + (side ? g.FS + 2 : 0) * g.P + h;
+      p[0] = (unsigned short)(hpre[i] & 0xffffu);
+      p[g.P] = (unsigned short)(hpre[i] >> 16);
+    } else {
+      if (t >= 4 * lp) break;
+      const int rr = t / lp, col = 2 * (t - rr * lp);
+      *reinterpret_cast<unsigned*>(hs + (rr < 2 ? rr : g.FS + rr) * g.P +
+                                   col) = hpre[i];
+    }
+  }
+}
+
+// The products of chunk (image n, rows [f0, f0 + FS) of F) and their
+// stores. Unit wt = (m-band wt % NMB: m-tiles [m0, m0 + MBR) of L, n-tile
+// group wt / NMB: n-tiles 2 (wt / NMB) and + 1 of the slice); warp w
+// takes units w, w + 8, ... For each tap j: the B fragments of the unit's
+// n-tiles at the k-tiles m0 - 2 .. m0 + MBR + 1 (rows shifted by j; those
+// off the map or the live diagonals not loaded), then each live band tile
+// D_j[d], |d| <= DL, once, into every (m-tile i, k-tile i + d) of the
+// band. The accumulators are stored as band_products stores them.
+template <bool PAIR>
+__device__ __forceinline__ void slice_products(
+    const SliceGeom& g, const bf16* band, const bf16* bs, bf16* out, int n,
+    int f0, int c, int accumulate, bool stats, float& s, float& q) {
+  constexpr int KW = kSliceMB + 2 * kSliceDL;     // k-tiles a band reaches
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const bf16* a_lane = band + ((lane & 7) + ((lane >> 3) & 1) * 8) *
+                                  kBandPitch + (lane >> 4) * 8;
+  const long long plane = ((long long)n * g.C + c) * g.HW;
+  const int units = g.NMB * g.NG;
+  for (int wt = warp; wt < units; wt += kWarps) {
+    const int mb = wt % g.NMB, ng = wt / g.NMB;
+    const int m0 = mb * g.MBR, mc = min(g.MBR, g.MT - m0);
+    float acc[kSliceMB][kSliceWN][4];
+#pragma unroll
+    for (int i = 0; i < kSliceMB; ++i)
+#pragma unroll
+      for (int nn = 0; nn < kSliceWN; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][nn][e] = 0.f;
+    // the lane's ldmatrix row of the unit's n-tiles (lanes 16-31: the
+    // second); an n-tile past the slice reads the last one's rows
+    const int nt = min(ng * kSliceWN + (lane >> 4), g.NTI - 1);
+    const int brow = (8 * nt + (lane & 7)) * g.P + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int j = 0; j < kShort; ++j) {
+      unsigned b[KW][kSliceWN][2];
+#pragma unroll
+      for (int kk = 0; kk < KW; ++kk) {
+        const int kt = m0 - kSliceDL + kk;
+        if (kt < 0 || kt >= g.MT || kk < kSliceDL - g.DL ||
+            kk > mc - 1 + kSliceDL + g.DL)
+          continue;
+        unsigned r[4];
+        ldsm_x4(r, bs + brow + j * g.P + kt * 16);
+        b[kk][0][0] = r[0];
+        b[kk][0][1] = r[1];
+        b[kk][1][0] = r[2];
+        b[kk][1][1] = r[3];
+      }
+#pragma unroll
+      for (int di = 0; di < kSliceND; ++di) {
+        const int d = di - kSliceDL;
+        if (d < -g.DL || d > g.DL) continue;
+        unsigned a[4];
+        ldsm_x4(a, a_lane + (j * kSliceND + di) * kBandTile);
+#pragma unroll
+        for (int i = 0; i < kSliceMB; ++i) {
+          const int kt = m0 + i + d;
+          if (i >= mc || kt < 0 || kt >= g.MT) continue;
+#pragma unroll
+          for (int nn = 0; nn < kSliceWN; ++nn)
+            mma_bf16(acc[i][nn], a, b[i + di][nn][0], b[i + di][nn][1]);
+        }
+      }
+    }
+    // the stores, an n-tile at a time: output (r, cc) of fragment half hf
+    // of (m-tile m0 + i, n-tile); in accumulate mode what `out` holds at
+    // the n-tile's outputs is loaded first, all at once
+#pragma unroll
+    for (int nn = 0; nn < kSliceWN; ++nn) {
+      const int ntl = ng * kSliceWN + nn;
+      if (ntl >= g.NTI) break;
+      const int f = f0 + 8 * ntl;
+      const auto r_of = [&](int mt, int hf) {
+        return g.long_h ? mt * 16 + 8 * hf + gid : f + gid;
+      };
+      const auto cc_of = [&](int mt, int hf) {
+        return g.long_h ? f + 2 * tig : mt * 16 + 8 * hf + 2 * tig;
+      };
+      unsigned old[kSliceMB][2];
+#pragma unroll
+      for (int i = 0; i < kSliceMB; ++i)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          old[i][hf] = accumulate && i < mc
+                           ? band_old<PAIR>(g, out, plane, r_of(m0 + i, hf),
+                                            cc_of(m0 + i, hf)) : 0u;
+#pragma unroll
+      for (int i = 0; i < kSliceMB; ++i) {
+        if (i >= mc) continue;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float v0 = acc[i][nn][2 * hf], v1 = acc[i][nn][2 * hf + 1];
+          if (!g.long_h) {        // (5, K): the 8 x 8 block transposed
+            const unsigned u0 = __float_as_uint(v0), u1 = __float_as_uint(v1);
+            const unsigned hi = movt(__byte_perm(u0, u1, 0x7632));
+            const unsigned lo = movt(__byte_perm(u0, u1, 0x5410));
+            v0 = __uint_as_float(__byte_perm(lo, hi, 0x5410));
+            v1 = __uint_as_float(__byte_perm(lo, hi, 0x7632));
+          }
+          band_put<PAIR, false>(g, out, plane, r_of(m0 + i, hf),
+                                cc_of(m0 + i, hf), v0, v1, accumulate,
+                                old[i][hf], stats, s, q);
+        }
+      }
+    }
+  }
+}
+
+// Grid (C * blocks a channel): block grp of channel c takes the chunks
+// [grp * CPB, grp * CPB + CPB) of the channel's N * NS, in order, double
+// buffered as dwconv_band_kernel's chunks are, and builds the channel's
+// live band tiles D_j[d], |d| <= DL, once.
+template <bool PAIR>
+__global__ void __launch_bounds__(kThreads, 2)
+dwconv_band_slice_kernel(const bf16* __restrict__ x,
+                         const float* __restrict__ w, bf16* __restrict__ out,
+                         SliceGeom g, int accumulate,
+                         float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  bf16* band = reinterpret_cast<bf16*>(band_smem);
+  bf16* bsb[2] = {reinterpret_cast<bf16*>(band_smem + g.b_off),
+                  reinterpret_cast<bf16*>(band_smem + g.b_off + g.b_bytes)};
+  const int c = blockIdx.x % g.C, grp = blockIdx.x / g.C;
+  const int q_begin = grp * g.CPB;
+  const int nq = min(g.N * g.NS - q_begin, g.CPB);
+  const int pk = g.K / 2;
+  const bool stats = part != nullptr;
+
+  __shared__ int4 blk[kSlicePre * kWarps];
+  slice_blocks(g, blk);
+  __syncthreads();
+  unsigned pre[kSlicePre], hpre[kSliceHalo];
+  slice_load<PAIR>(g, blk, x, q_begin, c, pre, hpre);
+  // both staged buffers zeroed once (the columns past L stay zero), and
+  // the channel's live band tiles, 8 values a store
+  for (int i = threadIdx.x; i < 2 * g.b_bytes / 16; i += kThreads)
+    reinterpret_cast<uint4*>(bsb[0])[i] = make_uint4(0u, 0u, 0u, 0u);
+  const float* wc = w + (long long)c * g.K * kShort;
+  for (int i = threadIdx.x; i < kShort * kSliceND * 32; i += kThreads) {
+    const int jd = i >> 5, r = (i >> 1) & 15, c0 = (i & 1) * 8;
+    const int j = jd / kSliceND, d = jd - j * kSliceND - kSliceDL;
+    if (d < -g.DL || d > g.DL) continue;
+    unsigned v[4];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int k = 16 * d + c0 + e - r + pk;
+      float t = 0.f;
+      if (k >= 0 && k < g.K)
+        t = g.long_h ? wc[k * kShort + j] : wc[j * g.K + k];
+      const unsigned h = __bfloat16_as_ushort(__float2bfloat16(t));
+      v[e >> 1] = e & 1 ? v[e >> 1] | h << 16 : h;
+    }
+    *reinterpret_cast<uint4*>(band + jd * kBandTile + r * kBandPitch + c0) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  __syncthreads();
+  slice_stage(g, blk, bsb[0], pre, hpre);
+  if (nq > 1) slice_load<PAIR>(g, blk, x, q_begin + 1, c, pre, hpre);
+  __syncthreads();
+
+  float s = 0.f, q = 0.f;
+  for (int qi = 0; qi < nq; ++qi) {
+    const int qq = q_begin + qi, n = qq / g.NS;
+    if (qi + 1 < nq) {
+      slice_stage(g, blk, bsb[(qi + 1) & 1], pre, hpre);
+      if (qi + 2 < nq)
+        slice_load<PAIR>(g, blk, x, qq + 2, c, pre, hpre);
+    }
+    slice_products<PAIR>(g, band, bsb[qi & 1], out, n,
+                         (qq - n * g.NS) * g.FS, c, accumulate, stats, s, q);
+    __syncthreads();
+  }
+  if (stats) {
+    __shared__ float red[2][kWarps];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    s = warp_sum(s);
+    q = warp_sum(q);
+    if (lane == 0) {
+      red[0][warp] = s;
+      red[1][warp] = q;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float a = 0.f, b = 0.f;
+      for (int i = 0; i < kWarps; ++i) {
+        a += red[0][i];
+        b += red[1][i];
+      }
+      float* dst = part + ((long long)grp * g.C + c) * 2;
+      dst[0] = a;
+      dst[1] = b;
+    }
+  }
+}
+
 int round_up(int a, int m) { return (a + m - 1) / m * m; }
 
 // The band route's geometry: false when the shapes do not fit it. MT =
@@ -1035,6 +1396,77 @@ bool band_geom(long long N, int C, int H, int W, int kh, int kw,
   return true;
 }
 
+// The slice kernel's geometry: false when the shapes do not fit it (taps
+// other than (K, 5) / (5, K), K > 65, L > 512). F is cut into NS slices of
+// FS rows, as few as the lanes' staging registers allow (FS / 8 * LB <=
+// 128 blocks), of equal size to 8; L into NMB m-bands of MBR <= 4 m-tiles.
+bool slice_geom(long long N, int C, int H, int W, int kh, int kw,
+                const void* x, const void* out, SliceGeom* gp, bool* PAIR,
+                int* bpc, size_t* smem_out) {
+  const int variant = variant_of(kh, kw);
+  if (variant == 0 || N < 1 || N > (1LL << 30) || C < 1 || H < 1 ||
+      W < 1 || (long long)H * W > (1LL << 30))
+    return false;
+  SliceGeom g{};
+  g.N = (int)N; g.C = C; g.H = H; g.W = W;
+  g.long_h = variant == 1;
+  g.K = g.long_h ? kh : kw;
+  g.L = g.long_h ? H : W;
+  g.F = g.long_h ? W : H;
+  g.DL = (g.K / 2 + 15) / 16;
+  if (g.L > kSliceLMax || g.DL > kSliceDL) return false;
+  g.MT = (g.L + 15) / 16;
+  g.LB = (g.L + 7) / 8;
+  g.NMB = (g.MT + kSliceMB - 1) / kSliceMB;
+  g.MBR = (g.MT + g.NMB - 1) / g.NMB;
+  const int ftiles = (g.F + 7) / 8;
+  const int max_nt = kSlicePre * kWarps / g.LB;
+  g.NS = (ftiles + max_nt - 1) / max_nt;
+  g.NTI = (ftiles + g.NS - 1) / g.NS;
+  g.FS = 8 * g.NTI;
+  g.NG = (g.NTI + kSliceWN - 1) / kSliceWN;
+  if ((long long)N * g.NS > (1LL << 30)) return false;
+  g.RPI = g.FS + 4;
+  g.P = 16 * g.MT + 8;
+  g.HW = H * W;
+  g.NB = 1;
+  // about 512 blocks: channels times runs of chunks (1024 and 2048, the
+  // whole-image kernel's and twice it, measured 4% slower at the seg
+  // crop's stage 1: tools/probe_band.py --ablate)
+  const int chunks = g.N * g.NS;
+  int per = (512 + C - 1) / C;
+  if (per > chunks) per = chunks;
+  g.CPB = (chunks + per - 1) / per;
+  g.b_off = kShort * kSliceND * kBandTile * 2;
+  g.b_bytes = round_up(g.RPI * g.P * 2, 16);
+  const size_t smem = (size_t)g.b_off + 2 * (size_t)g.b_bytes;
+  if (smem > kBandSmemMax) return false;
+  *gp = g;
+  *PAIR = W % 2 == 0 && (((uintptr_t)x | (uintptr_t)out) & 3) == 0;
+  *bpc = (chunks + g.CPB - 1) / g.CPB;
+  *smem_out = smem;
+  return true;
+}
+
+template <bool PAIR>
+cudaError_t launch_slice_t(const SliceGeom& g, int bpc, size_t smem,
+                           const void* x, const float* w, void* out,
+                           int accumulate, float* part, cudaStream_t stream) {
+  auto kernel = dwconv_band_slice_kernel<PAIR>;
+  static bool raised = false;                 // once an instantiation
+  if (!raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kBandSmemMax);
+    if (e != cudaSuccess) return e;
+    raised = true;
+  }
+  kernel<<<(unsigned)(g.C * bpc), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), w, static_cast<bf16*>(out), g, accumulate,
+      part);
+  return cudaGetLastError();
+}
+
 template <int MT, bool PAIR>
 cudaError_t launch_band_t(const BandGeom& g, int bpc, size_t smem,
                           const void* x, const float* w, void* out,
@@ -1071,8 +1503,9 @@ cudaError_t launch_band_p(int MT, const BandGeom& g, int bpc, size_t smem,
   return cudaErrorInvalidValue;
 }
 
-// One launch of the band kernel; *bpc_out = its blocks a channel (the
-// stats variant's partials per channel).
+// One launch of the band route; *bpc_out = its blocks a channel (the
+// stats variant's partials per channel): dwconv_band_kernel where both map
+// axes are at most 64, else dwconv_band_slice_kernel.
 cudaError_t launch_band(const void* x, const float* w, void* out,
                         long long N, int C, int H, int W, int kh, int kw,
                         int accumulate, float* part, int* bpc_out,
@@ -1081,6 +1514,16 @@ cudaError_t launch_band(const void* x, const float* w, void* out,
   int MT, bpc;
   bool PAIR;
   size_t smem;
+  if (H > kBandMax || W > kBandMax) {
+    SliceGeom sg;
+    if (!slice_geom(N, C, H, W, kh, kw, x, out, &sg, &PAIR, &bpc, &smem))
+      return cudaErrorInvalidValue;
+    *bpc_out = bpc;
+    return PAIR ? launch_slice_t<true>(sg, bpc, smem, x, w, out, accumulate,
+                                       part, stream)
+                : launch_slice_t<false>(sg, bpc, smem, x, w, out, accumulate,
+                                        part, stream);
+  }
   if (!band_geom(N, C, H, W, kh, kw, x, out, &g, &MT, &PAIR, &bpc, &smem))
     return cudaErrorInvalidValue;
   *bpc_out = bpc;
@@ -1113,6 +1556,7 @@ cudaError_t launch_band_probe_t(const BandGeom& g, int bpc, size_t smem,
 cudaError_t launch_band_probe(const void* x, const float* w, void* out,
                               long long N, int C, int H, int W, int kh,
                               int kw, int ntaps, cudaStream_t stream) {
+  if (H > kBandMax || W > kBandMax) return cudaErrorInvalidValue;
   if (ntaps == kShort) {
     int bpc;
     return launch_band(x, w, out, N, C, H, W, kh, kw, 0, nullptr, &bpc,
@@ -1166,8 +1610,8 @@ extern "C" int slak_dwconv(int dtype, const void* x, const float* w,
 // The probe: out = conv(x, w) with only the first ntaps (0 .. 5) of the 5
 // tap columns of (K, 5) taps, 0 = copy the W-padded input (see the header).
 // dtype, x, w, out as slak_dwconv; kw must be 5 and kh another odd size.
-// bf16 runs the band route and returns cudaErrorInvalidValue for maps
-// above 64; fp32 runs the tiled kernel.
+// bf16 runs the whole-image band kernel and returns cudaErrorInvalidValue
+// for maps above 64; fp32 runs the tiled kernel.
 extern "C" int slak_dwconv_probe(int dtype, const void* x, const float* w,
                                  void* out, long long N, int C, int H, int W,
                                  int kh, int kw, int ntaps, void* stream) {
@@ -1205,13 +1649,17 @@ extern "C" long long slak_dwconv_stats_scratch(int band, long long N, int C,
                                                int kw) {
   if (band) {
     BandGeom g;
+    SliceGeom sg;
     int MT, bpc;
     bool PAIR;
     size_t smem;
-    if (!band_geom(N, C, H, W, kh, kw, nullptr, nullptr, &g, &MT, &PAIR,
-                   &bpc, &smem))
-      return -1;
-    return 2LL * C * bpc;
+    const bool ok =
+        H > kBandMax || W > kBandMax
+            ? slice_geom(N, C, H, W, kh, kw, nullptr, nullptr, &sg, &PAIR,
+                         &bpc, &smem)
+            : band_geom(N, C, H, W, kh, kw, nullptr, nullptr, &g, &MT,
+                        &PAIR, &bpc, &smem);
+    return ok ? 2LL * C * bpc : -1;
   }
   Geom g;
   size_t smem;
@@ -1245,8 +1693,10 @@ extern "C" int slak_dwconv_stats(int dtype, const void* x, const float* w,
 }
 
 // The band route (bf16 only): out = conv(x, w) (+ out with accumulate), as
-// slak_dwconv, for taps (K, 5) or (5, K) with both map axes at most 64.
-// Returns cudaErrorInvalidValue for shapes it does not take.
+// slak_dwconv, for taps (K, 5) or (5, K): both map axes at most 64 on
+// dwconv_band_kernel, larger maps (K <= 65, the long axis at most 512) on
+// dwconv_band_slice_kernel. Returns cudaErrorInvalidValue for shapes it
+// does not take.
 extern "C" int slak_dwconv_band(const void* x, const float* w, void* out,
                                 long long N, int C, int H, int W, int kh,
                                 int kw, int accumulate, void* stream) {
@@ -1269,4 +1719,35 @@ extern "C" int slak_dwconv_band_stats(const void* x, const float* w,
   if (e != cudaSuccess) return (int)e;
   dwconv_stats_reduce<<<C, kThreads, 0, s>>>(part, s1, s2, bpc, C, 1);
   return (int)cudaGetLastError();
+}
+
+// The band route's geometry as its host code computes it, for checks
+// against ops/dwconv.py band_geometry: v[0..10] = (slice, MT, NTI, NS,
+// NMB, MBR, NG, DL, CPB, blocks a channel, shared bytes); slice = 0 (the
+// whole-image kernel) gives MT, NTI, NB (in v[3]), CPB, blocks a channel
+// and shared bytes, the rest 0. Returns 0, or cudaErrorInvalidValue for
+// shapes the route does not take.
+extern "C" int slak_dwconv_band_geom(long long N, int C, int H, int W,
+                                     int kh, int kw, long long* v) {
+  int bpc, MT;
+  bool PAIR;
+  size_t smem;
+  for (int i = 0; i < 11; ++i) v[i] = 0;
+  if (H > kBandMax || W > kBandMax) {
+    SliceGeom g;
+    if (!slice_geom(N, C, H, W, kh, kw, nullptr, nullptr, &g, &PAIR, &bpc,
+                    &smem))
+      return (int)cudaErrorInvalidValue;
+    const long long r[11] = {1, g.MT, g.NTI, g.NS, g.NMB, g.MBR, g.NG,
+                             g.DL, g.CPB, bpc, (long long)smem};
+    for (int i = 0; i < 11; ++i) v[i] = r[i];
+    return 0;
+  }
+  BandGeom g;
+  if (!band_geom(N, C, H, W, kh, kw, nullptr, nullptr, &g, &MT, &PAIR, &bpc,
+                 &smem))
+    return (int)cudaErrorInvalidValue;
+  v[1] = MT; v[2] = g.NTI; v[3] = g.NB; v[8] = g.CPB; v[9] = bpc;
+  v[10] = (long long)smem;
+  return 0;
 }

@@ -66,7 +66,13 @@
 // around them that lie on the map); each thread still visits its output
 // rows in increasing order, so the sums, and their bits, are those of
 // the whole-plane staging.
-// wgrad_kernel (any other odd taps): a thread a tap and a row group.
+// wgrad_kernel (any other odd taps, e.g. a merged K x K): a thread a tap
+// and a row group. It stages row tiles the same way: a plane whose two
+// fp32 copies exceed the shared memory (51x51 taps above about 155^2, 7x7
+// above about 159^2) is staged in tiles of a.rows output rows with the
+// kh - 1 input rows around them that lie on the map, each thread visiting
+// its rows in increasing order, so the sums are those of the whole plane;
+// a plane that fits is one tile.
 //
 // The reduction over the batch is deterministic: each block reduces its
 // row groups in a fixed order in shared memory and writes one partial
@@ -214,7 +220,8 @@ wgrad_tiled_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 }
 
 // Any odd taps: thread u owns tap u % ntaps and the output rows u / ntaps,
-// + P, ...; shared: xs [H][W], ds [H][W], red [P * ntaps].
+// + P, ...; R = a.rows output rows a tile; shared: xs [min(H, R + kh -
+// 1)][W], ds [R][W], red [P * ntaps].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
@@ -223,9 +230,10 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int H = a.H, W = a.W, kh = a.kh, kw = a.kw;
   const int ntaps = kh * kw;
   const int P = ntaps >= kThreads ? 1 : kThreads / ntaps;
+  const int R = a.rows, ph = kh / 2;
   float* xs = smem;
-  float* ds = xs + H * W;
-  float* red = ds + H * W;
+  float* ds = xs + min(H, R + kh - 1) * W;
+  float* red = ds + R * W;
   const int c = blockIdx.x, chunk = blockIdx.y;
   const long long n0 = (long long)chunk * a.per_chunk;
   const long long n1 = min(a.N, n0 + a.per_chunk);
@@ -235,26 +243,45 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   for (long long n = n0; n < n1; ++n) {
     const T* xp = x + (n * a.C + c) * plane;
     const T* dp = dy + (n * a.C + c) * plane;
-    __syncthreads();
-    for (int i = threadIdx.x; i < H * W; i += kThreads) {
-      xs[i] = to_f<T>(xp[i]);
-      ds[i] = to_f<T>(dp[i]);
+   for (int r0 = 0; r0 < H; r0 += R) {
+    // output rows [r0, r1) and the input rows [x0, x1) they read
+    const int r1 = min(H, r0 + R);
+    const int x0 = max(0, r0 - ph), x1 = min(H, r1 + ph);
+    __syncthreads();                    // the previous tile is consumed
+    if (R >= H) {                       // the whole plane
+      for (int i = threadIdx.x; i < H * W; i += kThreads) {
+        xs[i] = to_f<T>(xp[i]);
+        ds[i] = to_f<T>(dp[i]);
+      }
+    } else {
+      const T* xt = xp + (long long)x0 * W;
+      const T* dt = dp + (long long)r0 * W;
+      for (int i = threadIdx.x; i < (x1 - x0) * W; i += kThreads)
+        xs[i] = to_f<T>(xt[i]);
+      for (int i = threadIdx.x; i < (r1 - r0) * W; i += kThreads)
+        ds[i] = to_f<T>(dt[i]);
     }
     __syncthreads();
     for (int v = threadIdx.x; v < P * ntaps; v += kThreads) {
       const int tap = v % ntaps, grp = v / ntaps;
       const int ti = tap / kw, tj = tap - ti * kw;
       float s = red[v];
-      for (int h = grp; h < H; h += P) {
-        const int r = h + ti - kh / 2;
+      // this thread's first row of the tile: grp, grp + P, ... as before
+      int h = grp;
+      if (h < r0) h += (r0 - h + P - 1) / P * P;
+      for (; h < r1; h += P) {
+        const int r = h + ti - ph;
         if (r < 0 || r >= H) continue;
+        const float* dr = ds + (h - r0) * W;
+        const float* xr = xs + (r - x0) * W;
         for (int w = 0; w < W; ++w) {
           const int cc = w + tj - kw / 2;
-          if (cc >= 0 && cc < W) s = fmaf(ds[h * W + w], xs[r * W + cc], s);
+          if (cc >= 0 && cc < W) s = fmaf(dr[w], xr[cc], s);
         }
       }
       red[v] = s;
     }
+   }
   }
   __syncthreads();
   float* dst = part + ((long long)chunk * a.C + c) * ntaps;
@@ -282,34 +309,42 @@ int variant_of(int kh, int kw) {
   return 0;
 }
 
-// wgrad_tiled_kernel's shared memory for tiles of `rows` output rows
-size_t tiled_smem(int HA, int HB, int K, int rows) {
+// The shared memory of a launch whose tiles hold `rows` output rows:
+// wgrad_tiled_kernel's (variant 1, 2) or wgrad_kernel's (variant 0)
+size_t tile_smem(int variant, int H, int W, int kh, int kw, int rows) {
+  if (variant == 0) {
+    const int ntaps = kh * kw;
+    const int P = ntaps >= kThreads ? 1 : kThreads / ntaps;
+    const int XR = H < rows + kh - 1 ? H : rows + kh - 1;
+    return sizeof(float) * ((size_t)XR * W + (size_t)rows * W +
+                            (size_t)P * ntaps);
+  }
+  const bool long_h = variant == 1;
+  const int K = long_h ? kh : kw;
+  const int HA = long_h ? H : W, HB = long_h ? W : H;
   const int XP = (HB + kShort - 1) | 1;
   const int XR = HA < rows + K - 1 ? HA : rows + K - 1;
   return sizeof(float) * ((size_t)XR * XP + (size_t)rows * HB +
                           (size_t)(kThreads / K) * K * kShort);
 }
 
-// The shared memory of a launch; for wgrad_tiled_kernel also the rows a
-// tile (the whole long axis where both planes fit, else the most that
-// fit; 0 where not one row does)
+// The shared memory of a launch and the output rows a tile: the whole
+// extent along the rows the tiles cut (H, or W for (5, K)) where both
+// planes fit, else the most that fit; rows = 0 and kSmemMax + 1 where not
+// one row does
 size_t smem_bytes(int variant, int H, int W, int kh, int kw, int* rows) {
   *rows = 0;
-  if (variant == 0) {
-    const int ntaps = kh * kw;
-    const int P = ntaps >= kThreads ? 1 : kThreads / ntaps;
-    return sizeof(float) * (2 * (size_t)H * W + (size_t)P * ntaps);
-  }
-  const bool long_h = variant == 1;
-  const int K = long_h ? kh : kw;
-  const int HA = long_h ? H : W, HB = long_h ? W : H;
+  const int HA = variant == 2 ? W : H;
+  const auto bytes = [&](int r) {
+    return tile_smem(variant, H, W, kh, kw, r);
+  };
   int r = HA;
-  while (r > 1 && tiled_smem(HA, HB, K, r) > kSmemMax) r = (r + 1) / 2;
-  if (tiled_smem(HA, HB, K, r) > kSmemMax) return kSmemMax + 1;
+  while (r > 1 && bytes(r) > kSmemMax) r = (r + 1) / 2;
+  if (bytes(r) > kSmemMax) return kSmemMax + 1;
   // the largest tile that fits, once halving found one
-  while (r < HA && tiled_smem(HA, HB, K, r + 1) <= kSmemMax) ++r;
+  while (r < HA && bytes(r + 1) <= kSmemMax) ++r;
   *rows = r;
-  return tiled_smem(HA, HB, K, r);
+  return bytes(r);
 }
 
 template <typename K>
@@ -863,6 +898,17 @@ extern "C" int slak_dwconv_wgrad(int dtype, const void* x, const void* dy,
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(x, dy, part, dw, a, n_chunks, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tiled route's tile plan: the output rows a staged tile holds (along
+// H, or W for (5, K) taps; the whole extent where both fp32 planes fit)
+// and *smem its shared memory; 0 where not one row fits, and the launch is
+// refused with cudaErrorInvalidConfiguration.
+extern "C" int slak_dwconv_wgrad_tile_rows(int H, int W, int kh, int kw,
+                                           long long* smem) {
+  int rows;
+  *smem = (long long)smem_bytes(variant_of(kh, kw), H, W, kh, kw, &rows);
+  return rows;
 }
 
 // The float32 scratch the band route needs for these shapes: one partial

@@ -39,12 +39,16 @@ to ``out`` in place -- the second branch of the decomposed pair adds into
 the first one's output.
 
 Two kernels serve K1/K4 on the card, chosen by dtype and shape
-(:func:`band_route`): bf16 maps with (K, 5) or (5, K) taps and both axes
-at most ``BAND_MAX`` take the band kernel (``slak_dwconv_band``,
-per-channel banded products on the tensor cores, counted in
-``band_launch_count`` / ``band_stats_launch_count`` besides
-``launch_count`` / ``stats_launch_count``); everything else (fp32, larger
-maps, other taps) takes the tiled kernel. fp32 K1 with (K, 5) or (5, K)
+(:func:`band_route`): bf16 maps with (K, 5) or (5, K) taps take the band
+route (``slak_dwconv_band``, per-channel banded products on the tensor
+cores, counted in ``band_launch_count`` / ``band_stats_launch_count``
+besides ``launch_count`` / ``stats_launch_count``): whole images on
+``dwconv_band_kernel`` where both axes are at most ``BAND_WHOLE_MAX``
+(SLaK-T's stages at 224^2), F-slices of an image on
+``dwconv_band_slice_kernel`` above (K <= ``BAND_K_MAX``, the long tap
+axis at most ``BAND_MAX``: the seg crop's 128^2 stage 1, any input above
+256^2); everything else (fp32 K4, square taps, longer taps or axes)
+takes the tiled kernel. fp32 K1 with (K, 5) or (5, K)
 taps at any map size (:func:`band_f32_route`) takes the 3xTF32 band
 kernel of ``csrc/dwconv_f32.cu`` (``slak_dwconv_band_f32``, counted in
 ``tf32_launch_count`` besides ``launch_count``); fp32 K4 stays on the
@@ -57,9 +61,10 @@ channel with the batch on the tensor cores' rows, counted in
 :func:`launch_stats` launch one named route (the probes hold them against
 each other).
 :func:`dwconv_band_mirror` and :func:`dwconv_band_stats_mirror` repeat the
-band kernel's decomposition in plain PyTorch: the Toeplitz band tiles, the
-staged operand with its zero halo rows, the shifted rows, the padded
-tiles, and the K4 partial sums in the kernel's order;
+band route's decomposition in plain PyTorch: the Toeplitz band tiles, the
+staged operand with its halo rows, the shifted rows, the padded tiles
+(above 64: the F-slices, the m-bands and the live diagonals), and the K4
+partial sums in the kernel's order;
 :func:`dwconv_band_f32_mirror` repeats the fp32 kernel's (the TF32 split
 of both operands, the live diagonals, the row tiles with their halo, the
 three products, the scatter back).
@@ -85,7 +90,12 @@ tf32_launch_count = 0          # fp32 K1 launches on the 3xTF32 band route
 toeplitz_launch_count = 0      # K1 launches on K6's kernel (also above)
 toeplitz_stats_launch_count = 0    # K4 launches on K6's kernel (also above)
 
-BAND_MAX = 64                  # the band kernel's map axes: 4 tiles of 16
+BAND_WHOLE_MAX = 64            # dwconv_band_kernel: both map axes, whole
+                               # images in 4 tiles of 16
+BAND_MAX = 512                 # dwconv_band_slice_kernel: the long tap
+                               # axis (F-slices along the other, any size)
+BAND_K_MAX = 65                # the slice kernel's taps: 2 live diagonals
+                               # each side
 F32_ND_MAX = 9                 # the fp32 band kernel's live diagonals
 P_MAX = 64                     # K6's kernel: H * W, 8 n-tiles of pixels
 
@@ -137,11 +147,21 @@ _THREADS, _WARPS = 256, 8          # the band kernel's block
 
 def band_geometry(N: int, C: int, H: int, W: int, kh: int, kw: int
                   ) -> dict:
-    """The band kernel's launch geometry (``band_geom`` in csrc/dwconv.cu):
-    long_h ((K, 5) taps), the long-tap axis L and the other axis F, MT
-    m-tiles of 16 along L, NTI n-tiles of 8 an image, RPI staged rows an
-    image, WN n-tiles a warp tile, BPI 8 x 8 blocks a plane, NB images a
-    chunk, CPB chunks a block, bpc blocks a channel."""
+    """The band route's launch geometry (``band_geom`` / ``slice_geom`` in
+    csrc/dwconv.cu): long_h ((K, 5) taps), the long-tap axis L and the
+    other axis F, MT m-tiles of 16 along L, bpc blocks a channel, CPB
+    chunks a block, and ``slice``: False where both map axes are at most
+    BAND_WHOLE_MAX (:func:`_whole_geometry`), else True
+    (:func:`_slice_geometry`)."""
+    if max(H, W) <= BAND_WHOLE_MAX:
+        return _whole_geometry(N, C, H, W, kh, kw)
+    return _slice_geometry(N, C, H, W, kh, kw)
+
+
+def _whole_geometry(N, C, H, W, kh, kw) -> dict:
+    """``dwconv_band_kernel``'s geometry: NTI n-tiles of 8 an image, RPI
+    staged rows an image, WN n-tiles a warp tile, BPI 8 x 8 blocks a
+    plane, NB whole images a chunk."""
     long_h = kw == 5
     K, L, F = (kh, H, W) if long_h else (kw, W, H)
     mt, nti = -(-L // 16), -(-F // 8)
@@ -151,8 +171,42 @@ def band_geometry(N: int, C: int, H: int, W: int, kh: int, kw: int
     chunks = -(-N // nb)
     per = min(-(-1024 // C), chunks)
     cpb = -(-chunks // per)
-    return dict(long_h=long_h, K=K, L=L, F=F, MT=mt, NTI=nti, RPI=8 * nti + 4,
-                WN=wn, BPI=bpi, NB=nb, CPB=cpb, bpc=-(-chunks // cpb))
+    return dict(slice=False, long_h=long_h, K=K, L=L, F=F, MT=mt, NTI=nti,
+                RPI=8 * nti + 4, WN=wn, BPI=bpi, NB=nb, CPB=cpb,
+                bpc=-(-chunks // cpb),
+                smem=5 * (2 * mt - 1) * 768
+                + 2 * -(-nb * (8 * nti + 4) * (16 * mt + 8) * 2 // 16) * 16)
+
+
+_SLICE_PRE = 16                  # 8 x 8 blocks a lane stages (kSlicePre)
+
+
+def _slice_geometry(N, C, H, W, kh, kw) -> dict:
+    """``dwconv_band_slice_kernel``'s geometry: F cut into NS slices of FS
+    = 8 NTI rows (as few as the lanes' staging registers allow, FS / 8
+    times the LB 8 x 8 blocks along L at most 128, of equal size to 8), a
+    chunk one slice of one image staged as its FS rows between the 2 rows
+    of F on each side (RPI = FS + 4, zero off the map); L in NMB m-bands of
+    MBR <= 4 m-tiles; NG groups of WN = 2 n-tiles of the slice; a warp's
+    unit one (m-band, n-tile group); DL live diagonals of 16 x 16 band
+    tiles on each side of the main one; about 512 blocks a launch
+    (channels times runs of CPB chunks)."""
+    long_h = kw == 5
+    K, L, F = (kh, H, W) if long_h else (kw, W, H)
+    mt, lb = -(-L // 16), -(-L // 8)
+    nmb = -(-mt // 4)
+    ftiles = -(-F // 8)
+    ns = -(-ftiles // (_SLICE_PRE * _WARPS // lb))
+    nti = -(-ftiles // ns)
+    chunks = N * ns
+    per = min(-(-512 // C), chunks)
+    cpb = -(-chunks // per)
+    p = 16 * mt + 8
+    return dict(slice=True, long_h=long_h, K=K, L=L, F=F, MT=mt, LB=lb,
+                NS=ns, NTI=nti, FS=8 * nti, RPI=8 * nti + 4, P=p, NMB=nmb,
+                MBR=-(-mt // nmb), WN=2, NG=-(-nti // 2),
+                DL=(K // 2 + 15) // 16, CPB=cpb, bpc=-(-chunks // cpb),
+                smem=5 * 5 * 768 + 2 * -(-(8 * nti + 4) * p * 2 // 16) * 16)
 
 
 def band_tiles(w: torch.Tensor, long_h: bool, mt: int) -> torch.Tensor:
@@ -213,31 +267,70 @@ def band_acc(xs: torch.Tensor, D: torch.Tensor, g: dict) -> torch.Tensor:
     return os.reshape(C, N, L, F).transpose(0, 1)
 
 
+def band_slice_acc(xs: torch.Tensor, D: torch.Tensor, g: dict
+                   ) -> torch.Tensor:
+    """The fp32 output tiles as the slice kernel forms them: xs (N, C, F,
+    L) as :func:`band_acc` takes it, D the live band tiles
+    (:func:`band_tiles` at MT = DL + 1: diagonals -DL .. DL); returns (N,
+    C, L, F). Slice by slice: the staged rows f0 - 2 .. f0 + FS + 1 (zero
+    off the map), L padded to 16 MT; m-band by m-band, each m-tile's
+    accumulator summing, tap j by tap, the live diagonals' products
+    D_j[d] x (the rows shifted by j, k-tile m-tile + d), d from -DL."""
+    N, C, F, L = xs.shape
+    mt_n, fs, dl = g["MT"], g["FS"], g["DL"]
+    xp = torch.zeros(N, C, g["NS"] * fs + 4, 16 * mt_n, device=xs.device)
+    xp[:, :, 2:2 + F, :L] = xs.float()
+    out = torch.zeros(N, C, 16 * mt_n, g["NS"] * fs, device=xs.device)
+    for sl in range(g["NS"]):
+        f0 = sl * fs
+        staged = xp[:, :, f0:f0 + fs + 4]
+        for mb in range(g["NMB"]):
+            m0 = mb * g["MBR"]
+            for mt in range(m0, min(m0 + g["MBR"], mt_n)):
+                acc = torch.zeros(N, C, 16, fs, device=xs.device)
+                for j in range(5):
+                    for d in range(-dl, dl + 1):
+                        kt = mt + d
+                        if 0 <= kt < mt_n:
+                            acc += torch.einsum(
+                                "crk,ncfk->ncrf", D[:, j, d + dl],
+                                staged[:, :, j:j + fs, 16 * kt:16 * kt + 16])
+                out[:, :, 16 * mt:16 * mt + 16, f0:f0 + fs] = acc
+    return out[:, :, :L, :F]
+
+
 def _band_tile_products(x, w, g):
-    """The fp32 output tile of every image (N, C, H*W) as the band kernel
-    forms it (:func:`band_acc`): (K, 5) stages x transposed and its tiles
-    are out[h][w], (5, K) stages x as it lies and its tiles are out
-    transposed."""
+    """The fp32 output tile of every image (N, C, H*W) as the band route
+    forms it (:func:`band_acc`, :func:`band_slice_acc` on the slice
+    geometry): (K, 5) stages x transposed and its tiles are out[h][w],
+    (5, K) stages x as it lies and its tiles are out transposed."""
     N, C, H, W = x.shape
-    D = band_tiles(w.to(x.device), g["long_h"], g["MT"])
+    if g["slice"]:
+        D = band_tiles(w.to(x.device), g["long_h"], g["DL"] + 1)
+        acc = functools.partial(band_slice_acc, D=D, g=g)
+    else:
+        D = band_tiles(w.to(x.device), g["long_h"], g["MT"])
+        acc = functools.partial(band_acc, D=D, g=g)
     if g["long_h"]:
-        return band_acc(x.transpose(2, 3), D, g).reshape(N, C, H * W)
-    return band_acc(x, D, g).transpose(2, 3).reshape(N, C, H * W)
+        return acc(x.transpose(2, 3)).reshape(N, C, H * W)
+    return acc(x).transpose(2, 3).reshape(N, C, H * W)
 
 
 def dwconv_band_mirror(x: torch.Tensor, w: torch.Tensor,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The band kernel's decomposition in plain PyTorch (any dtype, any
+    """The band route's decomposition in plain PyTorch (any dtype, any
     device): the same function as :func:`dwconv_plain` for taps (K, 5) or
-    (5, K) already rounded to bf16, both map axes at most BAND_MAX; fp32
-    sums, one rounding to x.dtype (after the add into ``out``)."""
+    (5, K) already rounded to bf16 on the shapes :func:`band_takes`
+    accepts (whole images up to BAND_WHOLE_MAX a side, F-slices above);
+    fp32 sums, one rounding to x.dtype (after the add into ``out``)."""
     _check(x, w, out)
     N, C, H, W = x.shape
     kh, kw = w.shape[1], w.shape[2]
-    if (kh == 5) == (kw == 5) or max(H, W) > BAND_MAX:
-        raise ValueError(f"the band kernel takes (K, 5) or (5, K) taps on "
-                         f"maps up to {BAND_MAX}, not {(kh, kw)} on "
-                         f"{(H, W)}")
+    if not band_takes(H, W, kh, kw):
+        raise ValueError(f"the band route takes (K, 5) or (5, K) taps on "
+                         f"maps up to {BAND_WHOLE_MAX} a side, or K <= "
+                         f"{BAND_K_MAX} with the long axis up to "
+                         f"{BAND_MAX}; not {(kh, kw)} on {(H, W)}")
     os = _band_tile_products(x, w, band_geometry(N, C, H, W, kh, kw))
     y = os.reshape(x.shape)
     if out is None:
@@ -261,46 +354,103 @@ def _block_sum(v: torch.Tensor) -> torch.Tensor:
 
 
 def _band_store_order(g: dict, N: int, H: int, W: int) -> torch.Tensor:
-    """The order of the band kernel's stores: (bpc, 256, S), for block grp
+    """The order of the band route's stores: (bpc, 256, S), for block grp
     of a channel and thread t the flat index n * H * W + h * W + w of its
-    s-th stored value, -1 for none. A thread (warp, lane) stores chunk by
-    chunk its warp tiles wt = warp, warp + 8, .., each n-tile nn, m-tile
-    mt, half hf of the fragment, then the pair's two values: (K, 5) at
-    (h, w) = (16 mt + 8 hf + lane / 4, 8 f + 2 (lane % 4) + e), (5, K)
+    s-th stored value, -1 for none (:func:`_band_store_blocks`, padded)."""
+    blocks = list(_band_store_blocks(g, N, H, W))
+    S = max(b.shape[1] for b in blocks)
+    return torch.stack([torch.nn.functional.pad(b, (0, S - b.shape[1]),
+                                                value=-1) for b in blocks])
+
+
+def _band_store_blocks(g: dict, N: int, H: int, W: int):
+    """Each block's store order in turn, (256, S_b): the whole-image
+    kernel's (:func:`_whole_store_block`; also K10's band kernel, whose
+    geometry has no ``slice``) or the slice kernel's
+    (:func:`_slice_store_block`)."""
+    fn = _slice_store_block if g.get("slice") else _whole_store_block
+    for grp in range(g["bpc"]):
+        yield fn(g, N, H, W, grp)
+
+
+def _whole_store_block(g: dict, N: int, H: int, W: int, grp: int
+                       ) -> torch.Tensor:
+    """Block grp of ``dwconv_band_kernel``: a thread (warp, lane) stores
+    chunk by chunk its warp tiles wt = warp, warp + 8, .., each n-tile nn,
+    m-tile mt, half hf of the fragment, then the pair's two values: (K, 5)
+    at (h, w) = (16 mt + 8 hf + lane / 4, 8 f + 2 (lane % 4) + e), (5, K)
     transposed, at (8 f + lane / 4, 16 mt + 8 hf + 2 (lane % 4) + e)."""
     nb, cpb, nti, wn, mt = g["NB"], g["CPB"], g["NTI"], g["WN"], g["MT"]
     lane = torch.arange(32)
     gid, tig = (lane // 4)[None], (lane % 4)[None]          # (1, 32)
     warp = torch.arange(_WARPS)[:, None]                    # (8, 1)
-    blocks = []
-    for grp in range(g["bpc"]):
-        n_end = min(N, (grp + 1) * cpb * nb)
-        slots = []
-        for n in range(grp * cpb * nb, n_end, nb):
-            T = min(nb, n_end - n) * nti
-            wt_max = -(-T // wn)
-            for k in range(-(-wt_max // _WARPS)):
-                wt = warp + k * _WARPS
-                for nn in range(wn):
-                    nt = wt * wn + nn                       # (8, 1)
-                    img, f0 = nt // nti, (nt % nti) * 8
-                    ok_t = (wt < wt_max) & (nt < T)
-                    for m in range(mt):
-                        for hf in range(2):
-                            for e in range(2):
-                                if g["long_h"]:
-                                    r = 16 * m + 8 * hf + gid
-                                    cc = f0 + 2 * tig + e
-                                else:
-                                    r = f0 + gid
-                                    cc = 16 * m + 8 * hf + 2 * tig + e
-                                ok = ok_t & (r < H) & (cc < W)
-                                flat = (n + img) * H * W + r * W + cc
-                                slots.append(torch.where(ok, flat, -1))
-        blocks.append(torch.stack(slots, -1).reshape(_THREADS, -1))
-    S = max(b.shape[1] for b in blocks)
-    return torch.stack([torch.nn.functional.pad(b, (0, S - b.shape[1]),
-                                                value=-1) for b in blocks])
+    n_end = min(N, (grp + 1) * cpb * nb)
+    slots = []
+    for n in range(grp * cpb * nb, n_end, nb):
+        T = min(nb, n_end - n) * nti
+        wt_max = -(-T // wn)
+        for k in range(-(-wt_max // _WARPS)):
+            wt = warp + k * _WARPS
+            for nn in range(wn):
+                nt = wt * wn + nn                           # (8, 1)
+                img, f0 = nt // nti, (nt % nti) * 8
+                ok_t = (wt < wt_max) & (nt < T)
+                for m in range(mt):
+                    for hf in range(2):
+                        for e in range(2):
+                            if g["long_h"]:
+                                r = 16 * m + 8 * hf + gid
+                                cc = f0 + 2 * tig + e
+                            else:
+                                r = f0 + gid
+                                cc = 16 * m + 8 * hf + 2 * tig + e
+                            ok = ok_t & (r < H) & (cc < W)
+                            flat = (n + img) * H * W + r * W + cc
+                            slots.append(torch.where(ok, flat, -1))
+    return torch.stack(slots, -1).reshape(_THREADS, -1)
+
+
+def _slice_store_block(g: dict, N: int, H: int, W: int, grp: int
+                       ) -> torch.Tensor:
+    """Block grp of ``dwconv_band_slice_kernel``: a thread (warp, lane)
+    stores chunk by chunk (chunk q: image q / NS, rows f0 = FS (q % NS) ..
+    of F) its units wt = warp, warp + 8, .. (m-band wt % NMB, n-tile group
+    wt / NMB), each of the group's two n-tiles nn (8 rows of F from f =
+    f0 + 8 (2 (wt / NMB) + nn)), the band's m-tiles, the fragment's halves
+    hf, then the pair's two values: (K, 5) at (h, w) = (16 mt + 8 hf +
+    lane / 4, f + 2 (lane % 4) + e), (5, K) at (f + lane / 4, 16 mt + 8 hf
+    + 2 (lane % 4) + e)."""
+    q0 = grp * g["CPB"]
+    q = torch.arange(q0, min(N * g["NS"], q0 + g["CPB"]))
+    n, f0 = q // g["NS"], (q % g["NS"]) * g["FS"]
+    units, mbr = g["NMB"] * g["NG"], g["MBR"]
+    rounds = -(-units // _WARPS)
+    # dims: (chunk, round, nn, i, hf, e, warp, lane)
+    sh = (-1, 1, 1, 1, 1, 1, 1, 1)
+    n, f0 = n.reshape(sh), f0.reshape(sh)
+    wt = (torch.arange(rounds).reshape(1, -1, 1, 1, 1, 1, 1, 1) * _WARPS
+          + torch.arange(_WARPS).reshape(1, 1, 1, 1, 1, 1, -1, 1))
+    nn = torch.arange(2).reshape(1, 1, -1, 1, 1, 1, 1, 1)
+    i = torch.arange(4).reshape(1, 1, 1, -1, 1, 1, 1, 1)
+    hf = torch.arange(2).reshape(1, 1, 1, 1, -1, 1, 1, 1)
+    e = torch.arange(2).reshape(1, 1, 1, 1, 1, -1, 1, 1)
+    lane = torch.arange(32).reshape(1, 1, 1, 1, 1, 1, 1, -1)
+    gid, tig = lane // 4, lane % 4
+    mb, ng = wt % g["NMB"], wt // g["NMB"]
+    m0 = mb * mbr
+    ntl = ng * 2 + nn
+    mt = m0 + i
+    f = f0 + 8 * ntl
+    ok = ((wt < units) & (ntl < g["NTI"]) & (i < torch.clamp(
+        g["MT"] - m0, max=mbr)))
+    if g["long_h"]:
+        r, cc = 16 * mt + 8 * hf + gid, f + 2 * tig + e
+    else:
+        r, cc = f + gid, 16 * mt + 8 * hf + 2 * tig + e
+    ok = ok & (r < H) & (cc < W)
+    flat = torch.where(ok, n * (H * W) + r * W + cc, -1)
+    # -> (warp, lane, chunk, round, nn, i, hf, e)
+    return flat.permute(6, 7, 0, 1, 2, 3, 4, 5).reshape(_THREADS, -1)
 
 
 def band_stats_sums(y: torch.Tensor, kh: int, kw: int):
@@ -553,12 +703,24 @@ def toeplitz2d_route(x: torch.Tensor, w: torch.Tensor) -> bool:
             and x.shape[2] * x.shape[3] <= P_MAX)
 
 
+def band_takes(H: int, W: int, kh: int, kw: int) -> bool:
+    """The shapes the band route takes: taps (K, 5) or (5, K) with K != 5
+    on maps with both axes at most BAND_WHOLE_MAX (``dwconv_band_kernel``)
+    or, above, with K <= BAND_K_MAX and the long tap axis at most BAND_MAX
+    (``dwconv_band_slice_kernel``, F any size)."""
+    if (kh == 5) == (kw == 5):
+        return False
+    if max(H, W) <= BAND_WHOLE_MAX:
+        return True
+    K, L = (kh, H) if kw == 5 else (kw, W)
+    return K <= BAND_K_MAX and L <= BAND_MAX and H * W <= 1 << 30
+
+
 def band_route(x: torch.Tensor, w: torch.Tensor) -> bool:
-    """True where the CUDA wrappers launch the band kernel: bf16, taps
-    (K, 5) or (5, K) with K != 5, both map axes at most BAND_MAX."""
-    kh, kw = w.shape[1], w.shape[2]
-    return (x.dtype == torch.bfloat16 and (kh == 5) != (kw == 5)
-            and max(x.shape[2], x.shape[3]) <= BAND_MAX)
+    """True where the CUDA wrappers launch the band route: bf16 on the
+    shapes :func:`band_takes` accepts."""
+    return (x.dtype == torch.bfloat16
+            and band_takes(x.shape[2], x.shape[3], w.shape[1], w.shape[2]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -601,6 +763,35 @@ def _band_entries():
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     st.restype = ctypes.c_int
     return fn, st
+
+
+@functools.lru_cache(maxsize=None)
+def _band_geom_entry():
+    from slak_tpu_torch.ops._build import load
+    fn = load("dwconv").slak_dwconv_band_geom
+    fn.argtypes = ([ctypes.c_longlong] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def band_kernel_geometry(N: int, C: int, H: int, W: int, kh: int,
+                         kw: int) -> dict:
+    """The geometry the band route's host code computes (built on first
+    use), the keys of :func:`band_geometry` it reports: the whole-image
+    kernel's slice, MT, NTI, NB, CPB, bpc and smem, or the slice kernel's
+    slice, MT, NTI, NS, NMB, MBR, NG, DL, CPB, bpc and smem."""
+    v = (ctypes.c_longlong * 11)()
+    if _band_geom_entry()(N, C, H, W, kh, kw, v) != 0:
+        raise ValueError(f"the band route takes no {(N, C, H, W)} with "
+                         f"taps {(kh, kw)}")
+    if v[0]:
+        keys = ("slice", "MT", "NTI", "NS", "NMB", "MBR", "NG", "DL", "CPB",
+                "bpc", "smem")
+        return {k: (bool(n) if k == "slice" else int(n))
+                for k, n in zip(keys, v)}
+    return dict(slice=False, MT=v[1], NTI=v[2], NB=v[3], CPB=v[8], bpc=v[9],
+                smem=v[10])
 
 
 @functools.lru_cache(maxsize=None)
@@ -801,9 +992,10 @@ def probe_route(x: torch.Tensor, w: torch.Tensor, ntaps: int) -> str:
     _check_probe(x, w, ntaps)
     if x.dtype != torch.bfloat16:
         return "tiled"
-    if not band_route(x, w):
+    if not (band_route(x, w) and max(x.shape[2:]) <= BAND_WHOLE_MAX):
         raise ValueError(f"dwconv_probe: bf16 runs on the band kernel, maps "
-                         f"up to {BAND_MAX} a side, not {tuple(x.shape[2:])}")
+                         f"up to {BAND_WHOLE_MAX} a side, not "
+                         f"{tuple(x.shape[2:])}")
     return "band"
 
 
@@ -842,7 +1034,7 @@ def dwconv_probe(x: torch.Tensor, w: torch.Tensor,
                  ntaps: int) -> torch.Tensor:
     """K13: K1 on (K, 5) taps with only the first ``ntaps`` tap columns
     (0 = the padded-input copy). x: (N, C, H, W) float32 or bfloat16 (bf16
-    maps up to BAND_MAX a side)."""
+    maps up to BAND_WHOLE_MAX a side)."""
     if x.device.type == "cpu":
         return dwconv_probe_plain(x, w, ntaps)
     if x.device.type != "cuda":

@@ -17,7 +17,9 @@ at most ``BAND_MAX`` take the band kernel (``slak_dwconv_wgrad_band``,
 ``wgrad_band_kernel``: per-channel correlation matrices G_j over the long
 tap axis on the tensor cores, their diagonals folded into taps; counted in
 ``band_launch_count`` besides ``launch_count``); everything else (fp32,
-larger maps, other taps) takes the tiled kernel on the CUDA cores.
+larger maps, other taps) takes the tiled kernels on the CUDA cores, which
+stage a plane in row tiles where its two fp32 copies exceed their 200 KB
+of shared memory (:func:`tile_rows`, :func:`tile_plan`: the host's plan).
 :func:`launch` launches one named route (the probes hold the two against
 each other). :func:`wgrad_geometry` mirrors the band kernel's launch
 geometry and :func:`dwconv_wgrad_band_mirror` its decomposition in plain
@@ -75,6 +77,59 @@ def wgrad_route(x: torch.Tensor, kh: int, kw: int) -> bool:
     (K, 5) or (5, K) with K != 5, both map axes at most BAND_MAX."""
     return (x.dtype == torch.bfloat16 and (kh == 5) != (kw == 5)
             and max(x.shape[2], x.shape[3]) <= BAND_MAX)
+
+
+_SMEM_MAX = 200 * 1024           # the tiled kernels' shared memory (kSmemMax)
+
+
+def _tile_smem(H: int, W: int, kh: int, kw: int, rows: int) -> int:
+    """The tiled route's shared bytes for tiles of ``rows`` output rows
+    (``tile_smem`` in csrc/dwconv_wgrad.cu): (K, 5) / (5, K) taps on
+    ``wgrad_tiled_kernel`` (the x rows padded to an odd pitch, the dy rows,
+    the per-row-group sums), any other taps on ``wgrad_kernel`` (the x rows,
+    the dy rows, a sum per tap and row group)."""
+    if (kw == 5) != (kh == 5) and max(kh, kw) <= 256:
+        long_h = kw == 5
+        K, HA, HB = (kh, H, W) if long_h else (kw, W, H)
+        xr = min(HA, rows + K - 1)
+        return 4 * (xr * ((HB + 4) | 1) + rows * HB + (256 // K) * K * 5)
+    ntaps = kh * kw
+    p = 1 if ntaps >= 256 else 256 // ntaps
+    return 4 * (min(H, rows + kh - 1) * W + rows * W + p * ntaps)
+
+
+def _tiled_axis(H: int, W: int, kh: int, kw: int):
+    """(extent, taps) along the axis the tiles cut: W for (5, K) taps on
+    ``wgrad_tiled_kernel``, else H."""
+    return (W, kw) if (kh == 5 and kw != 5 and kw <= 256) else (H, kh)
+
+
+def tile_rows(H: int, W: int, kh: int, kw: int) -> int:
+    """The output rows a staged tile of the tiled route holds (``smem_bytes``
+    in csrc/dwconv_wgrad.cu): rows along H (along W for (5, K) taps), the
+    whole extent where both fp32 planes fit in 200 KB, else the most that
+    fit, found by halving and then counting up; 0 where not one row fits."""
+    ha = _tiled_axis(H, W, kh, kw)[0]
+    r = ha
+    while r > 1 and _tile_smem(H, W, kh, kw, r) > _SMEM_MAX:
+        r = (r + 1) // 2
+    if _tile_smem(H, W, kh, kw, r) > _SMEM_MAX:
+        return 0
+    while r < ha and _tile_smem(H, W, kh, kw, r + 1) <= _SMEM_MAX:
+        r += 1
+    return r
+
+
+def tile_plan(H: int, W: int, kh: int, kw: int) -> list:
+    """The tiles a tiled launch stages for one plane, in order: (first
+    output row, end, first input row, end) along the tiled axis, the input
+    rows those outputs read that lie on the map; [] where no row fits."""
+    rows = tile_rows(H, W, kh, kw)
+    if not rows:
+        return []
+    ha, K = _tiled_axis(H, W, kh, kw)
+    return [(r0, min(ha, r0 + rows), max(0, r0 - K // 2),
+             min(ha, r0 + rows + K // 2)) for r0 in range(0, ha, rows)]
 
 
 # --- the band kernel's decomposition in plain PyTorch -----------------------
@@ -219,6 +274,23 @@ def _band_entries():
     return scratch, fn
 
 
+@functools.lru_cache(maxsize=None)
+def _tile_rows_entry():
+    from slak_tpu_torch.ops._build import load
+    fn = load("dwconv_wgrad").slak_dwconv_wgrad_tile_rows
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_tile_rows(H: int, W: int, kh: int, kw: int):
+    """(rows a tile, shared bytes) as the tiled route's host code plans
+    them (built on first use); :func:`tile_rows` is its mirror."""
+    smem = ctypes.c_longlong()
+    rows = _tile_rows_entry()(H, W, kh, kw, ctypes.addressof(smem))
+    return rows, smem.value
+
+
 def _on_cuda(x: torch.Tensor):
     if x.device.type != "cuda":
         raise RuntimeError(f"dwconv_wgrad runs on cuda or cpu, not "
@@ -235,8 +307,13 @@ def launch(route: str, x: torch.Tensor, dy: torch.Tensor, kh: int,
     band = route == "band"
     if band and x.dtype != torch.bfloat16:
         raise TypeError(f"the band kernel takes bfloat16, not {x.dtype}")
-    _on_cuda(x)
     _check(x, dy, kh, kw)
+    H, W = x.shape[2:]
+    if not band and not tile_rows(H, W, kh, kw):
+        raise ValueError(f"dwconv_wgrad: not one row of a {(H, W)} plane "
+                         f"with taps {(kh, kw)} fits the tiled kernel's "
+                         f"{_SMEM_MAX} bytes of shared memory")
+    _on_cuda(x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"dwconv_wgrad takes float32 or bfloat16, not "
                         f"{x.dtype}")

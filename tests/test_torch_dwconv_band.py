@@ -29,9 +29,15 @@ TOL = 1e-5
 
 # (N, C, H, W, kh, kw): maps not a multiple of 16 (7, 12, 14, 13), taps
 # longer than the map, both orientations, batches 1 and 3, and a map with
-# two m-tiles
+# two m-tiles; then maps past 64 on the slice kernel: the long axis at 65
+# (the first past 64, two F-slices in (5, K)), a non-square (K, 5) map,
+# (5, K) with the long axis 130 (two slices of F = 70), F = 130 above 64
+# with L = 48 below it, and an odd W
 SHAPES = [(1, 3, 7, 7, 13, 5), (3, 2, 12, 12, 51, 5), (3, 2, 12, 12, 5, 51),
-          (1, 2, 14, 14, 5, 47), (3, 2, 14, 13, 47, 5), (1, 2, 28, 28, 49, 5)]
+          (1, 2, 14, 14, 5, 47), (3, 2, 14, 13, 47, 5), (1, 2, 28, 28, 49, 5),
+          (1, 2, 65, 65, 51, 5), (1, 2, 80, 72, 51, 5),
+          (2, 2, 70, 130, 5, 51), (1, 2, 130, 48, 5, 47),
+          (1, 2, 97, 131, 49, 5)]
 
 
 def _inputs(rng, N, C, H, W, kh, kw):
@@ -98,6 +104,34 @@ def test_band_mirror_matches_pallas_banded(rng, taps, stats):
                                    atol=TOL * want.abs().max().item())
 
 
+@pytest.mark.parametrize("shape,taps,stats", [
+    ((1, 2, 130, 96), (51, 5), True), ((2, 2, 72, 130), (5, 49), False)])
+def test_band_slice_mirror_matches_pallas_banded(rng, shape, taps, stats):
+    """The mirror on the slice kernel's geometry (maps past 64: F-slices
+    with their halo rows, m-bands, the live diagonals) against the Pallas
+    banded kernels (interpret): (K, 5) through the stats kernel (y and
+    both sums), (5, K) through the plain one on the transposed map."""
+    x, w = _inputs(rng, *shape, *taps)
+    assert K1.band_geometry(*shape, *taps)["slice"]
+    if not stats:
+        _close(K1.dwconv_band_mirror(x, w), _pallas(x, w, False))
+        return
+    for got, want in zip(K1.dwconv_band_stats_mirror(x, w),
+                         _pallas(x, w, True)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL,
+                                   atol=TOL * want.abs().max().item())
+
+
+def _stored_once(g, N, H, W):
+    """True when the band route's store order stores each output of the
+    (N, H, W) batch exactly once."""
+    count = torch.zeros(N * H * W, dtype=torch.int32)
+    for order in K1._band_store_blocks(g, N, H, W):
+        idx = order[order >= 0]
+        count.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return bool((count == 1).all())
+
+
 @pytest.mark.parametrize("N", [1, 3, 8, 64, 128, 256])
 def test_band_geometry_stores_every_output_once(N):
     """At the flagship's four stage shapes (both orientations) and the
@@ -115,11 +149,28 @@ def test_band_geometry_stores_every_output_once(N):
             got = order[order >= 0]
             assert got.numel() == N * H * H
             assert torch.equal(got.sort().values, torch.arange(N * H * H))
+    if N not in (1, 8, 128):
+        return
+    # the slice kernel: the seg path's stage 1 (128^2 at 512^2) and maps
+    # of 200^2 and 256^2 (inputs of 800^2 and 1024^2); a chunk's 8 x 8
+    # blocks fit the staging registers (16 a lane), every chunk (image,
+    # slice) lies in one block, the shared memory fits
+    for C, H, K in ((124, 128, 51), (124, 200, 51), (124, 256, 51)):
+        for kh, kw in ((K, 5), (5, K)):
+            g = K1.band_geometry(N, C, H, H, kh, kw)
+            assert g["slice"] and g["NTI"] * g["LB"] <= 16 * 8
+            assert g["NS"] * g["FS"] >= H > (g["NS"] - 1) * g["FS"]
+            assert g["bpc"] * g["CPB"] >= N * g["NS"]
+            assert (g["bpc"] - 1) * g["CPB"] < N * g["NS"]
+            assert g["NMB"] * g["MBR"] >= g["MT"] and g["MBR"] <= 4
+            assert g["DL"] == 2 and g["smem"] <= 200 * 1024
+            assert _stored_once(g, N, H, H)
 
 
 def test_band_route():
-    """bf16 (K, 5) / (5, K) taps on maps up to 64 take the band kernel;
-    fp32, square taps and larger maps do not."""
+    """bf16 (K, 5) / (5, K) taps on maps up to 64 take the band kernel,
+    and above 64 (the slice kernel) with K <= 65 and the long axis up to
+    512; fp32, square taps, longer taps and longer axes do not."""
     def route(dtype, H, W, kh, kw):
         return K1.band_route(torch.empty(1, 1, H, W, dtype=dtype),
                              torch.empty(1, kh, kw))
@@ -128,7 +179,13 @@ def test_band_route():
     assert route(bf, 7, 7, 13, 5) and route(bf, 64, 64, 5, 63)
     assert not route(f32, 56, 56, 51, 5)
     assert not route(bf, 56, 56, 5, 5) and not route(bf, 56, 56, 7, 7)
-    assert not route(bf, 65, 56, 51, 5) and not route(bf, 256, 256, 51, 5)
+    assert route(bf, 65, 56, 51, 5) and route(bf, 256, 256, 51, 5)
+    assert route(bf, 128, 128, 5, 51) and route(bf, 512, 40, 65, 5)
+    assert route(bf, 3000, 40, 5, 51)          # F sliced, any size
+    assert not route(bf, 128, 128, 67, 5) and not route(bf, 513, 40, 13, 5)
+    assert not route(f32, 128, 128, 51, 5) and not route(bf, 80, 80, 7, 7)
+    assert not K1.band_geometry(1, 1, 64, 64, 51, 5)["slice"]
+    assert K1.band_geometry(1, 1, 65, 64, 5, 51)["slice"]
 
 
 def test_route_launch_checks():

@@ -132,7 +132,8 @@ def test_band_f32_route():
     assert route(f32, 56, 56, 5, 5) == (False, "tiled")
     assert route(f32, 56, 56, 7, 7) == (False, "tiled")
     assert route(bf, 56, 56, 51, 5) == (False, "band")
-    assert route(bf, 256, 256, 51, 5) == (False, "tiled")
+    assert route(bf, 256, 256, 51, 5) == (False, "band")
+    assert route(bf, 256, 256, 67, 5) == (False, "tiled")
 
 
 def test_band_f32_launch_checks():
