@@ -61,7 +61,12 @@ Phases (any failure exits non-zero):
            the taps that only read padding exactly 0, each row naming its
            route; all three also at the DW_EDGES maps, K4 and the dgrad at
            the DW_EDGES_2D maps (on the band route K4's y and the dgrad
-           within one bf16 ulp), the weight gradient at WGRAD_EDGES_TILED
+           within one bf16 ulp), fp32 K4 at F32_STATS_EDGES on the fp32
+           band kernel's stats variant (det's four 800^2 stage shapes and
+           the edges: y within TOL_KERNEL, sums within TOL_SUMS and the
+           bits band_f32_stats_sums adds from the kernel's y, the same
+           bits twice, the host geometry the mirror's), the weight
+           gradient at WGRAD_EDGES_TILED
            and, square taps on wgrad_kernel, WGRAD_EDGES_SQUARE: planes
            above the shared memory, in row tiles), the fused MLP
            backward in NCHW, K8 at
@@ -227,9 +232,10 @@ Phases (any failure exits non-zero):
   det      downstream detection: Cascade Mask R-CNN on the same backbone
            (cascade_mask_rcnn_slak_tiny_3x_coco: FPN 256, 3 stages, 80
            classes, 512 proposals), 800^2 images, batch 2, 8 GT slots,
-           fp32. The same (e), (a)-(d) (K1 and its dgrad on the fp32 band
-           kernel, K4 and the weight gradient on the tiled kernels, K2/K3
-           on 3xTF32; (a) through the chain rule: both heads run on the
+           fp32. The same (e), (a)-(d) (K1, its dgrad and K4 on the fp32
+           band kernel, the K4 rows with the tiled kernel's time beside;
+           the weight gradient on the tiled kernel; K2/K3 on 3xTF32; (a)
+           through the chain rule: both heads run on the
            kernel route's features, the backbones' gradients and BN stats
            within TOL_STEP, the two routes' features within
            TOL_DET_FEATURES, the loss on each route's own features with
@@ -267,12 +273,15 @@ Phases (any failure exits non-zero):
            change, change, base: the bf16 K1 pair at each stage shape at
            batches 64 and 256, the K4 pair and the K1 dgrad pair at batch
            128 (on stage 4's 7x7 maps all three at batches 64, 128 and
-           256), the fp32 K1 pair and dgrad pair at the four 1024^2 ERF
+           256), the seg crop's stage-1 pairs, the fp32 K4 pair at det's
+           four 800^2 stage shapes (batch 2; and their sum over a det
+           step), the fp32 K1 pair and dgrad pair at the four 1024^2 ERF
            shapes, then this tree's route A/B on the 7x7 maps (band,
            toeplitz2d, toeplitz2d, band), then the bs256 bf16 eval forward,
-           the bs128 bf16 train step and one fp32 ERF image at 1024^2
-           (CUDA events and the device's busy time, maps compared), each
-           tree's ops/dwconv.py wrappers and kernels swapped in.
+           the bs128 bf16 train step, the bs8 seg step, one fp32 ERF image
+           at 1024^2 (CUDA events and the device's busy time, maps
+           compared) and the fp32 det step (800^2, batch 2), each tree's
+           ops/dwconv.py wrappers and kernels swapped in.
   dwpair_ab
            (not in the default run; needs --base) K10 of another checkout
            against this tree's in one process, in turns base, change,
@@ -372,8 +381,13 @@ TOEPLITZ_ROUTE = ("bf16, H * W <= 64, any odd taps (stage 4's 7x7 maps at "
                   "memory)")
 F32_ROUTE = ("fp32, (K, 5) or (5, K) taps, K != 5, at most 9 live "
              "diagonals (every K up to 65), any map size (the ERF's 1024^2 "
-             "stages, the fp32 eval, the fp32 dgrad): dwconv_band_f32_kernel "
-             "(per-channel banded products, 3xTF32 on mma.sync m16n8k8)")
+             "stages, the fp32 eval, the fp32 dgrad, det's 800^2 stages): "
+             "dwconv_band_f32_kernel (per-channel banded products, 3xTF32 "
+             "on mma.sync m16n8k8)")
+F32_STATS_ROUTE = ("fp32 K4 on F32_ROUTE's shapes: dwconv_band_f32_kernel "
+                   "with its STATS epilogue (each thread's stored values "
+                   "and squares in its store order, one partial a block, "
+                   "band_f32_stats_reduce in order)")
 PAIR_BAND_ROUTE = ("bf16, dualboth, the raw pair (the dual stage's launch), "
                    "(K, 5) / (5, K) taps with K > 5, square maps of side <= 64 "
                    "(all four stages at 224^2): dwpair_band_kernel (both "
@@ -429,6 +443,19 @@ WGRAD_EDGES_TILED = ((2, 16, 200, 200, 51, "float32"),
                      (1, 8, 300, 264, 13, "float32"),
                      (2, 16, 210, 160, 49, "float32"),
                      (2, 16, 224, 224, 51, "bfloat16"))
+# fp32 K4 (the fp32 band kernel's stats variant) off the flagship's 224^2
+# stage maps, (N, C, H, W, K), both orientations, all on the band_f32
+# route: det's four 800^2 stage shapes at its batch; L not a multiple of 8
+# or 16 (45, 100 x 72, 27, 25, 40 x 30); N = 1, 3 and 5; taps longer than
+# the map (12^2 at 51, 7^2 at 13); blocks of stacked images (12^2, 27^2,
+# 7^2) and F slices (200^2, 300 x 264 with idle warps past the map along
+# L), and K = 65 on a 520-long axis
+F32_STATS_EDGES = ((2, 124, 200, 200, 51), (2, 249, 100, 100, 49),
+                   (2, 499, 50, 50, 47), (2, 998, 25, 25, 13),
+                   (1, 16, 45, 45, 47), (3, 16, 100, 72, 49),
+                   (3, 16, 12, 12, 51), (3, 16, 27, 27, 49),
+                   (5, 16, 7, 7, 13), (3, 16, 40, 30, 13),
+                   (1, 8, 300, 264, 13), (1, 8, 520, 40, 65))
 # the any-tap weight gradient (wgrad_kernel) on square taps where a
 # map's two fp32 planes exceed the shared memory: it stages row tiles, as
 # the tiled kernel does; each raised cudaErrorInvalidConfiguration before.
@@ -630,7 +657,8 @@ def check_dwconv_stats(x, w, dn, tag):
     TOL_SUMS of max_c sum |y|, the sums the same bits on a second launch
     and the same bits as the route's mirror adds the kernel's own y in the
     kernel's order (the band route: ``band_stats_sums``; the Toeplitz
-    route: ``dwconv2d_stats_sums``). Returns (max abs err of y, sums rel
+    route: ``dwconv2d_stats_sums``; the fp32 band route:
+    ``band_f32_stats_sums``). Returns (max abs err of y, sums rel
     err)."""
     import torch
     from slak_tpu_torch.ops import dwconv as K1
@@ -649,9 +677,10 @@ def check_dwconv_stats(x, w, dn, tag):
     _check(torch.equal(s1, t1) and torch.equal(s2, t2),
            f"{tag} {dn}: the sums differ on a second launch")
     route = K1._stats_route_of(x, w)
-    if route in ("band", "toeplitz2d"):
+    if route in ("band", "toeplitz2d", "band_f32"):
         m1, m2 = (K1.band_stats_sums(y, *w.shape[1:]) if route == "band"
-                  else K6.dwconv2d_stats_sums(y))
+                  else K1.band_f32_stats_sums(y, *w.shape[1:])
+                  if route == "band_f32" else K6.dwconv2d_stats_sums(y))
         _check(torch.equal(s1, m1) and torch.equal(s2, m2),
                f"{tag} {dn}: the {route} kernel's sums are not the bits "
                f"its mirror gives")
@@ -971,6 +1000,55 @@ def check_wgrad_tiled_edges(phase: str):
             same_bits_twice=True, dead_taps_zero=True)), flush=True)
 
 
+def check_f32_stats_edges(phase: str):
+    """fp32 K4 at F32_STATS_EDGES, both orientations, on the band_f32
+    route against its plain version (``check_dwconv_stats``): y within
+    TOL_KERNEL, the sums within TOL_SUMS, the same bits twice and the bits
+    ``band_f32_stats_sums`` adds from the kernel's own y; the host geometry
+    that of ``band_f32_geometry``. At det's four stage shapes also K4 on
+    the tiled kernel, launched by name. Prints a row a map."""
+    import torch
+    from slak_tpu_torch.ops import dwconv as K1
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(75)
+    dn = "float32"
+    for N, C, H, W, K in F32_STATS_EDGES:
+        x = torch.randn(N, C, H, W, generator=g, device=dev)
+        ws = [torch.randn(C, *t, generator=g, device=dev) * 0.05
+              for t in ((K, 5), (5, K))]
+        tag = f"fp32 K4 {N}x{C}x{H}x{W} taps {K}"
+        routes = [K1._stats_route_of(x, w) for w in ws]
+        _check(routes == ["band_f32"] * 2, f"{tag}: routes {routes}")
+        stack = {}
+        for w in ws:
+            t = tuple(w.shape[1:])
+            got = K1.band_f32_kernel_geometry(N, C, H, W, *t)
+            want = K1.band_f32_geometry(N, C, H, W, *t)
+            _check(all(want[k] == v for k, v in got.items()),
+                   f"{tag} {t}: kernel geometry {got}, mirror {want}")
+            stack[f"{t[0]}x{t[1]}"] = want["stack"]
+        errs = [check_dwconv_stats(x, w, dn, tag) for w in ws]
+        row = dict(shape=[N, C, H, W], K=K, route="band_f32", stack=stack,
+                   max_abs_err=max(e[0] for e in errs),
+                   sums_rel_err=max(e[1] for e in errs),
+                   tol=TOL_KERNEL[dn], tol_sums=TOL_SUMS[dn],
+                   same_bits_twice=True, sums_are_mirror_bits=True,
+                   geometry_checked=True)
+        if (N, C, H, W, K) in F32_STATS_EDGES[:4]:
+            # the tiled kernel these shapes took before, by name
+            terr = 0.0
+            for w in ws:
+                y, s1, s2 = K1.launch_stats("tiled", x, w)
+                yp, p1, p2 = K1.dwconv_stats_plain(x, w)
+                torch.cuda.synchronize()
+                d, r = rel_err(y, yp)
+                _check(r <= TOL_KERNEL[dn], f"{tag} tiled: rel err {r:.3g}")
+                terr = max(terr, d)
+            row["tiled_max_abs_err"] = terr
+        print(f"[{phase}] " + json.dumps(row), flush=True)
+        del x
+    torch.cuda.empty_cache()
+
 def check_wgrad_square_edges(phase: str):
     """The any-tap weight gradient at WGRAD_EDGES_SQUARE (square taps,
     planes staged in row tiles; ``check_wgrad``: within TOL_WGRAD, the same
@@ -1255,7 +1333,8 @@ def stage_kernel_rows(tag, kinds, stage, C, H, K, s, depth, batch, dtype, g,
     def dw_bounds(t, reads, words, tc):
         """The bound of one launch a tap tensor, summed: launch j moves
         reads[j] tensors of t's size and C (kh kw + words) fp32 words;
-        `tc`: on the fp32 band kernel's tensor cores (conv_bounds)."""
+        `tc`: on an fp32 band kernel's tensor cores (conv_bounds: the
+        lesser of 3xTF32 and FFMA)."""
         got = dict(bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
         for (kh, kw), n in zip(taps, reads):
             args = (n * t.numel() * t.element_size()
@@ -1330,11 +1409,14 @@ def stage_kernel_rows(tag, kinds, stage, C, H, K, s, depth, batch, dtype, g,
                    plain_ms=time_ms(lambda: [K1.dwconv_stats_plain(x, w)
                                              for w in ws], plain_reps),
                    library_ms=time_ms(lib, plain_reps),
-                   **dw_bounds(x, (2, 2), 2, False), launches_per_block=2)
+                   **dw_bounds(x, (2, 2), 2, route[0] == "band_f32"),
+                   launches_per_block=2)
         if route[0] == "toeplitz2d":
             row["band_ms"] = time_ms(lambda: [K1.launch_stats("band", x, w)
                                               for w in ws])
-        if route[0] == "band" and H > K1.BAND_WHOLE_MAX:
+        if (route[0] == "band" and H > K1.BAND_WHOLE_MAX
+                or route[0] == "band_f32"):
+            # the tiled kernel that served these shapes before
             row["tiled_ms"] = time_ms(lambda: [
                 K1.launch_stats("tiled", x, w) for w in ws])
         emit("stats", row)
@@ -1358,7 +1440,8 @@ def stage_kernel_rows(tag, kinds, stage, C, H, K, s, depth, batch, dtype, g,
                    library_ms=time_ms(lambda: [torch.nn.grad.conv2d_weight(
                        x, (C, 1, kh, kw), dy, padding=p, groups=C)
                        for (kh, kw), p in zip(taps, pads)], plain_reps),
-                   **dw_bounds(x, (2, 2), 0, False), launches_per_block=2)
+                   **dw_bounds(x, (2, 2), 0, dn == "float32"),
+                   launches_per_block=2)
         emit("wgrad", row)
 
     if "dgrad" in kinds:
@@ -1473,7 +1556,7 @@ def add_total(totals, name, row, depth):
     for k in TOTAL_KEYS:
         t[k] += depth * (row.get(k) or 0.0)
     t["band_ms"] += depth * row.get("band_ms", row["ms"])
-    for k in ("ops_ms_3xtf32", "ops_ms_ffma"):
+    for k in ("ops_ms_3xtf32", "ops_ms_ffma", "tiled_ms"):
         if k in row:
             t[k] = t.get(k, 0.0) + depth * row[k]
     t["err"] = max(t["err"], row["max_abs_err"])
@@ -1696,13 +1779,14 @@ def phase_train_kernels(cfg, batch):
     shapes (``stage_kernel_rows``): K4, the weight gradient and the K1
     dgrad (bf16 also at DW_BATCHES), K8 (stages 1-2) and K9 (stages 3-4),
     also at the ragged batches RAGGED; first bf16 K4, the K1 dgrad and the
-    weight gradient at DW_EDGES and the weight gradient at
-    WGRAD_EDGES_TILED. Returns per-train-step bf16 totals for the JSON
-    line (stage 4's K4 and dgrad, on K6's Toeplitz kernel, as
-    dwconv2d_stats and dwconv2d_dgrad, with the band route's time) and
-    K9's bf16 rows."""
+    weight gradient at DW_EDGES, fp32 K4 at F32_STATS_EDGES and the
+    weight gradient at WGRAD_EDGES_TILED. Returns per-train-step bf16
+    totals for the JSON line (stage 4's K4 and dgrad, on K6's Toeplitz
+    kernel, as dwconv2d_stats and dwconv2d_dgrad, with the band route's
+    time; fp32 K4 per fp32 step as dwconv_stats_f32) and K9's bf16 rows."""
     import torch
     check_dwconv_edges("train_kernels", train=True)
+    check_f32_stats_edges("train_kernels")
     check_wgrad_edges("train_kernels")
     check_wgrad_tiled_edges("train_kernels")
     check_wgrad_square_edges("train_kernels")
@@ -1717,6 +1801,8 @@ def phase_train_kernels(cfg, batch):
                 dw_batches=DW_BATCHES if bf16 else (), mlp_batches=RAGGED)
             torch.cuda.empty_cache()
             if not bf16:
+                add_total(totals, "dwconv_stats_f32", rows["stats"][0],
+                          depth)
                 continue
             for kind in ("stats", "wgrad", "dgrad"):
                 row = rows[kind][0]
@@ -1827,7 +1913,7 @@ def reset_counts():
     KW.band_launch_count = 0
     K1.band_launch_count = K1.band_stats_launch_count = 0
     K1.toeplitz_launch_count = K1.toeplitz_stats_launch_count = 0
-    K1.tf32_launch_count = 0
+    K1.tf32_launch_count = K1.tf32_stats_launch_count = 0
     K2.launch_count = K2.bwd_launch_count = K2.wide_bwd_launch_count = 0
     K2.bwd_dy_launch_count = K2.wide_bwd_dy_launch_count = 0
     K10.pair_launch_count = K10.pair_band_launch_count = 0
@@ -1861,6 +1947,7 @@ def read_counts():
             "dwconv_tf32": K1.tf32_launch_count,
             "dwconv_stats_band": K1.band_stats_launch_count,
             "dwconv_stats_toeplitz": K1.toeplitz_stats_launch_count,
+            "dwconv_stats_tf32": K1.tf32_stats_launch_count,
             "dwconv_wgrad": KW.launch_count,
             "dwconv_wgrad_band": KW.band_launch_count,
             "fused_mlp": K2.launch_count,
@@ -1937,6 +2024,7 @@ def cli_counts(cfg, steps=0, evals=0, snips=0, remat=False) -> dict:
         "dwconv_tf32": 4 * nb * snips,
         "dwconv_stats_band": (2 * nb - k6) * fwd * steps,
         "dwconv_stats_toeplitz": k6 * fwd * steps,
+        "dwconv_stats_tf32": 0,
         "dwconv_wgrad": 2 * nb * (steps + snips),
         "dwconv_wgrad_band": 2 * nb * steps,
         "fused_mlp": (narrow + wide) * fwd * steps + nb * (evals + snips),
@@ -2335,7 +2423,7 @@ def phase_erf():
     want = {"dwconv": 4 * n_blocks * ERF_IMAGES, "dwconv_stats": 0,
             "dwconv_band": 0, "dwconv_toeplitz": 0,
             "dwconv_tf32": 4 * n_blocks * ERF_IMAGES, "dwconv_stats_band": 0,
-            "dwconv_stats_toeplitz": 0,
+            "dwconv_stats_toeplitz": 0, "dwconv_stats_tf32": 0,
             "dwconv_wgrad": 0, "dwconv_wgrad_band": 0,
             "fused_mlp": n_blocks * ERF_IMAGES,
             "fused_mlp_tf32": n_blocks * ERF_IMAGES,
@@ -2404,6 +2492,7 @@ def phase_erf():
                     "dwconv_band": 4 * n_blocks - k6,
                     "dwconv_toeplitz": k6, "dwconv_tf32": 0,
                     "dwconv_stats_band": 0, "dwconv_stats_toeplitz": 0,
+                    "dwconv_stats_tf32": 0,
                     "dwconv_wgrad": 2 * n_blocks,
                     "dwconv_wgrad_band": 2 * n_blocks, "fused_mlp": n_blocks,
                     "fused_mlp_tf32": 0, "mlp_bwd": narrow,
@@ -3315,6 +3404,42 @@ def phase_mlp_bwd_ab(cfg, base: str):
     return out
 
 
+def det_step_fn(dev):
+    """One det train step (make_det_train_step: the backbone, the heads
+    and the optimizer) at DET_SIZE, DET_BATCH, fp32, from a seed, as a
+    callable; the convs read ``ops/dwconv.py``'s ``dwconv_stats`` at call
+    time."""
+    import torch
+    from slak_tpu_torch.downstream import det_main as DM
+    from slak_tpu_torch.downstream.configs import DET_CONFIGS
+    recipe = DET_CONFIGS[DET_RECIPE]
+    hcfg = DM._head_cfg(recipe, False)
+    lr_arr = DM.step_lr_array(recipe.lr, 1000, recipe.epochs, 1000)
+    batch = [t.to(dev) for t in DM._synthetic_det_batch(
+        DM.iter_rng(0, 0), DET_BATCH, DET_SIZE, DET_GTS, hcfg.num_classes)]
+    model = DM.build_det(recipe, hcfg, dev, 0)
+    step = DM.make_det_train_step(model, DM.make_det_optimizer(model, recipe),
+                                  recipe, hcfg, lr_arr,
+                                  (DET_SIZE, DET_SIZE), False)
+    gen = torch.Generator(device=dev)
+    return lambda: step(1, batch, gen.manual_seed(8))
+
+
+def det_stage_cases(cfg, g):
+    """The det backbone's fp32 K4 pairs at DET_SIZE, DET_BATCH, a stage
+    each: (name, stage depth, fn(f)), fn calling f (a dwconv_stats) on x
+    and both tap tensors."""
+    import torch
+    cases = []
+    for i, C, H, K, s, depth in stage_shapes(cfg, DET_SIZE):
+        x = torch.randn(DET_BATCH, C, H, H, generator=g, device=g.device)
+        ws = [torch.randn(C, *t, generator=g, device=g.device) * 0.05
+              for t in ((K, s), (s, K))]
+        cases.append((f"k4_pair_fp32_det{DET_SIZE}_stage{i + 1}_ms", depth,
+                      lambda f, x=x, ws=ws: [f(x, w) for w in ws]))
+    return cases
+
+
 def phase_dwconv_ab(cfg, base: str):
     """K1/K4 of another checkout against this tree's, in one process, in
     turns base, change, change, base: the bf16 K1 pair (the second launch
@@ -3328,12 +3453,15 @@ def phase_dwconv_ab(cfg, base: str):
     toeplitz2d, band; then the bs256 bf16 eval forward, the bs128 bf16 train step,
     the bf16 seg step (the 512^2 crop at SEG_BATCH) and one fp32 ERF image
     at 1024^2 (the input gradient, weights frozen; on CUDA events and as
-    the device's busy time; the two trees' maps within TOL_ERF_MAP), each
+    the device's busy time; the two trees' maps within TOL_ERF_MAP) and
+    the fp32 det train step (DET_SIZE, DET_BATCH), each
     with the tree's ``dwconv`` / ``dwconv_stats`` swapped into
     ``ops/dwconv.py`` (the model's convs, ``DwconvTaps`` and
     ``DwconvBnStats``, call them from there). Before the turns, the seg
     crop's stage 1 (128^2, SEG_BATCH) joins the cases: the eval's K1 pair,
-    the K4 pair and the dgrad pair. Last, the square-tap weight gradient
+    the K4 pair and the dgrad pair; so do det's fp32 K4 pairs at its four
+    800^2 stage shapes (and their sum over a det step, each stage's depth
+    times its pair). Last, the square-tap weight gradient
     of both trees on planes that fit one tile: the same bits. Returns the
     rows."""
     import torch
@@ -3401,6 +3529,11 @@ def phase_dwconv_ab(cfg, base: str):
             f[1](x, w) for w in ws]))
         cases.append(("dgrad_pair_" + tag, lambda f, dy=dy, fl=flipped: [
             f[0](dy, w) for w in fl]))
+    # det's fp32 K4 pairs at 800^2 (batch 2): the parent's tiled kernel,
+    # this tree's fp32 band kernel with the stats epilogue
+    det_cases = det_stage_cases(cfg, g)
+    for name, _, fn in det_cases:
+        cases.append((name, lambda f, fn=fn: fn(f[1])))
     # the ERF's fp32 pairs at 1024^2 (batch 1): forward and dgrad
     for i, C, H, K, s, _ in stage_shapes(cfg, ERF_SIZE):
         ws = [torch.randn(C, *t, generator=g, device=dev) * 0.05
@@ -3419,6 +3552,10 @@ def phase_dwconv_ab(cfg, base: str):
     for route in order:
         for name, fn in cases:
             rows[name].append(time_ms(lambda: fn(fns[route])))
+    rows[f"k4_fp32_det{DET_SIZE}_per_step_ms"] = [
+        sum(depth * rows[name][t] for name, depth, _ in det_cases)
+        for t in range(len(order))]
+    del det_cases
     # the route A/B on K6's maps within this tree: the band kernel against
     # the Toeplitz kernel at the same shapes, in turns
     k6_order = ("band", "toeplitz2d", "toeplitz2d", "band")
@@ -3496,6 +3633,11 @@ def phase_dwconv_ab(cfg, base: str):
           f"{r:.4g} (tol {TOL_ERF_MAP})", flush=True)
     _check(r <= TOL_ERF_MAP, f"dwconv_ab: ERF map rel err {r:.3g}")
     del model, image
+    torch.cuda.empty_cache()
+    det_step = det_step_fn(dev)
+    timed(f"det_step_fp32_bs{DET_BATCH}_{DET_SIZE}_ms", det_step,
+          DS_TIMED_STEPS, 1, 2)
+    del det_step
     torch.cuda.empty_cache()
     # the square-tap weight gradient on planes staged whole: the parent's
     # bits (the row-tiled staging changes no sum where one tile holds all)
@@ -4856,11 +4998,11 @@ DS_TIMED_STEPS = 2
 # BAND_MAX = 64): bf16 seg at 512^2 (128/64/32/16) K1 and K4 on the band
 # route at every stage (stage 1 on the slice kernel), the weight gradient
 # at stage 1 on the tiled kernel, no K6; fp32 det at 800^2
-# (200/100/50/25) K1 and its dgrad on the fp32 band kernel, K4 and the
-# weight gradient on the tiled kernels
+# (200/100/50/25) K1, its dgrad and K4 on the fp32 band kernel (K4 with its
+# stats epilogue), the weight gradient on the tiled kernel
 SEG_ROUTES = {"dwconv": ["band"] * 4, "dwconv_stats": ["band"] * 4,
               "dwconv_wgrad": ["tiled", "band", "band", "band"]}
-DET_ROUTES = {"dwconv": ["band_f32"] * 4, "dwconv_stats": ["tiled"] * 4,
+DET_ROUTES = {"dwconv": ["band_f32"] * 4, "dwconv_stats": ["band_f32"] * 4,
               "dwconv_wgrad": ["tiled"] * 4}
 
 
@@ -4892,6 +5034,7 @@ def downstream_counts(cfg, size, dtype, steps=0, evals=0):
         c["dwconv_stats"] += k2
         c["dwconv_stats_band"] += k2 * (r4 == "band")
         c["dwconv_stats_toeplitz"] += k2 * (r4 == "toeplitz2d")
+        c["dwconv_stats_tf32"] += k2 * (r4 == "band_f32")
         c["dwconv_wgrad"] += k2
         c["dwconv_wgrad_band"] += k2 * (rw == "band")
         wide = C > BWD_C_MAX
@@ -5315,9 +5458,13 @@ _DS_ROWS = {
              "slak_tpu_torch/ops/csrc/mlp_bwd.cu",
              "slak_tpu/ops/pallas_mlp.py:419", None)),
 }
+# det runs in fp32: K1 and K4 on dwconv_f32.cu
+_DS_F32 = {"dwconv": ("dwconv_f32", "slak_tpu_torch/ops/csrc/dwconv_f32.cu"),
+           "dwconv_stats": ("dwconv_stats_f32",
+                            "slak_tpu_torch/ops/csrc/dwconv_f32.cu")}
 _DS_ROWS["det"] = tuple(
-    (("dwconv_f32", r[1], "slak_tpu_torch/ops/csrc/dwconv_f32.cu") + r[3:])
-    if r[0] == "dwconv" else r for r in _DS_ROWS["seg"])
+    ((_DS_F32[r[0]][0], r[1], _DS_F32[r[0]][1]) + r[3:])
+    if r[0] in _DS_F32 else r for r in _DS_ROWS["seg"])
 
 
 def add_downstream(kernels, seg_run, det_run):
@@ -5336,7 +5483,8 @@ def add_downstream(kernels, seg_run, det_run):
         launches = {
             "dwconv": c["dwconv"] - c["dwconv_tf32"] - c["dwconv_toeplitz"],
             "dwconv_f32": c["dwconv_tf32"],
-            "dwconv_stats": c["dwconv_stats"],
+            "dwconv_stats": c["dwconv_stats"] - c["dwconv_stats_tf32"],
+            "dwconv_stats_f32": c["dwconv_stats_tf32"],
             "dwconv_wgrad": c["dwconv_wgrad"], "fused_mlp": c["fused_mlp"],
             "mlp_bwd": c["mlp_bwd"], "mlp_bwd_wide": c["mlp_bwd_wide"]}
         for name, parts, src, repl, lib in _DS_ROWS[tag]:
@@ -5355,6 +5503,9 @@ def add_downstream(kernels, seg_run, det_run):
                                               "bytes_ms", "ops_ms")},
                          bound_by="bytes" if agg["bytes_ms"] >= agg["ops_ms"]
                          else "operations")
+            for k in ("ops_ms_3xtf32", "ops_ms_ffma", "tiled_ms"):
+                if all(k in t for t in ts):
+                    extra[k] = sum(t[k] for t in ts)
             if lib is None:
                 extra["unfused_torch_ms"] = agg["unfused_torch_ms"]
             else:
@@ -5376,6 +5527,37 @@ def add_downstream(kernels, seg_run, det_run):
             row[key] = extra
             row[f"{tag}_launches"] = launches[name]
 
+
+def add_train_f32(kernels, train_totals):
+    """fp32 K4 per fp32 train step at TRAIN_BATCH (``train_kernels``' fp32
+    rows, with the tiled kernel's time) on its row; a row that ``det`` did
+    not make (a run without it) is made here, its launches unknown
+    (None)."""
+    name = "dwconv_stats_f32"
+    t = train_totals[name]
+    row = next((k for k in kernels if k["name"] == name), None)
+    if row is None:
+        row = dict(
+            name=name, route="cuda",
+            source="slak_tpu_torch/ops/csrc/dwconv_f32.cu",
+            replaces="slak_tpu/ops/pallas_banded.py:251",
+            launches=None, max_abs_err=t["err"], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                      else "operations"),
+            library_ms=t["library_ms"],
+            times_per="one float32 train step at batch %d" % TRAIN_BATCH)
+        kernels.append(row)
+    row.update(band_f32_route=F32_STATS_ROUTE,
+               library="F.conv2d(groups=C) + sum + sum of squares",
+               ops_bound="the lesser of 3xTF32 (3 passes at 495 TFLOP/s) "
+               "and FFMA (67 TFLOP/s)",
+               train_fp32={k: t.get(k) for k in (
+                   "ms", "tiled_ms", "plain_ms", "library_ms", "bound_ms",
+                   "bytes_ms", "ops_ms_3xtf32", "ops_ms_ffma")},
+               train_fp32_max_abs_err=t["err"],
+               train_fp32_times_per="one float32 train step at batch %d "
+               "(the flagship's 224^2 stages)" % TRAIN_BATCH)
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5786,6 +5968,8 @@ def main(argv=None) -> int:
         add_kd_launches(kernels, kd_totals, kd_run)
     if seg_run is not None or det_run is not None:
         add_downstream(kernels, seg_run, det_run)
+    if train_totals is not None:
+        add_train_f32(kernels, train_totals)
     if kernels:
         print(json.dumps({"kernels": kernels}))
     if erf_run is not None:

@@ -56,6 +56,21 @@
 // bits. In accumulate mode the tile is added to what `out` holds (one fp32
 // add a value).
 //
+// K4 (slak_dwconv_band_f32_stats) is the same kernel with STATS set: it
+// also replaces pallas_banded.py dwconv_banded_stats_cmajor
+// (_fwd_stats_kernel) in float32, the conv plus the per-channel (sum y,
+// sum y^2) of the stored y for the train-mode BN. Each thread adds the
+// values it stores and their squares (rounded adds and products, no
+// contraction into FMAs) in its store order; the rows between stacked
+// images and past the map are never stored, so never summed. Then a
+// butterfly over the warp's lanes, the warps' sums in order, one (s1, s2)
+// partial a block; band_f32_stats_reduce sums a channel's partials in
+// order, one block a channel (where a channel has one block, its partial
+// is the channel's sums, written in place, and no reduce runs). No
+// atomics: two launches give the same bits.
+// The stats instantiations are template instances of their own, so every
+// K1 instantiation keeps its code.
+//
 // What bounds it on an H100: the bytes (x read once, out written once, and
 // read too in accumulate mode) against the 3xTF32 products (three TF32
 // passes of the MACs the taps need, at 495 TFLOP/s): at the ERF's 1024^2
@@ -128,11 +143,17 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
-template <int ND, int MW, bool LONG_H>
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int ND, int MW, bool LONG_H, bool STATS = false>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 dwconv_band_f32_kernel(const float* __restrict__ x,
                        const float* __restrict__ w, float* __restrict__ out,
-                       F32Geom g, int accumulate) {
+                       F32Geom g, int accumulate, float* __restrict__ part,
+                       float* __restrict__ s1s, float* __restrict__ s2s) {
   extern __shared__ __align__(16) float f32_smem[];
   constexpr int TAB = 8 * ND + 8;
   float* tab = f32_smem;                    // [j][big, small][TAB]
@@ -218,7 +239,10 @@ dwconv_band_f32_kernel(const float* __restrict__ x,
   const int gid = lane >> 2, tig = lane & 3;
   const int wf = warp / g.WL, wl = warp - wf * g.WL;
   const int nt0 = nt_lo + wl * MW, r0 = wf * kRows;
-  if (nt0 >= nt_hi || r0 >= rows) return;
+  // an idle warp of the stats variant stays for the block's reduction: it
+  // forms no product (the guards below) and stores nothing (its rows are
+  // past the block's, or its columns past the map)
+  if (!STATS && (nt0 >= nt_hi || r0 >= rows)) return;
   // a fragment value (row s, column kk) of the staged operand
   const int sF = LONG_H ? 1 : g.P, sK = LONG_H ? g.P : 1;
   const float* xa = xs + (r0 + gid) * sF + tig * sK;
@@ -289,6 +313,7 @@ dwconv_band_f32_kernel(const float* __restrict__ x,
 
   // the stores: value e of (ft, nt) at row r0 + 16 ft + gid (+ 8 for e >=
   // 2), column m = 8 (nt0 + nt) + 2 tig + (e & 1)
+  float s1 = 0.f, s2 = 0.f;
 #pragma unroll
   for (int ft = 0; ft < kFW; ++ft)
 #pragma unroll
@@ -312,8 +337,71 @@ dwconv_band_f32_kernel(const float* __restrict__ x,
                                    : (long long)f * g.W + m);
           const float v = acc[ft][nt][2 * hf + e];
           *dst = accumulate ? *dst + v : v;
+          if (STATS) {
+            s1 = __fadd_rn(s1, v);
+            s2 = __fadd_rn(s2, __fmul_rn(v, v));
+          }
         }
     }
+  if constexpr (STATS) {
+    __shared__ float red[2][kMaxWarps];
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      red[0][warp] = s1;
+      red[1][warp] = s2;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float a = 0.f, q = 0.f;
+      for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
+        a += red[0][i];
+        q += red[1][i];
+      }
+      if (g.gblocks * g.fblocks * g.lblocks == 1) {   // the channel's own
+        s1s[c] = a;
+        s2s[c] = q;
+      } else {
+        part[2LL * blockIdx.x] = a;
+        part[2LL * blockIdx.x + 1] = q;
+      }
+    }
+  }
+}
+
+// s1[c], s2[c] = the sums of channel c's bpc partials (blocks c bpc ..),
+// in a fixed order: thread t the partials t, t + 256, .., then a butterfly
+// over each warp's lanes and the warps' sums in order. One block a channel.
+constexpr int kRedThreads = 256;
+
+__global__ void __launch_bounds__(kRedThreads)
+band_f32_stats_reduce(const float* __restrict__ part, float* __restrict__ s1,
+                      float* __restrict__ s2, int bpc) {
+  __shared__ float red[2][kRedThreads / 32];
+  const int c = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* p = part + 2LL * c * bpc;
+  float s = 0.f, q = 0.f;
+  for (int i = threadIdx.x; i < bpc; i += kRedThreads) {
+    s += p[2 * i];
+    q += p[2 * i + 1];
+  }
+  s = warp_sum(s);
+  q = warp_sum(q);
+  if (lane == 0) {
+    red[0][warp] = s;
+    red[1][warp] = q;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float a = 0.f, b = 0.f;
+    for (int i = 0; i < kRedThreads / 32; ++i) {
+      a += red[0][i];
+      b += red[1][i];
+    }
+    s1[c] = a;
+    s2[c] = b;
+  }
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -392,11 +480,12 @@ bool f32_geom(long long N, int C, int H, int W, int kh, int kw, F32Geom* gp,
   return true;
 }
 
-template <int ND, int MW, bool LONG_H>
+template <int ND, int MW, bool LONG_H, bool STATS>
 cudaError_t launch_t(const F32Geom& g, int warps, long long blocks,
                      size_t smem, const float* x, const float* w, float* out,
-                     int accumulate, cudaStream_t stream) {
-  auto kernel = dwconv_band_f32_kernel<ND, MW, LONG_H>;
+                     int accumulate, float* part, float* s1, float* s2,
+                     cudaStream_t stream) {
+  auto kernel = dwconv_band_f32_kernel<ND, MW, LONG_H, STATS>;
   static bool raised = false;                 // once an instantiation
   if (smem > 48 * 1024 && !raised) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -404,22 +493,24 @@ cudaError_t launch_t(const F32Geom& g, int warps, long long blocks,
     if (e != cudaSuccess) return e;
     raised = true;
   }
-  kernel<<<(unsigned)blocks, warps * 32, smem, stream>>>(x, w, out, g,
-                                                         accumulate);
+  kernel<<<(unsigned)blocks, warps * 32, smem, stream>>>(
+      x, w, out, g, accumulate, part, s1, s2);
   return cudaGetLastError();
 }
 
 // The instantiations: MW = 4 with ND = 1 .. 9; the maps of one or two
 // n-tiles along L (MW = 1, 2) have at most 2 MW - 1 live diagonals (at
 // shift 0: e = kt - nt with both tiles in the map).
-template <bool LONG_H>
+template <bool LONG_H, bool STATS>
 cudaError_t launch_o(int nd, const F32Geom& g, int warps, long long blocks,
                      size_t smem, const float* x, const float* w, float* out,
-                     int accumulate, cudaStream_t stream) {
+                     int accumulate, float* part, float* s1, float* s2,
+                     cudaStream_t stream) {
 #define F32_CASE(n, mw)                                                  \
   if (nd == n && g.MW == mw)                                             \
-    return launch_t<n, mw, LONG_H>(g, warps, blocks, smem, x, w, out,    \
-                                   accumulate, stream);
+    return launch_t<n, mw, LONG_H, STATS>(g, warps, blocks, smem, x, w,  \
+                                          out, accumulate, part, s1, s2, \
+                                          stream);
   F32_CASE(1, 1)
   F32_CASE(1, 2) F32_CASE(2, 2) F32_CASE(3, 2)
   F32_CASE(1, 4) F32_CASE(2, 4) F32_CASE(3, 4) F32_CASE(4, 4) F32_CASE(5, 4)
@@ -447,10 +538,56 @@ extern "C" int slak_dwconv_band_f32(const float* x, const float* w,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(kw == kShort
-                   ? launch_o<true>(nd, g, warps, blocks, smem, x, w, out,
-                                    accumulate, s)
-                   : launch_o<false>(nd, g, warps, blocks, smem, x, w, out,
-                                     accumulate, s));
+                   ? launch_o<true, false>(nd, g, warps, blocks, smem, x, w,
+                                           out, accumulate, nullptr, nullptr,
+                                           nullptr, s)
+                   : launch_o<false, false>(nd, g, warps, blocks, smem, x, w,
+                                            out, accumulate, nullptr, nullptr,
+                                            nullptr, s));
+}
+
+// The float32 scratch of slak_dwconv_band_f32_stats: one (s1, s2) partial
+// a block, 2 * blocks floats (none where a channel has one block); -1 for
+// shapes the route does not take.
+extern "C" long long slak_dwconv_band_f32_stats_scratch(long long N, int C,
+                                                        int H, int W, int kh,
+                                                        int kw) {
+  F32Geom g;
+  int nd, warps;
+  long long blocks;
+  size_t smem;
+  if (!f32_geom(N, C, H, W, kh, kw, &g, &nd, &warps, &blocks, &smem))
+    return -1;
+  return blocks == C ? 0 : 2 * blocks;
+}
+
+// K4: out = conv(x, w) as slak_dwconv_band_f32 (never added into out), and
+// s1[c], s2[c] = the fp32 sum and sum of squares of channel c of the stored
+// out. part: slak_dwconv_band_f32_stats_scratch floats. Two launches, one
+// where a channel has one block.
+// Returns the first failing cudaError_t, cudaErrorInvalidValue for shapes
+// the route does not take.
+extern "C" int slak_dwconv_band_f32_stats(const float* x, const float* w,
+                                          float* out, float* part, float* s1,
+                                          float* s2, long long N, int C, int H,
+                                          int W, int kh, int kw,
+                                          void* stream) {
+  F32Geom g;
+  int nd, warps;
+  long long blocks;
+  size_t smem;
+  if (!f32_geom(N, C, H, W, kh, kw, &g, &nd, &warps, &blocks, &smem))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      kw == kShort ? launch_o<true, true>(nd, g, warps, blocks, smem, x, w,
+                                          out, 0, part, s1, s2, s)
+                   : launch_o<false, true>(nd, g, warps, blocks, smem, x, w,
+                                           out, 0, part, s1, s2, s);
+  if (e != cudaSuccess || blocks == C) return (int)e;
+  band_f32_stats_reduce<<<C, kRedThreads, 0, s>>>(part, s1, s2,
+                                                  (int)(blocks / C));
+  return (int)cudaGetLastError();
 }
 
 // The launch geometry of slak_dwconv_band_f32 for these shapes, for the

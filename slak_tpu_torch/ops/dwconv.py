@@ -51,8 +51,10 @@ axis at most ``BAND_MAX``: the seg crop's 128^2 stage 1, any input above
 takes the tiled kernel. fp32 K1 with (K, 5) or (5, K)
 taps at any map size (:func:`band_f32_route`) takes the 3xTF32 band
 kernel of ``csrc/dwconv_f32.cu`` (``slak_dwconv_band_f32``, counted in
-``tf32_launch_count`` besides ``launch_count``); fp32 K4 stays on the
-tiled kernel. bf16 K1 and K4 on maps with H * W <= ``P_MAX`` (stage 4's
+``tf32_launch_count`` besides ``launch_count``), and so does fp32 K4 on the
+same shapes, with the sums in its epilogue (``slak_dwconv_band_f32_stats``,
+route "band_f32", counted in ``tf32_stats_launch_count`` besides
+``stats_launch_count``). bf16 K1 and K4 on maps with H * W <= ``P_MAX`` (stage 4's
 7x7), any odd taps (:func:`toeplitz2d_route`, checked first), take K6's
 kernel, ``csrc/dwconv2d.cu`` (``ops/dwconv2d.py``: one dense product a
 channel with the batch on the tensor cores' rows, counted in
@@ -67,7 +69,9 @@ staged operand with its halo rows, the shifted rows, the padded tiles
 partial sums in the kernel's order;
 :func:`dwconv_band_f32_mirror` repeats the fp32 kernel's (the TF32 split
 of both operands, the live diagonals, the row tiles with their halo, the
-three products, the scatter back).
+three products, the scatter back) and :func:`dwconv_band_f32_stats_mirror`
+its K4 sums in the kernel's block and thread order
+(:func:`band_f32_stats_sums`).
 """
 
 from __future__ import annotations
@@ -87,6 +91,8 @@ band_launch_count = 0          # K1 launches on the band route (also above)
 band_stats_launch_count = 0    # K4 launches on the band route (also above)
 tf32_launch_count = 0          # fp32 K1 launches on the 3xTF32 band route
                                # (also in launch_count)
+tf32_stats_launch_count = 0    # fp32 K4 launches on the 3xTF32 band route
+                               # (also in stats_launch_count)
 toeplitz_launch_count = 0      # K1 launches on K6's kernel (also above)
 toeplitz_stats_launch_count = 0    # K4 launches on K6's kernel (also above)
 
@@ -339,18 +345,32 @@ def dwconv_band_mirror(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def _block_sum(v: torch.Tensor) -> torch.Tensor:
-    """The kernels' block reduction of (..., 256) fp32 values: a butterfly
-    over each warp's 32 lanes (``warp_sum``), then the 8 warps' sums added
-    in order from 0."""
-    v = v.reshape(*v.shape[:-1], _WARPS, 32)
+def _block_sum(v: torch.Tensor, warps: int = _WARPS) -> torch.Tensor:
+    """The kernels' block reduction of (..., 32 warps) fp32 values (256 by
+    default): a butterfly over each warp's 32 lanes (``warp_sum``), then
+    the warps' sums added in order from 0."""
+    v = v.reshape(*v.shape[:-1], warps, 32)
     lane = torch.arange(32, device=v.device)
     for o in (16, 8, 4, 2, 1):
         v = v + v[..., lane ^ o]
     total = torch.zeros(v.shape[:-2], device=v.device)
-    for i in range(_WARPS):
+    for i in range(warps):
         total = total + v[..., i, 0]
     return total
+
+
+def _partials_sum(part: torch.Tensor) -> torch.Tensor:
+    """The stats reduce kernels' sum of (C, bpc) partials a channel:
+    thread t the partials t, t + 256, .. in order, then a block reduction
+    (``dwconv_stats_reduce``, ``band_f32_stats_reduce``)."""
+    C, bpc = part.shape
+    items = -(-bpc // _THREADS) * _THREADS
+    part = torch.nn.functional.pad(part, (0, items - bpc)).reshape(
+        C, -1, _THREADS)
+    t = torch.zeros(C, _THREADS, device=part.device)
+    for i in range(part.shape[1]):
+        t = t + part[:, i]
+    return _block_sum(t)
 
 
 def _band_store_order(g: dict, N: int, H: int, W: int) -> torch.Tensor:
@@ -471,17 +491,7 @@ def band_stats_sums(y: torch.Tensor, kh: int, kw: int):
         v = vals[..., i]
         s = s + v
         q = q + v * v
-    bpc = g["bpc"]
-    out = []
-    for part in (_block_sum(s), _block_sum(q)):       # (C, bpc)
-        items = -(-bpc // _THREADS) * _THREADS
-        part = torch.nn.functional.pad(part, (0, items - bpc)).reshape(
-            C, -1, _THREADS)
-        t = torch.zeros(C, _THREADS, device=y.device)
-        for i in range(part.shape[1]):
-            t = t + part[:, i]
-        out.append(_block_sum(t))
-    return out[0], out[1]
+    return _partials_sum(_block_sum(s)), _partials_sum(_block_sum(q))
 
 
 def dwconv_band_stats_mirror(x: torch.Tensor, w: torch.Tensor):
@@ -683,6 +693,70 @@ def dwconv_band_f32_mirror(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def band_f32_store_order(g: dict, N: int, H: int, W: int) -> torch.Tensor:
+    """The order of the fp32 band kernel's stores, (bpc, 32 warps, S): for
+    block b of a channel (:func:`band_f32_blocks`' order) and thread (warp
+    wf WL + wl, lane) the flat index n H W + h W + w of its s-th stored
+    value, -1 for none. A thread stores, for each f-tile ft and half hf,
+    row r = 32 wf + 16 ft + 8 hf + lane / 4 (not past the block's rows, not
+    between stacked images), each n-tile nt of its warp tile and e < 2,
+    column m = 8 (nt_lo + wl MW + nt) + 2 (lane % 4) + e (on the map)."""
+    lane = torch.arange(32).reshape(1, 1, 1, 1, 1, -1)
+    warp = torch.arange(g["warps"]).reshape(-1, 1, 1, 1, 1, 1)
+    ft = torch.arange(2).reshape(1, -1, 1, 1, 1, 1)
+    hf = torch.arange(2).reshape(1, 1, -1, 1, 1, 1)
+    nt = torch.arange(g["MW"]).reshape(1, 1, 1, -1, 1, 1)
+    e = torch.arange(2).reshape(1, 1, 1, 1, -1, 1)
+    wf, wl = warp // g["WL"], warp % g["WL"]
+    r = 32 * wf + 16 * ft + 8 * hf + lane // 4
+    blocks = []
+    for blk in band_f32_blocks(g, N):
+        n0, _, _, rows, nt_lo = blk[:5]
+        m = 8 * (nt_lo + wl * g["MW"] + nt) + 2 * (lane % 4) + e
+        img, f, ok = _f32_rows(g, blk, r)
+        ok = ok & (r < rows) & (m < g["L"])
+        pos = m * W + f if g["long_h"] else f * W + m
+        flat = torch.where(ok, (n0 + img) * (H * W) + pos, -1)
+        # -> (warp, lane, ft, hf, nt, e)
+        blocks.append(flat.permute(0, 5, 1, 2, 3, 4).reshape(
+            32 * g["warps"], -1))
+    return torch.stack(blocks)
+
+
+def band_f32_stats_sums(y: torch.Tensor, kh: int, kw: int):
+    """(s1, s2) of the stored fp32 y as the fp32 band kernel's stats
+    variant sums them: each thread the values it stores
+    (:func:`band_f32_store_order`) and their squares, in order; a block
+    reduction over the block's warps a partial; then
+    ``band_f32_stats_reduce``: thread i the partials i, i + 256, .. in
+    order, and a block reduction (where a channel has one block, its
+    partial is the sum)."""
+    N, C, H, W = y.shape
+    g = band_f32_geometry(N, C, H, W, kh, kw)
+    order = band_f32_store_order(g, N, H, W).to(y.device)
+    flat = y.float().transpose(0, 1).reshape(C, -1)
+    vals = torch.where(order >= 0, flat[:, order.clamp(min=0)],
+                       torch.zeros((), device=y.device))  # (C, bpc, T, S)
+    s = torch.zeros(vals.shape[:-1], device=y.device)
+    q = torch.zeros_like(s)
+    for i in range(vals.shape[-1]):
+        v = vals[..., i]
+        s = s + v
+        q = q + v * v
+    parts = (_block_sum(t, g["warps"]) for t in (s, q))      # (C, bpc)
+    if order.shape[0] == 1:
+        return tuple(t[:, 0] for t in parts)
+    return tuple(_partials_sum(t) for t in parts)
+
+
+def dwconv_band_f32_stats_mirror(x: torch.Tensor, w: torch.Tensor):
+    """The fp32 band kernel's stats variant (K4) in plain PyTorch: (y, s1,
+    s2) with y from :func:`dwconv_band_f32_mirror` and the sums of y in
+    the kernel's order (:func:`band_f32_stats_sums`)."""
+    y = dwconv_band_f32_mirror(x, w)
+    return (y, *band_f32_stats_sums(y, w.shape[1], w.shape[2]))
+
+
 def band_f32_route(x: torch.Tensor, w: torch.Tensor) -> bool:
     """True where the CUDA wrappers launch the fp32 band kernel: float32,
     taps (K, 5) or (5, K) with K != 5, at most F32_ND_MAX live diagonals
@@ -809,6 +883,20 @@ def _band_f32_entries():
     return fn, geom
 
 
+@functools.lru_cache(maxsize=None)
+def _band_f32_stats_entries():
+    from slak_tpu_torch.ops._build import load
+    lib = load("dwconv_f32")
+    scratch = lib.slak_dwconv_band_f32_stats_scratch
+    scratch.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5
+    scratch.restype = ctypes.c_longlong
+    fn = lib.slak_dwconv_band_f32_stats
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return scratch, fn
+
+
 def band_f32_kernel_geometry(N: int, C: int, H: int, W: int, kh: int,
                              kw: int) -> dict:
     """The geometry the fp32 band kernel's host code computes (built on
@@ -847,12 +935,38 @@ def _is_band(route: str, x: torch.Tensor) -> bool:
 
 
 def launch_stats(route: str, x: torch.Tensor, w: torch.Tensor):
-    """One K4 launch on ``route`` ("toeplitz2d", "band" or "tiled"),
-    counted: (conv(x, w), s1, s2). :func:`dwconv_stats` picks the route;
-    probes call this to hold one route against another at the same
-    shapes."""
+    """One K4 launch on ``route`` ("toeplitz2d", "band", "band_f32" or
+    "tiled"), counted: (conv(x, w), s1, s2). :func:`dwconv_stats` picks
+    the route; probes call this to hold one route against another at the
+    same shapes."""
     global stats_launch_count, band_stats_launch_count
-    global toeplitz_stats_launch_count
+    global toeplitz_stats_launch_count, tf32_stats_launch_count
+    if route == "band_f32":
+        if x.dtype != torch.float32:
+            raise TypeError(f"the fp32 band kernel takes float32, not "
+                            f"{x.dtype}")
+        _on_cuda("dwconv_stats", x)
+        _check_cuda("dwconv_stats", x, w)
+        N, C, H, W = x.shape
+        kh, kw = w.shape[1], w.shape[2]
+        scratch_fn, fn = _band_f32_stats_entries()
+        n_part = scratch_fn(N, C, H, W, kh, kw)
+        if n_part < 0:
+            raise RuntimeError(f"dwconv_stats: the band_f32 kernel takes no "
+                               f"{tuple(x.shape)} with taps {(kh, kw)}")
+        out = torch.empty_like(x)
+        buf = torch.empty(n_part + 2 * C, dtype=torch.float32,
+                          device=x.device)             # partials, then sums
+        part, sums = buf[:n_part], buf[n_part:].view(2, C)
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), part.data_ptr(),
+                 sums[0].data_ptr(), sums[1].data_ptr(), N, C, H, W, kh, kw,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"dwconv_stats band_f32 kernel launch failed: "
+                               f"cudaError {err}")
+        stats_launch_count += 1
+        tf32_stats_launch_count += 1
+        return out, sums[0], sums[1]
     if route == "toeplitz2d":
         from slak_tpu_torch.ops import dwconv2d
         _on_cuda("dwconv_stats", x)
@@ -899,7 +1013,8 @@ def dwconv_stats(x: torch.Tensor, w: torch.Tensor):
 
 def _stats_route_of(x: torch.Tensor, w: torch.Tensor) -> str:
     return ("toeplitz2d" if toeplitz2d_route(x, w) else
-            "band" if band_route(x, w) else "tiled")
+            "band" if band_route(x, w) else
+            "band_f32" if band_f32_route(x, w) else "tiled")
 
 
 def _route_of(x: torch.Tensor, w: torch.Tensor) -> str:

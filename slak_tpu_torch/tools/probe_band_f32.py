@@ -13,6 +13,23 @@ over rounds, fresh inputs each round) beside its bound (the bytes against
 the lesser of the 3xTF32 and the FFMA operations) and the time of
 ``F.conv2d(groups=C)``. Needs one CUDA card.
 
+    python3 -m slak_tpu_torch.tools.probe_band_f32 --stats [--rounds 5]
+        [--turns 8]
+
+times fp32 K4 (the band kernel's stats variant, route "band_f32" of
+``launch_stats``) against K1 on the same kernel, against the tiled
+kernel's K4 (which served fp32 K4 before) and against ``F.conv2d`` and the
+two sums, at the detection backbone's four 800^2 stage shapes (batch 2)
+and the flagship's 224^2 train shapes (batch 128), both orientations;
+each K4 is checked against the plain version (y and both sums within
+1e-5 of their scale; the band kernel's sums the same bits twice and the
+bits ``band_f32_stats_sums`` adds from its y). The two K4 routes are
+timed in ``--turns`` alternating turns (tiled, band_f32, band_f32,
+tiled, ...), each turn both on CUDA events around the wrapper calls and
+as the device time of the route's kernels (``torch.profiler``, summed
+over the launch's kernels, the host's gaps left out); a row gives every
+turn and each route's median. Needs one CUDA card.
+
     python3 -m slak_tpu_torch.tools.probe_band_f32 --ablate
 
 builds ``ops/csrc/dwconv_f32.cu`` as it is, with phases of the kernel
@@ -232,13 +249,105 @@ def ablate(rounds: int = 5):
     return rows
 
 
+# (tag, batch, C, H, K): the det backbone at 800^2, the fp32 train step at
+# 224^2
+STATS = (("det_s1", 2, 124, 200, 51), ("det_s2", 2, 249, 100, 49),
+         ("det_s3", 2, 499, 50, 47), ("det_s4", 2, 998, 25, 13),
+         ("train_s1", 128, 124, 56, 51), ("train_s2", 128, 249, 28, 49),
+         ("train_s3", 128, 499, 14, 47), ("train_s4", 128, 998, 7, 13))
+
+
+def device_ms(call, n: int = 10) -> float:
+    """Device ms a call: the kernels' time over ``n`` calls
+    (``probe_mlp.kernel_times``), summed over the call's kernels."""
+    from slak_tpu_torch.tools.probe_mlp import kernel_times
+    return sum(kernel_times(call, n).values()) * 1e-3
+
+
+def run_stats(rounds: int = 5, turns: int = 4):
+    """One row a (shape, orientation): K4 on the fp32 band kernel and on
+    the tiled kernel (errors; ms and device ms in ``turns`` alternating
+    turns, and their medians), K1 on the band kernel and the library
+    composition (ms), the bound (x read, y written, the sums)."""
+    import statistics
+    dev = require_cuda("probe_band_f32")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows, bad = [], []
+    for tag, n, c, h, k in STATS:
+        x = torch.randn(n, c, h, h, generator=g, device=dev)
+
+        def fresh():
+            x.copy_(torch.randn(x.shape, generator=g, device=dev))
+        for taps in ((k, 5), (5, k)):
+            w = torch.randn(c, *taps, generator=g, device=dev) * 0.05
+            row = dict(shape=tag, batch=n, C=c, H=h, taps=list(taps),
+                       **bound(n, c, h, taps))
+            for name in ("band_f32", "tiled"):
+                # the plain version of this route's x (timing refreshes x)
+                yp, p1, p2 = K1.dwconv_stats_plain(x, w)
+                scale = yp.abs().sum((0, 2, 3)).max().clamp(min=1e-30)
+                y, s1, s2 = K1.launch_stats(name, x, w)
+                _, t1, t2 = K1.launch_stats(name, x, w)
+                errs = dict(y=rel(y, yp), sums=max(
+                    ((a - b).abs().max() / scale).item()
+                    for a, b in ((s1, p1), (s2, p2))),
+                    same_bits=bool(torch.equal(s1, t1)
+                                   and torch.equal(s2, t2)))
+                if name == "band_f32":
+                    m1, m2 = K1.band_f32_stats_sums(y, *taps)
+                    errs["mirror_bits"] = bool(torch.equal(s1, m1)
+                                               and torch.equal(s2, m2))
+                row[name + "_err"] = errs
+                if (errs["y"] > TOL or errs["sums"] > TOL
+                        or not errs["same_bits"]
+                        or not errs.get("mirror_bits", True)):
+                    bad.append((tag, taps, name, errs))
+            order = [("tiled", "band_f32", "band_f32", "tiled")[t % 4]
+                     for t in range(turns)]
+            ms = {"tiled": [], "band_f32": []}
+            dms = {"tiled": [], "band_f32": []}
+            for name in order:
+                def call(name=name):
+                    return K1.launch_stats(name, x, w)
+                ms[name].append(time_ms(call, fresh, rounds=rounds))
+                dms[name].append(device_ms(call))
+            for name in ms:
+                row[name + "_ms"] = statistics.median(ms[name])
+                row[name + "_device_ms"] = statistics.median(dms[name])
+                row[name + "_turns_ms"] = ms[name]
+                row[name + "_turns_device_ms"] = dms[name]
+            row["order"] = order
+            row["k1_band_f32_ms"] = time_ms(
+                lambda: K1.launch("band_f32", x, w), fresh, rounds=rounds)
+            wl = w[:, None]
+
+            def lib():
+                y = F.conv2d(x, wl, padding=(taps[0] // 2, taps[1] // 2),
+                             groups=c)
+                return y.sum((0, 2, 3)), y.square().sum((0, 2, 3))
+            row["library_ms"] = time_ms(lib, fresh, rounds=rounds)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        del x
+        torch.cuda.empty_cache()
+    if bad:
+        raise RuntimeError(f"probe_band_f32: off: {bad}")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--stats", action="store_true",
+                    help="fp32 K4 at the det and train shapes")
+    ap.add_argument("--turns", type=int, default=4,
+                    help="--stats: alternating turns of the two K4 routes")
     args = ap.parse_args(argv)
     print(device_line(), flush=True)
-    rows = (ablate if args.ablate else run)(args.rounds)
+    rows = (ablate(args.rounds) if args.ablate
+            else run_stats(args.rounds, args.turns) if args.stats
+            else run(args.rounds))
     print(json.dumps({"probe_band_f32": rows}))
     return 0
 

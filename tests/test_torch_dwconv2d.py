@@ -164,7 +164,7 @@ def test_geometry_covers_every_plane_once(N):
 def test_routes():
     """bf16 on maps with H * W <= P_MAX takes K6's kernel in both K1 and
     K4, whatever the odd taps; bf16 14x14 stays on the band kernel, fp32
-    7x7 on the fp32 band kernel (K1) and the tiled kernel (K4)."""
+    7x7 on the fp32 band kernel (K1 and K4)."""
     def routes(dtype, H, W, kh, kw):
         x, w = torch.empty(1, 1, H, W, dtype=dtype), torch.empty(1, kh, kw)
         return (K1.toeplitz2d_route(x, w), K1._route_of(x, w),
@@ -175,7 +175,7 @@ def test_routes():
     assert routes(bf, 8, 8, 13, 5)[1] == "toeplitz2d"
     assert routes(bf, 14, 14, 47, 5) == (False, "band", "band")
     assert routes(bf, 14, 14, 5, 47) == (False, "band", "band")
-    assert routes(f32, 7, 7, 13, 5) == (False, "band_f32", "tiled")
+    assert routes(f32, 7, 7, 13, 5) == (False, "band_f32", "band_f32")
     assert routes(bf, 9, 8, 13, 5)[1] == "band"
     with pytest.raises(ValueError):
         K6.dwconv2d_geometry(1, 1, 9, 8, 13, 5)

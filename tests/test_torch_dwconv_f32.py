@@ -138,17 +138,17 @@ def test_band_f32_route():
 
 def test_band_f32_launch_checks():
     """The named-route launch runs only on the card: an unknown route,
-    bf16 on the fp32 band route, the fp32 band route for the stats variant
-    and a CPU tensor raise before any kernel loads; the mirror refuses
-    what the kernel does not take."""
+    bf16 on the fp32 band route (K1 and the stats variant) and a CPU
+    tensor raise before any kernel loads; the mirror refuses what the
+    kernel does not take."""
     x = torch.zeros(1, 2, 8, 8)
     w = torch.zeros(2, 9, 5)
     with pytest.raises(ValueError):
         K1.launch("band32", x, w)
     with pytest.raises(TypeError):
         K1.launch("band_f32", x.bfloat16(), w)
-    with pytest.raises(ValueError):
-        K1.launch_stats("band_f32", x, w)
+    with pytest.raises(TypeError):
+        K1.launch_stats("band_f32", x.bfloat16(), w)
     with pytest.raises(RuntimeError, match="runs on cuda"):
         K1.launch("band_f32", x, w)
     with pytest.raises(TypeError):
